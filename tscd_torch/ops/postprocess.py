@@ -1,0 +1,70 @@
+"""Fixed-shape detection postprocess (counterpart of
+tscd_tpu/ops/postprocess.py), batched over a leading frame axis.
+
+Detection row convention: (x1, y1, x2, y2, obj, score, cls).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from .nms import batched_class_aware_nms, top_k
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor   # (L, K, 4) xyxy
+    obj: torch.Tensor     # (L, K)
+    score: torch.Tensor   # (L, K) class prob (NMS key = obj*score)
+    cls_id: torch.Tensor  # (L, K) int
+    mask: torch.Tensor    # (L, K) bool
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if x.dim() == 3:
+        return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+    return torch.gather(x, 1, idx)
+
+
+def postprocess_refined(boxes: torch.Tensor, obj: torch.Tensor,
+                        cls_scores: torch.Tensor, valid: torch.Tensor,
+                        conf_thre: float = 0.001, nms_thre: float = 0.5,
+                        out_k: int = 100) -> Detections:
+    """Per frame, over P proposals with (P, C) refined class
+    probabilities (reference post_process.py:9): every (proposal, class)
+    pair with prob >= conf_thre and obj*prob >= conf_thre enters
+    class-aware NMS with key obj*prob. boxes (L, P, 4), obj (L, P),
+    cls_scores (L, P, C), valid (L, P)."""
+    L, P, C = cls_scores.shape
+    pair_boxes = boxes.repeat_interleave(C, dim=1)            # (L, P*C, 4)
+    pair_obj = obj.repeat_interleave(C, dim=1)
+    pair_cls = torch.arange(C, device=boxes.device).repeat(P).expand(L, -1)
+    pair_score = cls_scores.reshape(L, P * C)
+    pair_valid = (valid.repeat_interleave(C, dim=1)
+                  & (pair_score >= conf_thre)
+                  & (pair_obj * pair_score >= conf_thre))
+    nms_key = pair_obj * pair_score
+    keep = batched_class_aware_nms(pair_boxes, nms_key, pair_cls, pair_valid,
+                                   nms_thre)
+    surv = torch.where(keep, nms_key, torch.full_like(nms_key, -float("inf")))
+    out_scores, pick = top_k(surv, min(out_k, P * C))
+    return Detections(_take(pair_boxes, pick), _take(pair_obj, pick),
+                      _take(pair_score, pick), _take(pair_cls, pick),
+                      out_scores > -float("inf"))
+
+
+def postprocess_best_class(boxes: torch.Tensor, obj: torch.Tensor,
+                           cls_conf: torch.Tensor, cls_id: torch.Tensor,
+                           valid: torch.Tensor, conf_thre: float = 0.001,
+                           nms_thre: float = 0.5,
+                           out_k: int = 100) -> Detections:
+    """Per frame, each proposal's best class only (the reference's
+    `result_ori` branch, post_process.py:69-81)."""
+    P = boxes.shape[1]
+    key = obj * cls_conf
+    ok = valid & (key >= conf_thre)
+    keep = batched_class_aware_nms(boxes, key, cls_id, ok, nms_thre)
+    surv = torch.where(keep, key, torch.full_like(key, -float("inf")))
+    out_scores, pick = top_k(surv, min(out_k, P))
+    return Detections(_take(boxes, pick), _take(obj, pick),
+                      _take(cls_conf, pick), _take(cls_id, pick),
+                      out_scores > -float("inf"))
