@@ -7,7 +7,8 @@ Phases, each of which raises on failure (so the run exits non-zero):
   1. setup   build the three CUDA kernels from tscd_torch/csrc with nvcc;
              TF32 off for convs and matmuls (fp32 comparisons).
   2. kernels each kernel against its plain PyTorch version on the card,
-             at main-path shapes, max abs diff beside its tolerance; then
+             at main-path shapes (the stem also at the selftest's width
+             and a ragged shape), max abs diff beside its tolerance; then
              each kernel's time, its plain version's time, the nearest
              single PyTorch call's time and its bound.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
@@ -198,16 +199,24 @@ def kernel_phase(torch, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None, dijkstra_steps=steps)
 
     # -- Focus stem: 4 frames for the check, 32 (the window) for time ----
-    # fp32 sums of 108 taps over pixel values up to 255: 1e-4 relative
+    # fp32 sums of 108 taps over pixel values up to 255: 1e-4 relative.
+    # Checked at TSCD-Large's width, the selftest's (O = 8) and a ragged
+    # single frame whose last tiles are partly outside the image.
+    serr = 0.0
+    for (Fr, H, W), O in (((4, 576, 576), 64), ((4, 128, 128), 8), ((1, 70, 34), 16)):
+        w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
+        scale = t(rng.uniform(0.5, 1.5, O))
+        shift = t(rng.normal(0, 0.5, O))
+        xc = t(rng.uniform(0, 255, (Fr, H, W, 3)))
+        got, want = fs.focus_stem(xc, w3, scale, shift), fs.focus_stem_plain(xc, w3, scale, shift)
+        torch.cuda.synchronize()
+        serr = max(serr, check_close(f"focus_stem ({Fr}, {H}, {W}, 3) -> {O}",
+                                     got, want, atol=1e-3, rtol=1e-4))
+        del xc, got, want
     O = 64
     w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
     scale = t(rng.uniform(0.5, 1.5, O))
     shift = t(rng.normal(0, 0.5, O))
-    x4 = t(rng.uniform(0, 255, (4, 576, 576, 3)))
-    got, want = fs.focus_stem(x4, w3, scale, shift), fs.focus_stem_plain(x4, w3, scale, shift)
-    torch.cuda.synchronize()
-    serr = check_close("focus_stem (4, 576, 576, 3)", got, want, atol=1e-3, rtol=1e-4)
-    del x4, got, want
     x32 = t(rng.uniform(0, 255, (32, 576, 576, 3)))
     w6 = fs.rearrange_weight(w3, scale)
     x32_nchw = x32.permute(0, 3, 1, 2)       # channels_last view, no copy
@@ -345,6 +354,29 @@ def full_phase(torch, counters):
     return launches
 
 
+KERNEL_CLASSES = (   # first match wins
+    ("cuDNN implicit-GEMM convs", ("fprop", "implicit_convolve", "convolve_common")),
+    ("cuDNN FFT convs", ("fft", "pointwise_mult_and_sum_complex")),
+    ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
+    ("BatchNorm inference", ("bn_fw_inf",)),
+    ("SiLU", ("silu_kernel",)),
+    ("hand kernels", ("focus_stem_kernel", "fused_dual_attention_kernel",
+                      "linear_sum_assignment_kernel")),
+    ("frame upload", ("Memcpy HtoD",)),
+)
+
+
+def breakdown(table):
+    """Device ms by kernel class over rows {"name", "ms"}."""
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out["the rest"] = 0.0
+    for row in table:
+        cls = next((name for name, keys in KERNEL_CLASSES
+                    if any(k in row["name"] for k in keys)), "the rest")
+        out[cls] += row["ms"]
+    return out
+
+
 def profile_window(torch, pred, exp):
     """Device time by kernel over one more window (torch.profiler), and
     the window's device-busy time; its launches are not counted."""
@@ -359,8 +391,17 @@ def profile_window(torch, pred, exp):
                    if e.device_type == DeviceType.CUDA
                    and e.key != "Activity Buffer Request"),
                   key=lambda r: -r[1])
+    # every kernel and its class, for PERF.md's breakdown
+    table = [{"name": k, "ms": ms, "calls": n} for k, ms, n in rows]
+    by_class = breakdown(table)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "profile_window.json"), "w") as f:
+        json.dump({"by_class": by_class, "kernels": table}, f)
+    # cuDNN's layout transposes, paid where a conv's input and its chosen
+    # algorithm disagree on the memory format
     emit({"phase": "profile", "window_ms": lat[0],
           "device_busy_ms": sum(r[1] for r in rows),
+          "transpose_ms": by_class["cuDNN layout transposes"],
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
 
 

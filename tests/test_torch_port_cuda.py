@@ -69,16 +69,27 @@ def test_cuda_hungarian_equals_plain(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F,H,W,O", [(2, 128, 96, 64), (1, 70, 34, 16)])
-def test_cuda_focus_stem_matches_plain(card, F, H, W, O):
+@pytest.mark.parametrize("F,H,W,O,border", [
+    (2, 128, 96, 64, False),
+    (1, 70, 34, 16, False),       # single frame, ragged last tiles
+    (4, 128, 128, 8, False),      # the selftest's width
+    (300, 16, 24, 64, False),     # more tiles than the persistent grid has blocks
+    (2, 70, 66, 64, True)])       # large border pixels: padding must be zeros
+def test_cuda_focus_stem_matches_plain(card, F, H, W, O, border):
     rng = np.random.default_rng(8)
+    x = rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32)
+    if border:
+        for edge in (np.s_[:, :2], np.s_[:, -2:], np.s_[:, :, :2], np.s_[:, :, -2:]):
+            x[edge] = 4e3
     ins = [torch.from_numpy(a).to(card) for a in (
-        rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32),
-        rng.normal(0, 0.1, (O, 12, 3, 3)).astype(np.float32),
+        x, rng.normal(0, 0.1, (O, 12, 3, 3)).astype(np.float32),
         rng.uniform(0.5, 1.5, O).astype(np.float32),
         rng.normal(0, 0.5, O).astype(np.float32))]
     torch.backends.cudnn.allow_tf32 = False
+    n0 = pfs.focus_stem.launches
     got = pfs.focus_stem(*ins)
-    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    assert pfs.focus_stem.launches == n0 + 1
+    assert got.shape == (F, O, H // 2, W // 2) and got.is_contiguous()
     torch.testing.assert_close(got, pfs.focus_stem_plain(*ins),
                                atol=1e-3, rtol=1e-4)

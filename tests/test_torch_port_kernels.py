@@ -22,6 +22,7 @@ from tscd_tpu.ops.pallas import focus_stem as jfs
 from tscd_tpu.ops.pallas.fused_attention import (dual_attention_reference,
                                                  fused_dual_attention as jfused)
 from tscd_tpu.ops.pallas.hungarian import linear_sum_assignment_pallas
+from tscd_torch.models.darknet import CSPDarknet
 from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
@@ -150,6 +151,19 @@ def test_focus_stem_plain_matches_focus_conv_eval():
     got = pfs.focus_stem(*map(torch.from_numpy, (x, w3, s, beta - mean * s)))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
                                atol=1e-3, rtol=1e-4)
+
+
+def test_focus_cpu_output_is_nchw_like_the_card():
+    """The kernel writes NCHW (tests/test_torch_port_cuda.py checks it);
+    the CPU path hands the backbone the same memory format, so that the
+    convs after the stem run in one layout on both devices."""
+    x, *_ = _stem_inputs(np.random.default_rng(6), 2, 64, 64, 8)
+    net = CSPDarknet(0.33, 0.125).eval()
+    with torch.no_grad():
+        stem = net.stem(torch.from_numpy(x))
+        dark2 = net.dark2(stem)
+    assert stem.shape == (2, 8, 32, 32) and stem.is_contiguous()
+    assert dark2.is_contiguous()
 
 
 def test_cpu_tensors_never_count_a_launch():

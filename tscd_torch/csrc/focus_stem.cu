@@ -7,99 +7,240 @@
 // kx = 2v + dx for the s2d channel (dx*2 + dy)*C + c of the 3x3 kernel.
 //
 // Layout: x (F, H, W, 3) fp32 NHWC; w (6, 6, 3, OC); shift (OC);
-// out (F, H/2, W/2, OC), which is channels_last for a (F, OC, H/2, W/2)
-// tensor. OC must be a multiple of 8.
+// out (F, OC, H/2, W/2) NCHW, the layout every conv after the stem runs
+// in. H and W even, OC a multiple of 8.
 //
-// Design: a direct convolution. A block computes a tile of 8 x 32 output
-// pixels for every output channel. The halo tile of the image it needs
-// (20 rows x 68 columns x 3 channels) and all 108 x OC folded weights sit
-// in shared memory; each thread owns one output pixel and runs the 108
-// taps for 8 output channels at a time, then adds the shift and applies
-// SiLU before the store. C_in = 3 gives a generic conv only 3 values of
-// reduction per tap, which is why the stem has a kernel of its own.
-// Bound at (32, 576, 576, 3) -> 64 channels: 127 MB read, 679 MB written
-// (0.24 ms at 3.35 TB/s) and 36.7 GFLOP of fp32 FMA (0.55 ms at
-// 67 TFLOP/s), so operations bound it.
+// Bound at (32, 576, 576, 3) -> 64 channels: 127 MB read and 679 MB
+// written (0.24 ms at 3.35 TB/s) against 36.7 GFLOP of fp32 FMA (0.548 ms
+// at 67 TFLOP/s), so operations bound it: the kernel has to keep the FMA
+// pipes busy, and every other instruction takes one of their slots.
+//
+// Design, all in fp32 FMA on the CUDA cores (no TF32):
+// - Persistent blocks of 256 threads (8 warps), as many as fit on the SMs
+//   at once (2 per SM at OC = 64). Each loads the 108 x OC folded weights
+//   (27.6 KB at OC = 64) into shared memory once, each channel block's
+//   taps contiguous, then walks output tiles (frame, tile row, tile
+//   column) with a stride of the grid size.
+// - A tile is TH x 32 output pixels for all OC channels, TH = 4 * RG.
+//   A thread owns 4 neighbouring output columns of one row and CB = 16
+//   (or 8, if OC is not a multiple of 16) channels: 64 accumulators. Each
+//   warp takes (row group, channel block) items: 4 rows x 32 columns x CB
+//   channels, 8 lanes to a row. RG = max(1, 8 / (OC / CB)) row groups, so
+//   at OC = 64 the tile is 8 x 32 and each warp holds one item.
+// - The halo of a tile (2TH+4 rows x 68 columns x 3 channels) is copied
+//   with 4-byte cp.async, double buffered: tile t+1's halo is in flight
+//   while tile t is computed. The copy splits columns by parity and
+//   channel into lines of 36 floats, so that the 6 inputs a thread needs
+//   for one (ky, c, kx parity) sit at 4 neighbouring addresses and two
+//   conflict-free 16-byte loads fetch them; the zero padding is the
+//   copy's src-size-0 form.
+// - Per (ky, c, parity): 2 x loads, then 3 taps of CB/4 broadcast
+//   16-byte weight loads and 4 x CB FMAs: at CB = 16, 14 shared loads to
+//   192 FMAs, so the FMAs set the pace.
+// - Epilogue: + shift, SiLU with the accurate expf, and per channel one
+//   16-byte store of the 4 pixels (8 lanes write 128 contiguous bytes);
+//   masked scalar stores at the ragged edge or where W/2 % 4 != 0.
+// Registers are capped at 128 a thread by __launch_bounds__(256, 2);
+// shared memory per block is 4 * (108 OC + OC + 2 * 3 * (2TH+4) * 72)
+// bytes, 62.5 KB at OC = 64. `-Xptxas -v` output is in
+// build/kernels/build.log.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int TH = 8;    // output rows per block
-constexpr int TW = 32;   // output columns per block
 constexpr int CIN = 3;
 constexpr int KS = 6;
-constexpr int IN_H = 2 * TH + KS - 2;   // 20 input rows
-constexpr int IN_W = 2 * TW + KS - 2;   // 68 input columns
-constexpr int ROW = IN_W * CIN;         // floats per halo row
-constexpr int TAPS = KS * KS * CIN;     // 108
-constexpr int OCB = 8;                  // output channels per pass
+constexpr int TAPS = KS * KS * CIN;       // 108
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int PX = 4;                     // output columns per thread
+constexpr int TW = 32;                    // output columns per tile
+constexpr int WARP_ROWS = 4;              // output rows per warp item
+constexpr int HALO_W = 2 * TW + KS - 2;   // 68 input columns
+constexpr int LINE = HALO_W / 2 + 2;      // 36 floats per (c, row, parity)
 
-__global__ void __launch_bounds__(TH * TW)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+struct Tiles {
+  int H, W, H2, W2, O, TH, HR, tiles_x, per_frame, n;
+};
+
+// Starts the copy of `tile`'s halo into `dst`: element (c, r, k) of the
+// window at input rows iy0.., columns ix0.. lands at
+// ((c * HR + r) * 2 + k % 2) * LINE + k / 2. Thread m < 204 copies
+// element m = 3k + c of every row, so a warp reads consecutive floats.
+__device__ __forceinline__ void load_halo(float* dst, const float* x,
+                                          int tile, const Tiles& g) {
+  const int m = threadIdx.x;
+  if (m >= HALO_W * CIN) return;
+  const int f = tile / g.per_frame;
+  const int rem = tile - f * g.per_frame;
+  const int ty = rem / g.tiles_x, tx = rem - ty * g.tiles_x;
+  const int iy0 = 2 * ty * g.TH - 2, ix0 = 2 * tx * TW - 2;
+  const int k = m / CIN, c = m - k * CIN;
+  const int ix = ix0 + k;
+  const bool col_in = ix >= 0 && ix < g.W;
+  const long long row = static_cast<long long>(g.W) * CIN;
+  long long src = (static_cast<long long>(f) * g.H + iy0) * row + ix * CIN + c;
+  float* d = dst + (c * g.HR * 2 + (k & 1)) * LINE + (k >> 1);
+#pragma unroll 4
+  for (int r = 0; r < g.HR; ++r, src += row, d += 2 * LINE) {
+    const int iy = iy0 + r;
+    const bool in = col_in && iy >= 0 && iy < g.H;
+    cp_async4(d, in ? x + src : x, in ? 4 : 0);
+  }
+}
+
+template <int CB>
+__global__ void __launch_bounds__(THREADS, 2)
 focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ shift, float* __restrict__ out,
-                  int H, int W, int OC) {
-  extern __shared__ float smem[];
-  float* s_x = smem;                    // IN_H x ROW
-  float* s_w = s_x + IN_H * ROW;        // TAPS x OC
-  float* s_shift = s_w + TAPS * OC;     // OC
+                  Tiles g, int rg) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                         // (O / CB) x TAPS x CB
+  float* s_shift = s_w + TAPS * g.O;         // O
+  float* s_x = s_shift + g.O;                // 2 halo buffers
+  const int buf = CIN * g.HR * 2 * LINE;
+  const int plane = g.HR * 2 * LINE;         // one input channel
 
-  const int H2 = H / 2, W2 = W / 2;
-  const int f = blockIdx.z;
-  const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
-  const int iy0 = 2 * oy0 - 2, ix0 = 2 * ox0 - 2;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  constexpr int NT = TH * TW;
-
-  for (int idx = tid; idx < TAPS * OC; idx += NT) s_w[idx] = w[idx];
-  for (int idx = tid; idx < OC; idx += NT) s_shift[idx] = shift[idx];
-  const float* xf = x + static_cast<size_t>(f) * H * W * CIN;
-  for (int idx = tid; idx < IN_H * ROW; idx += NT) {
-    const int r = idx / ROW, col = idx - r * ROW;
-    const int iy = iy0 + r, ix = ix0 + col / CIN;
-    float val = 0.f;
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      val = xf[(static_cast<size_t>(iy) * W + ix0) * CIN + col];
-    s_x[idx] = val;
+  // each channel block's taps contiguous, so that weight offsets in the
+  // tap loop are constants
+  for (int i = threadIdx.x; i < TAPS * g.O; i += THREADS) {
+    const int tap = i / g.O, o = i - tap * g.O;
+    s_w[((o / CB) * TAPS + tap) * CB + o % CB] = w[i];
   }
-  __syncthreads();
+  for (int i = threadIdx.x; i < g.O; i += THREADS) s_shift[i] = shift[i];
 
-  const int oy = oy0 + threadIdx.y, ox = ox0 + threadIdx.x;
-  if (oy >= H2 || ox >= W2) return;
-  const float* px = s_x + 2 * threadIdx.y * ROW + 2 * threadIdx.x * CIN;
-  float* po = out + ((static_cast<size_t>(f) * H2 + oy) * W2 + ox) * OC;
-  for (int oc0 = 0; oc0 < OC; oc0 += OCB) {
-    float acc[OCB];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane & 7;                    // columns 4q .. 4q+3 of the tile
+  const int items = rg * (g.O / CB);
+
+  int tile = blockIdx.x;
+  if (tile < g.n) load_halo(s_x, x, tile, g);
+  cp_async_commit();
+  for (int it = 0; tile < g.n; ++it, tile += gridDim.x) {
+    const float* cur = s_x + (it & 1) * buf;
+    const int next = tile + gridDim.x;
+    if (next < g.n) load_halo(s_x + ((it + 1) & 1) * buf, x, next, g);
+    cp_async_commit();                       // possibly empty: keeps the count
+    cp_async_wait<1>();                      // this tile's halo has landed
+    __syncthreads();
+
+    const int f = tile / g.per_frame;
+    const int rem = tile - f * g.per_frame;
+    const int ty = rem / g.tiles_x, tx = rem - ty * g.tiles_x;
+    for (int item = warp; item < items; item += WARPS) {
+      const int cb = item / rg;
+      const int lr = (item - cb * rg) * WARP_ROWS + (lane >> 3);
+      const float* xs = cur + 4 * lr * LINE + 4 * q;   // row 2*lr, parity 0
+      const float* ws = s_w + cb * TAPS * CB;
+      float acc[PX][CB];                     // starts at the shift
 #pragma unroll
-    for (int o = 0; o < OCB; ++o) acc[o] = 0.f;
-    for (int ky = 0; ky < KS; ++ky) {
+      for (int o = 0; o < CB; ++o) {
+        const float s = s_shift[cb * CB + o];
 #pragma unroll
-      for (int t = 0; t < KS * CIN; ++t) {   // (kx, c) along the halo row
-        const float xv = px[ky * ROW + t];
-        const float4* wr = reinterpret_cast<const float4*>(
-            s_w + (ky * KS * CIN + t) * OC + oc0);
-        const float4 w0 = wr[0], w1 = wr[1];
-        acc[0] = fmaf(xv, w0.x, acc[0]);
-        acc[1] = fmaf(xv, w0.y, acc[1]);
-        acc[2] = fmaf(xv, w0.z, acc[2]);
-        acc[3] = fmaf(xv, w0.w, acc[3]);
-        acc[4] = fmaf(xv, w1.x, acc[4]);
-        acc[5] = fmaf(xv, w1.y, acc[5]);
-        acc[6] = fmaf(xv, w1.z, acc[6]);
-        acc[7] = fmaf(xv, w1.w, acc[7]);
+        for (int i = 0; i < PX; ++i) acc[i][o] = s;
+      }
+
+#pragma unroll 1
+      for (int ky = 0; ky < KS; ++ky) {
+#pragma unroll
+        for (int c = 0; c < CIN; ++c) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const float* xr = xs + c * plane + (2 * ky + p) * LINE;
+            const float4 x0 = *reinterpret_cast<const float4*>(xr);
+            const float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
+            const float xv[6] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y};
+#pragma unroll
+            for (int a = 0; a < 3; ++a) {            // kx = 2a + p
+              const float* wr = ws + ((ky * KS + 2 * a + p) * CIN + c) * CB;
+#pragma unroll
+              for (int o4 = 0; o4 < CB / 4; ++o4) {
+                const float4 wv = *reinterpret_cast<const float4*>(wr + 4 * o4);
+#pragma unroll
+                for (int i = 0; i < PX; ++i) {
+                  acc[i][4 * o4 + 0] = fmaf(xv[i + a], wv.x, acc[i][4 * o4 + 0]);
+                  acc[i][4 * o4 + 1] = fmaf(xv[i + a], wv.y, acc[i][4 * o4 + 1]);
+                  acc[i][4 * o4 + 2] = fmaf(xv[i + a], wv.z, acc[i][4 * o4 + 2]);
+                  acc[i][4 * o4 + 3] = fmaf(xv[i + a], wv.w, acc[i][4 * o4 + 3]);
+                }
+              }
+            }
+          }
+        }
+      }
+
+      const int oy = ty * g.TH + lr, ox = tx * TW + PX * q;
+      if (oy < g.H2 && ox < g.W2) {
+        const bool vec = (g.W2 & 3) == 0;    // then ox + 3 < W2 as well
+#pragma unroll
+        for (int o = 0; o < CB; ++o) {
+          float y[PX];
+#pragma unroll
+          for (int i = 0; i < PX; ++i) {
+            const float v = acc[i][o];
+            y[i] = __fdividef(v, 1.f + expf(-v));
+          }
+          float* dst = out + ((static_cast<size_t>(f) * g.O + cb * CB + o) * g.H2 + oy)
+                                 * g.W2 + ox;
+          if (vec) {
+            *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < PX; ++i)
+              if (ox + i < g.W2) dst[i] = y[i];
+          }
+        }
       }
     }
-    float y[OCB];
-#pragma unroll
-    for (int o = 0; o < OCB; ++o) {
-      const float v = acc[o] + s_shift[oc0 + o];
-      y[o] = v / (1.f + expf(-v));
-    }
-    float4* dst = reinterpret_cast<float4*>(po + oc0);
-    dst[0] = make_float4(y[0], y[1], y[2], y[3]);
-    dst[1] = make_float4(y[4], y[5], y[6], y[7]);
+    __syncthreads();                         // before this buffer is refilled
   }
+  cp_async_wait<0>();
+}
+
+template <int CB>
+int launch(const float* x, const float* w, const float* shift, float* out,
+           int F, int H, int W, int OC, cudaStream_t stream) {
+  const int rg = (OC / CB) >= WARPS ? 1 : WARPS / (OC / CB);
+  Tiles g;
+  g.H = H; g.W = W; g.H2 = H / 2; g.W2 = W / 2; g.O = OC;
+  g.TH = WARP_ROWS * rg;
+  g.HR = 2 * g.TH + KS - 2;
+  g.tiles_x = (g.W2 + TW - 1) / TW;
+  g.per_frame = ((g.H2 + g.TH - 1) / g.TH) * g.tiles_x;
+  g.n = F * g.per_frame;
+  const size_t smem = sizeof(float) * (TAPS * OC + OC + 2 * CIN * g.HR * 2 * LINE);
+  cudaError_t err = cudaFuncSetAttribute(
+      focus_stem_kernel<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, focus_stem_kernel<CB>, THREADS, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = g.n < per_sm * sms ? g.n : per_sm * sms;
+  focus_stem_kernel<CB><<<grid, THREADS, smem, stream>>>(x, w, shift, out, g, rg);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -107,17 +248,14 @@ focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
 extern "C" int tscd_focus_stem(const void* x, const void* w, const void* shift,
                                void* out, int F, int H, int W, int C, int OC,
                                void* stream) {
-  if (C != CIN || OC < OCB || OC % OCB != 0 || H % 2 || W % 2 || F < 1)
+  if (C != CIN || OC < 8 || OC % 8 != 0 || H < 2 || W < 2 || H % 2 || W % 2 ||
+      F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (IN_H * ROW + TAPS * OC + OC);
-  cudaError_t err = cudaFuncSetAttribute(
-      focus_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(TW, TH);
-  const dim3 grid((W / 2 + TW - 1) / TW, (H / 2 + TH - 1) / TH, F);
-  focus_stem_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(shift), static_cast<float*>(out), H, W, OC);
-  return static_cast<int>(cudaGetLastError());
+  const auto xs = static_cast<const float*>(x);
+  const auto ws = static_cast<const float*>(w);
+  const auto ss = static_cast<const float*>(shift);
+  const auto os = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return OC % 16 == 0 ? launch<16>(xs, ws, ss, os, F, H, W, OC, st)
+                      : launch<8>(xs, ws, ss, os, F, H, W, OC, st);
 }

@@ -40,8 +40,9 @@ def focus_stem_plain(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version in the Focus module's own terms: s2d, the
     3x3 conv, folded BN, SiLU. x (F, H, W, 3) NHWC fp32; w3 (O, 12, 3, 3);
-    scale/shift (O,). Returns (F, O, H/2, W/2)."""
-    xs = space_to_depth(x.permute(0, 3, 1, 2).to(torch.float32))
+    scale/shift (O,). Returns (F, O, H/2, W/2), contiguous (NCHW) like
+    the kernel's output."""
+    xs = space_to_depth(x.permute(0, 3, 1, 2).to(torch.float32).contiguous())
     y = F.conv2d(xs, w3.to(torch.float32), padding=w3.shape[-1] // 2)
     y = y * scale[None, :, None, None] + shift[None, :, None, None]
     return F.silu(y)
@@ -51,8 +52,8 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor) -> torch.Tensor:
     """Fused eval stem. Arguments as in `focus_stem_plain`. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel, which
-    writes (F, H/2, W/2, O), returned as the (F, O, H/2, W/2) tensor in
-    channels_last memory."""
+    writes the (F, O, H/2, W/2) result contiguous (NCHW), the memory
+    format of the plain version and of every conv after the stem."""
     if x.device.type == "cpu":
         return focus_stem_plain(x, w3, scale, shift)
     if x.device.type != "cuda":
@@ -68,7 +69,7 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
     w6 = rearrange_weight(w3.to(torch.float32), scale.to(torch.float32))
     wk = w6.permute(2, 3, 1, 0).contiguous()           # (ky, kx, c, o)
     sh = shift.to(torch.float32).contiguous()
-    out = torch.empty(Fr, H // 2, W // 2, O, device=x.device,
+    out = torch.empty(Fr, O, H // 2, W // 2, device=x.device,
                       dtype=torch.float32)
     lib = library.load()
     with torch.cuda.device(x.device):
@@ -77,7 +78,7 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                                  out.data_ptr(), Fr, H, W, C, O, stream)
     library.check(lib, rc, "focus_stem")
     focus_stem.launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out
 
 
 focus_stem.launches = 0
