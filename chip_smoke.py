@@ -8,9 +8,13 @@ Phases, each of which raises on failure (so the run exits non-zero):
              TF32 off for convs and matmuls (fp32 comparisons).
   2. kernels each kernel against its plain PyTorch version on the card,
              at main-path shapes (the stem also at the selftest's width
-             and a ragged shape), max abs diff beside its tolerance; then
-             each kernel's time, its plain version's time, the nearest
-             single PyTorch call's time and its bound.
+             and a ragged shape; the attention also on the aggregation's
+             strided views, and twice for bit-identical outputs), max abs
+             diff beside its tolerance; then each kernel's device time
+             (`ms`: its own CUDA kernels in torch.profiler over a loop of
+             calls), the time of a call with its host work (`call_ms`,
+             CUDA events), its plain version's time, the nearest single
+             PyTorch call's time and its bound.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -21,7 +25,8 @@ Phases, each of which raises on failure (so the run exits non-zero):
              wait on the device nowhere); per-window latency from CUDA
              events; launch counts of every kernel in those 3 windows;
              then one more window under torch.profiler for the device
-             time by kernel.
+             time by kernel, and the copies made inside the attention's
+             calls.
 Prints one JSON line per phase, the card's name and power limit, the
 `kernels` line, and last `{"ok": true, "device": {...}}`.
 """
@@ -64,6 +69,26 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(torch, fn, reps, kernel, warmup=2):
+    """One call's times in ms: `ms`, the self device time of the CUDA
+    kernels whose names hold `kernel`, from torch.profiler over `reps`
+    calls; `call_ms`, CUDA events around `reps` back-to-back calls in a
+    loop of their own (host work included, no profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call_ms = cuda_ms(torch, fn, reps, warmup)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and kernel in e.key]
+    if not evs:
+        raise AssertionError(f"no {kernel} kernel in the profile")
+    return dict(ms=sum(e.self_device_time_total for e in evs) / 1e3 / reps,
+                call_ms=call_ms)
 
 
 def bound(nbytes, flops):
@@ -128,6 +153,7 @@ def kernel_phase(torch, dev):
     import numpy as np
     import torch.nn.functional as F
 
+    from tscd_torch.models.aggregation import DualBranchAttention, _split_heads
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
@@ -144,10 +170,27 @@ def kernel_phase(torch, dev):
     score = t(rng.uniform(0, 1, (B, k)))
     valid = t(rng.uniform(size=(B, k)) > 0.2, torch.bool)
     args = (qc, kc, vc, qr, kr, vr, score, valid)
+    # the main path's layout: heads split out of Linear outputs, k and v
+    # chunks of one buffer, as DualBranchAttention.attend makes them (a
+    # generator of their own keeps the other kernels' inputs as they were)
+    torch.manual_seed(0)
+    att = DualBranchAttention(h * d, h).to(dev)
+    rng_main = np.random.default_rng(1)
+    x_cls, x_reg = (t(rng_main.normal(size=(B, k, h * d))) for _ in range(2))
+    with torch.no_grad():
+        k_cls, v_cls = att.kv_cls(x_cls).chunk(2, -1)
+        k_reg, v_reg = att.kv_reg(x_reg).chunk(2, -1)
+        main = (_split_heads(att.q_cls_local(x_cls[:, :q]), h),
+                _split_heads(k_cls, h), _split_heads(v_cls, h),
+                _split_heads(att.q_reg_local(x_reg[:, :q]), h),
+                _split_heads(k_reg, h), _split_heads(v_reg, h), score, valid)
+    # the kernel's last key chunk (32 keys) holds every valid key
+    last = (torch.arange(k, device=dev) >= k - 32)[None].expand(B, k).contiguous()
     errs = []
-    for case, vmask in (("20% invalid keys", valid),
-                        ("all keys invalid", torch.zeros_like(valid))):
-        a = args[:7] + (vmask,)
+    for case, a in (("20% invalid keys", args),
+                    ("all keys invalid", args[:7] + (torch.zeros_like(valid),)),
+                    ("valid keys in the last chunk only", args[:7] + (last,)),
+                    ("main-path layout", main)):
         got, want = fa.fused_dual_attention(*a), fa.fused_dual_attention_plain(*a)
         torch.cuda.synchronize()
         for g in got:
@@ -156,14 +199,21 @@ def kernel_phase(torch, dev):
         for part, g, w in zip(("out_cls", "out_reg", "attn"), got, want):
             errs.append(check_close(f"fused_dual_attention {case} {part}",
                                     g, w, atol=1e-5, rtol=1e-4))
+    again = fa.fused_dual_attention(*main)
+    same = all(torch.equal(g, w) for g, w in zip(got, again))
+    emit({"phase": "kernels", "check": "fused_dual_attention two calls",
+          "tolerance": "bit-identical", "pass": same})
+    if not same:
+        raise AssertionError("fused_dual_attention: two calls differ")
     nbytes = 4 * (2 * B * h * q * d + 4 * B * h * k * d + B * k) + B * k \
         + 4 * (2 * B * h * q * d + B * h * q * k)
     flops = B * h * (2 * 2 * q * k * d + 2 * 2 * q * k * d)
     b_ms, b_by = bound(nbytes, flops)
     rows["fused_dual_attention"] = dict(
         max_abs_err=max(errs),
-        ms=cuda_ms(torch, lambda: fa.fused_dual_attention(*args), 200),
-        plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*args), 50),
+        **timed(torch, lambda: fa.fused_dual_attention(*main), 200,
+                "fused_dual_attention"),
+        plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*main), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # -- Hungarian: one 50x50 matcher cost; exact -------------------------
@@ -194,7 +244,8 @@ def kernel_phase(torch, dev):
     b_ms, b_by = bound(4 * (n * n + n), 5 * n * steps)
     rows["hungarian"] = dict(
         max_abs_err=herr,
-        ms=cuda_ms(torch, lambda: hu.linear_sum_assignment(c50t), 50),
+        **timed(torch, lambda: hu.linear_sum_assignment(c50t), 50,
+                "linear_sum_assignment"),
         plain_ms=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(c50t), 2, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, dijkstra_steps=steps)
 
@@ -226,7 +277,8 @@ def kernel_phase(torch, dev):
     b_ms, b_by = bound(nbytes, flops)
     rows["focus_stem"] = dict(
         max_abs_err=serr,
-        ms=cuda_ms(torch, lambda: fs.focus_stem(x32, w3, scale, shift), 20),
+        **timed(torch, lambda: fs.focus_stem(x32, w3, scale, shift), 20,
+                "focus_stem"),
         plain_ms=cuda_ms(torch, lambda: fs.focus_stem_plain(x32, w3, scale, shift), 10),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(torch, lambda: F.conv2d(x32_nchw, w6, shift, stride=2,
@@ -360,7 +412,7 @@ KERNEL_CLASSES = (   # first match wins
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("BatchNorm inference", ("bn_fw_inf",)),
     ("SiLU", ("silu_kernel",)),
-    ("hand kernels", ("focus_stem_kernel", "fused_dual_attention_kernel",
+    ("hand kernels", ("focus_stem_kernel", "fused_dual_attention",
                       "linear_sum_assignment_kernel")),
     ("frame upload", ("Memcpy HtoD",)),
 )
@@ -377,31 +429,69 @@ def breakdown(table):
     return out
 
 
+def copies_under(event):
+    """The copy ops (`aten::copy_`) below a profiled host event: their
+    count and the device ms of the kernels they launched."""
+    n, ms = 0, 0.0
+    for child in event.cpu_children:
+        if child.name == "aten::copy_":
+            n, ms = n + 1, ms + child.device_time_total / 1e3
+        else:
+            cn, cms = copies_under(child)
+            n, ms = n + cn, ms + cms
+    return n, ms
+
+
 def profile_window(torch, pred, exp):
     """Device time by kernel over one more window (torch.profiler), and
-    the window's device-busy time; its launches are not counted."""
+    the window's device-busy time; its launches are not counted. Each
+    attention call runs in a profiler range, so that the copies made
+    inside it (of its inputs) are counted apart."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, lat, _ = run_windows(torch, pred, exp, 1, 7, True)
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tscd_torch.models import aggregation
+    attend = aggregation.fused_dual_attention
+
+    def ranged(*a, **kw):
+        with record_function("aggregation attention call"):
+            return attend(*a, **kw)
+
+    aggregation.fused_dual_attention = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, lat, _ = run_windows(torch, pred, exp, 1, 7, True)
+    finally:
+        aggregation.fused_dual_attention = attend
     # device-side events only (kernels, copies): a host op's entry sums the
-    # kernels it launched; "Activity Buffer Request" is the profiler's own
+    # kernels it launched; "Activity Buffer Request" is the profiler's own,
+    # and the device side of a profiler range is no work of its own
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                    and e.key != "Activity Buffer Request"),
                   key=lambda r: -r[1])
     # every kernel and its class, for PERF.md's breakdown
     table = [{"name": k, "ms": ms, "calls": n} for k, ms, n in rows]
     by_class = breakdown(table)
+    calls = [e for e in prof.events()
+             if e.name == "aggregation attention call" and e.device_type == DeviceType.CPU]
+    feed = [copies_under(e) for e in calls]
+    attention = {"calls": len(calls),
+                 "kernel_ms": sum(r["ms"] for r in table if "fused_dual_attention" in r["name"]),
+                 "kernel_launches": sum(r["calls"] for r in table
+                                        if "fused_dual_attention" in r["name"]),
+                 "input_copies": sum(n for n, _ in feed),
+                 "input_copy_ms": sum(ms for _, ms in feed)}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "profile_window.json"), "w") as f:
-        json.dump({"by_class": by_class, "kernels": table}, f)
+        json.dump({"by_class": by_class, "attention": attention, "kernels": table}, f)
     # cuDNN's layout transposes, paid where a conv's input and its chosen
     # algorithm disagree on the memory format
     emit({"phase": "profile", "window_ms": lat[0],
           "device_busy_ms": sum(r[1] for r in rows),
           "transpose_ms": by_class["cuDNN layout transposes"],
+          "attention": attention,
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
 
 

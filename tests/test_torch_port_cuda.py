@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tscd_torch.models.aggregation import _split_heads
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.ops.kernels import hungarian as pkh
@@ -29,27 +30,66 @@ def card():
 
 def _attn_inputs(rng, B, h, q, k, d, p_valid=0.8):
     mk = lambda *s: rng.normal(size=s).astype(np.float32)
-    return (mk(B, h, q, d), mk(B, h, k, d), mk(B, h, k, d), mk(B, h, q, d),
-            mk(B, h, k, d), mk(B, h, k, d),
-            rng.uniform(0, 1, (B, k)).astype(np.float32),
-            rng.uniform(size=(B, k)) < p_valid)
+    ins = (mk(B, h, q, d), mk(B, h, k, d), mk(B, h, k, d), mk(B, h, q, d),
+           mk(B, h, k, d), mk(B, h, k, d),
+           rng.uniform(0, 1, (B, k)).astype(np.float32))
+    if p_valid == "last 3":
+        return ins + (np.arange(k)[None].repeat(B, 0) >= k - 3,)
+    return ins + (rng.uniform(size=(B, k)) < p_valid,)
+
+
+def _as_aggregation_views(ins):
+    """The same values as the views DualBranchAttention.attend passes:
+    heads split out of a Linear output, k and v chunks of one buffer."""
+    qc, kc, vc, qr, kr, vr = ins[:6]
+    h = qc.shape[1]
+    merge = lambda t: t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+    views = []
+    for q, k, v in ((qc, kc, vc), (qr, kr, vr)):
+        kb, vb = torch.cat([merge(k), merge(v)], -1).chunk(2, -1)
+        views += [_split_heads(merge(q).clone(), h), _split_heads(kb, h),
+                  _split_heads(vb, h)]
+    qc, kc, vc, qr, kr, vr = views
+    assert not any(t.is_contiguous() for t in (qc, kc, vc))
+    return [qc, kc, vc, qr, kr, vr, *ins[6:]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,h,q,k,d,p_valid", [
-    (1, 4, 50, 1600, 64, 0.8), (2, 2, 13, 70, 40, 0.5),
-    (1, 4, 50, 1600, 64, 0.0)])
-def test_cuda_attention_matches_plain(card, B, h, q, k, d, p_valid):
+@pytest.mark.parametrize("B,h,q,k,d,p_valid,strided", [
+    (1, 4, 50, 1600, 64, 0.8, False), (2, 2, 13, 70, 40, 0.5, False),
+    (1, 4, 50, 1600, 64, 0.0, False),
+    (1, 2, 130, 100, 16, 0.8, False),     # more than one query tile
+    (1, 2, 20, 200, 128, 0.8, False),     # the widest head
+    (2, 2, 13, 33, 24, 0.8, False),       # a ragged last key chunk
+    (1, 4, 50, 1600, 64, "last 3", False),
+    (1, 4, 50, 1600, 64, 0.8, True)])     # the aggregation's strided views
+def test_cuda_attention_matches_plain(card, B, h, q, k, d, p_valid, strided):
     ins = [torch.from_numpy(a).to(card)
            for a in _attn_inputs(np.random.default_rng(6), B, h, q, k, d, p_valid)]
+    want = pfa.fused_dual_attention_plain(*ins)
+    if strided:
+        ins = _as_aggregation_views(ins)
     n0 = pfa.fused_dual_attention.launches
     got = pfa.fused_dual_attention(*ins)
-    want = pfa.fused_dual_attention_plain(*ins)
     torch.cuda.synchronize()
     assert pfa.fused_dual_attention.launches == n0 + 1
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_is_bit_identical_across_calls(card):
+    ins = [torch.from_numpy(a).to(card)
+           for a in _attn_inputs(np.random.default_rng(9), 1, 4, 50, 1600, 64)]
+    n0 = pfa.fused_dual_attention.launches
+    first = pfa.fused_dual_attention(*ins)
+    assert pfa.fused_dual_attention.launches == n0 + 1
+    second = pfa.fused_dual_attention(*ins)
+    torch.cuda.synchronize()
+    assert pfa.fused_dual_attention.launches == n0 + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _tie_cost(n=8):

@@ -2,7 +2,9 @@
 
 Each wrapper takes its plain PyTorch version for a CPU tensor; these
 tests hold the plain versions against the Pallas kernels (interpret mode)
-and the JAX references, and check that CPU calls never count a launch.
+and the JAX references, hold a numpy mirror of the CUDA attention's
+split-over-keys arithmetic against the JAX reference, and check that CPU
+calls never count a launch.
 tests/test_torch_port_cuda.py holds each CUDA kernel against its plain
 version on a card.
 
@@ -60,6 +62,59 @@ def test_attention_plain_matches_pallas_and_reference(B, h, q, k, d, p_valid):
                 continue
             np.testing.assert_allclose(g[b].numpy(), np.asarray(p),
                                        atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def _split_combine_mirror(qc, kc, vc, qr, kr, vr, score, valid, scale=25.0):
+    """numpy mirror of the CUDA kernel's arithmetic for one batch element:
+    per chunk of KEY_CHUNK keys the max m and sum s of p = exp(l - m) of
+    both softmaxes and the four chunk-local products p@v, then the
+    combine's global rescale by f = exp(m - M) / S, chunk by chunk."""
+    f32 = np.float32
+    l2n = lambda x: x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), f32(1e-12))
+    neg = np.where(valid, f32(0), f32(-1e9))
+    lc = np.einsum("hqd,hkd->hqk", l2n(qc), l2n(kc)) * f32(scale) * score + neg
+    lr = np.einsum("hqd,hkd->hqk", l2n(qr), l2n(kr)) * f32(scale) + neg
+    chunks = []
+    for k0 in range(0, kc.shape[1], pfa.KEY_CHUNK):
+        ks = slice(k0, k0 + pfa.KEY_CHUNK)
+        ms, ss, ps = [], [], []
+        for logits in (lc[..., ks], lr[..., ks]):
+            m = logits.max(-1, keepdims=True)
+            p = np.exp(logits - m)
+            ms.append(m), ss.append(p.sum(-1, keepdims=True)), ps.append(p)
+        prods = [p @ v[:, ks] for v in (vc, vr) for p in ps]
+        chunks.append((ms, ss, ps, prods))
+    f = []
+    for br in range(2):
+        M = np.maximum.reduce([c[0][br] for c in chunks])
+        S = sum(c[1][br] * np.exp(c[0][br] - M) for c in chunks)
+        f.append([np.exp(c[0][br] - M) / S for c in chunks])
+    attn = np.concatenate([0.5 * (f[0][j] * c[2][0] + f[1][j] * c[2][1])
+                           for j, c in enumerate(chunks)], -1)
+    outs = [0.5 * sum(f[0][j] * c[3][2 * br] + f[1][j] * c[3][2 * br + 1]
+                      for j, c in enumerate(chunks)) for br in range(2)]
+    return outs[0], outs[1], attn
+
+
+@pytest.mark.parametrize("k,invalid", [
+    (70, "random"),          # a ragged last chunk (32 + 32 + 6 keys)
+    (96, "second chunk"),    # a chunk of invalid keys between valid ones
+    (70, "all")])            # every key invalid: a uniform attn
+def test_split_combine_mirror_matches_reference(k, invalid):
+    rng = np.random.default_rng(11)
+    ins = [a[0] for a in _attn_inputs(rng, 1, 2, 5, k, 8)]
+    if invalid == "second chunk":
+        ins[7] = np.arange(k) // pfa.KEY_CHUNK != 1
+    elif invalid == "all":
+        ins[7] = np.zeros(k, bool)
+    got = _split_combine_mirror(*ins)
+    ref = dual_attention_reference(*map(jnp.asarray, ins))
+    for name, g, r in zip(("out_cls", "out_reg", "attn"), got, ref):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(r), atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+    if invalid == "all":
+        np.testing.assert_allclose(got[2], 1.0 / k, rtol=1e-6)
 
 
 def _tie_cost(n=8):

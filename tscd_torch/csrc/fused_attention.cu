@@ -1,4 +1,4 @@
-// Fused dual-branch (cls/reg) proposal attention.
+// Fused dual-branch (cls/reg) proposal attention, split over keys.
 //
 // Replaces tscd_tpu/ops/pallas/fused_attention.py (_fused_forward ->
 // _kernel). Per (batch, head):
@@ -8,33 +8,96 @@
 // with q^, k^ the L2-normalised rows and mask = -1e9 on invalid keys.
 // `attn` is written out: the round-2 pooling of the caller reads it.
 //
-// Layout: q (B, H, NQ, D), k/v (B, H, NK, D), score/valid (B, NK),
-// out (B, H, NQ, D), attn (B, H, NQ, NK); all fp32, valid uint8.
+// Layout: q (B, H, NQ, D), k/v (B, H, NK, D), each with its last dim
+// contiguous and its other three strides passed in (the caller's heads
+// are transposed views of a Linear output); score/valid (B, NK)
+// contiguous; out (B, H, NQ, D), attn (B, H, NQ, NK) contiguous; fp32,
+// valid uint8.
 //
-// Design: a block takes TQ = 8 query rows of one (batch, head), one warp
-// per row. Keys stream through shared memory in tiles of 32, one key per
-// lane. Pass 1 keeps a running max and sum of each softmax per row;
-// pass 2 recomputes the logits, writes attn once and accumulates attn@V
-// for both branches (lane owns output dims lane, lane+32, ...). Logits
-// and softmax stay fp32 (FMA on the CUDA cores; wgmma/TMA are later
-// work). At the main-path shape (B=1, H=4, NQ=50, NK=1600, D=64) the
-// kernel moves 8.0 MB, most of it the k/v reads and the attn write
-// (2.40 us at 3.35 TB/s), and does 0.164 GFLOP (2.45 us of fp32 FMA at
-// 67 TFLOP/s), so operations bound it, by a hair; with 28 blocks on 132
-// SMs it is latency bound in practice.
+// Bound on an H100 at the main-path shape (B=1, H=4, NQ=50, NK=1600,
+// D=64): 8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA
+// (2.45 us at 67 TFLOP/s), so operations bound it, by a hair. What holds
+// a kernel back at this size is parallelism and latency: one (batch,
+// head) has only 50 query rows, so the work is split over keys.
+//
+// Design: two launches on the caller's stream.
+//   split    grid (key chunks of KC = 32, B*H, query tiles of QT = 64),
+//            256 threads: 50 x 4 x 1 = 200 blocks at the main path, all
+//            resident at once on the 132 SMs (2 a SM). A block copies its
+//            query tile, its key and value chunk of both branches, and its
+//            keys' scores and mask into shared memory (cp.async, 16 bytes
+//            where the strides allow), computes each vector's norm once
+//            (each key's by the block that owns it), then the QT x KC
+//            logits once: each half of the block takes one branch, a
+//            thread 4 rows x 4 keys, float4 shared loads, 16 independent
+//            accumulators. Per (row, chunk) it keeps the max m and the sum
+//            s of p = exp(l - m) of both softmaxes (a shuffle over the 8
+//            lanes of a row), and writes p, (m, s) and the four
+//            chunk-local products p_c@v_c, p_r@v_c, p_c@v_r, p_r@v_r (a
+//            thread 4 rows x 4 dims x 4 products, p key-major in shared
+//            memory) to scratch.
+//   combine  grid (NQ, B*H), 1024 threads, one block a query row. One warp
+//            reduces the row's chunk statistics, in chunk order, to each
+//            softmax's global max M and sum S, which gives every chunk
+//            the factor f = exp(m - M) / S of each branch. The block then
+//            writes attn = (f_c p_c + f_r p_r) / 2 and
+//            out = sum over chunks of (f_c p_c@v + f_r p_r@v) / 2, the
+//            chunks in 8 interleaved shares added in order.
+// Two launches (and not one cooperative launch with a grid barrier),
+// because the split's grid then needs no residency limit: any B, H, NQ,
+// NK runs on the same code, and the logits need not outlive a block.
+// The price is the scratch (p 2.6 MB and the products 10.2 MB at the
+// main path, both in the 50 MB L2) and twice the value products.
+// Deterministic: no atomics, and every sum across threads or chunks has
+// a fixed order, so two calls give bit-identical outputs.
+//
+// fp32 FMA throughout, accurate expf. TF32, the tensor cores' only route
+// for fp32 inputs, keeps about 3 decimal digits: at a logit scale of 25
+// that moves the probabilities by about 1% relative, against the 1e-5
+// the port is checked to, and the matcher after it is sensitive to the
+// last digit. The whole product work takes 2.45 us on the CUDA cores.
+//
+// Resources (nvcc -Xptxas -v, build/kernels/build.log): split 127
+// registers, combine 32, no spills; dynamic shared memory 85 KiB a split
+// block at D = 64 (149 KiB at D = 128), 4.4 KiB a combine block.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int TQ = 8;
-constexpr int TK = 32;
-constexpr int THREADS = TQ * 32;
+constexpr int KC = 32;          // keys a split block owns: one chunk
+constexpr int QT = 64;          // query rows of a split block
+constexpr int THREADS = 256;    // split block
+constexpr int KL = KC / 4;      // lanes that share a row's logits
+constexpr int RP = 4;           // rows a thread holds in the products
+constexpr int CTHREADS = 1024;  // combine block
 constexpr int DMAX = 128;
-constexpr int DREG = DMAX / 32;
+constexpr int PLD = QT + 4;     // row stride of p (key-major) in shared memory
+constexpr int NPROD = 4;        // p_c@v_c, p_r@v_c, p_c@v_r, p_r@v_r
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;
+constexpr size_t COMBINE_SMEM_MAX = 48 * 1024;
+
+struct Args {
+  const float* q[2];            // qc, qr
+  const float* k[2];            // kc, kr
+  const float* v[2];            // vc, vr
+  long long qs[2][3], ks[2][3], vs[2][3];   // strides of batch, head, row
+  const float* score;
+  const unsigned char* valid;
+  float* out[2];
+  float* attn;
+  bool vec;                     // q, k, v rows 16-byte aligned: 16-byte copies
+  float4* stats;                // scratch (B*H, NQ, nch): m_c, s_c, m_r, s_r
+  float* part;                  // scratch (B*H, NQ, nch, NPROD, DP)
+  float* p[2];                  // scratch (B*H, NQ, NK): exp(l - m)
+  int H, NQ, NK, D, DP, DS, nch;
+  float scale;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
@@ -46,187 +109,361 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Loads keys [k0, k0 + TK) of both branches (and their values) into
-// shared memory; keys past NK are zero.
-__device__ void load_tile(const float* kc, const float* kr, const float* vc,
-                          const float* vr, float* skc, float* skr, float* svc,
-                          float* svr, int k0, int NK, int D, bool with_v) {
-  const int ld = D + 1;
-  for (int idx = threadIdx.x; idx < TK * D; idx += THREADS) {
-    const int kk = idx / D, t = idx - kk * D;
-    const int key = k0 + kk;
-    const bool in = key < NK;
-    const size_t g = static_cast<size_t>(key) * D + t;
-    skc[kk * ld + t] = in ? kc[g] : 0.f;
-    skr[kk * ld + t] = in ? kr[g] : 0.f;
-    if (with_v) {
-      svc[kk * D + t] = in ? vc[g] : 0.f;
-      svr[kk * D + t] = in ? vr[g] : 0.f;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, c))));
+}
+
+__device__ __forceinline__ void axpy4(float4& acc, float s, float4 x) {
+  acc.x = fmaf(s, x.x, acc.x);
+  acc.y = fmaf(s, x.y, acc.y);
+  acc.z = fmaf(s, x.z, acc.z);
+  acc.w = fmaf(s, x.w, acc.w);
+}
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+// Starts the copy of rows x DP floats into dst (row stride ld) from src
+// (row stride rs); rows >= n and columns >= D land as zeros. With vec
+// (D, rs and src 16-byte aligned) 16 bytes a copy, else 4.
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+                                          long long rs, int rows, int n,
+                                          int D, int DP, bool vec) {
+  const int w = vec ? 4 : 1, per_row = DP / w;
+  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
+    const int r = i / per_row, t = (i - r * per_row) * w;
+    const bool in = r < n && t < D;
+    cp_async(dst + r * ld + t, in ? src + r * rs + t : src, 4 * w, in);
+  }
+}
+
+size_t split_smem(int DP, int DS) {
+  return sizeof(float) * (2 * QT * DS + 2 * KC * DS + 2 * KC * DP +
+                          2 * KC * PLD + 2 * (QT + KC) + 2 * KC);
+}
+
+// shared row stride of q and k: DP rounded so that DS / 4 is odd, which
+// puts 8 neighbouring rows' float4 loads on distinct banks
+int shared_stride(int DP) { return ((DP / 4) | 1) * 4; }
+
+__global__ void __launch_bounds__(THREADS, 2)
+fused_dual_attention_split(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int DS = a.DS, DP = a.DP;
+  float* sq = smem;                    // [2][QT][DS] queries
+  float* sk = sq + 2 * QT * DS;        // [2][KC][DS] keys
+  float* sv = sk + 2 * KC * DS;        // [2][KC][DP] values
+  float* sp = sv + 2 * KC * DP;        // [2][KC][PLD] p of both branches
+  float* inv_q = sp + 2 * KC * PLD;    // [2][QT] 1 / |q|
+  float* inv_k = inv_q + 2 * QT;       // [2][KC] 1 / |k|
+  float* s_score = inv_k + 2 * KC;     // [KC] score of each key
+  float* s_neg = s_score + KC;         // [KC] 0 or -1e9
+
+  const int chunk = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int k0 = chunk * KC, q0 = blockIdx.z * QT;
+  const int kn = min(KC, a.NK - k0), qn = min(QT, a.NQ - q0);
+  const int tid = threadIdx.x;
+
+  for (int br = 0; br < 2; ++br) {
+    load_rows(sq + br * QT * DS, DS,
+              a.q[br] + b * a.qs[br][0] + h * a.qs[br][1] + q0 * a.qs[br][2],
+              a.qs[br][2], QT, qn, a.D, DP, a.vec);
+    load_rows(sk + br * KC * DS, DS,
+              a.k[br] + b * a.ks[br][0] + h * a.ks[br][1] + k0 * a.ks[br][2],
+              a.ks[br][2], KC, kn, a.D, DP, a.vec);
+    load_rows(sv + br * KC * DP, DP,
+              a.v[br] + b * a.vs[br][0] + h * a.vs[br][1] + k0 * a.vs[br][2],
+              a.vs[br][2], KC, kn, a.D, DP, a.vec);
+  }
+  if (tid < KC) {
+    const bool in = tid < kn;
+    const size_t key = static_cast<size_t>(b) * a.NK + k0 + tid;
+    s_score[tid] = in ? a.score[key] : 0.f;
+    s_neg[tid] = in && a.valid[key] ? 0.f : NEG;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // each vector's norm once: one thread a query row or key
+  for (int i = tid; i < 2 * (QT + KC); i += THREADS) {
+    const bool is_q = i < 2 * QT;
+    const float* x = is_q ? sq + i * DS : sk + (i - 2 * QT) * DS;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < DP; t += 4) {
+      const float4 v = ld4(x + t);
+      s.x = fmaf(v.x, v.x, s.x);
+      s.y = fmaf(v.y, v.y, s.y);
+      s.z = fmaf(v.z, v.z, s.z);
+      s.w = fmaf(v.w, v.w, s.w);
+    }
+    const float inv = 1.f / fmaxf(sqrtf((s.x + s.y) + (s.z + s.w)), 1e-12f);
+    if (is_q) inv_q[i] = inv;
+    else inv_k[i - 2 * QT] = inv;
+  }
+  __syncthreads();
+
+  // logits of one branch a half block: rows ty + 16 i, keys tx + KL j
+  const int br = tid / (THREADS / 2), t2 = tid - br * (THREADS / 2);
+  const int tx = t2 % KL, ty = t2 / KL;
+  float l[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
+  for (int t = 0; t < DP; t += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = ld4(sq + (br * QT + ty + 16 * i) * DS + t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kv[j] = ld4(sk + (br * KC + tx + KL * j) * DS + t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l[i][j] = dot4(qv[i], kv[j], l[i][j]);
+  }
+
+  // scaled and masked logits; keys past NK are -inf (p = 0)
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kk = tx + KL * j;
+    const bool in = kk < kn;
+    const float sc = br == 0 ? s_score[kk] : 1.f;
+    const float ng = s_neg[kk];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = l[i][j] * inv_q[br * QT + ty + 16 * i] * inv_k[br * KC + kk] * a.scale;
+      if (br == 0) x *= sc;
+      l[i][j] = in ? x + ng : -INFINITY;
+    }
+  }
+
+  // per (row, chunk): max and sum of the softmax over the KL lanes of a row
+  const size_t row_base = static_cast<size_t>(bh) * a.NQ + q0;
+  float2* stats = reinterpret_cast<float2*>(a.stats);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ty + 16 * i;
+    float mx = fmaxf(fmaxf(l[i][0], l[i][1]), fmaxf(l[i][2], l[i][3]));
+    for (int o = 1; o < KL; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    float sm = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      l[i][j] = expf(l[i][j] - mx);
+      sm += l[i][j];
+    }
+    for (int o = 1; o < KL; o <<= 1) sm += __shfl_xor_sync(FULL, sm, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kk = tx + KL * j;
+      sp[(br * KC + kk) * PLD + row] = l[i][j];
+      if (row < qn && kk < kn)
+        a.p[br][(row_base + row) * a.NK + k0 + kk] = l[i][j];
+    }
+    if (tx == 0 && row < qn)
+      stats[((row_base + row) * a.nch + chunk) * 2 + br] = make_float2(mx, sm);
+  }
+  __syncthreads();
+
+  // chunk-local products: rows RP py + i, dims c.. c + 3
+  const int px = tid & 15, py = tid >> 4;
+  if (RP * py >= qn) return;
+  for (int c = 4 * px; c < DP; c += 64) {
+    float4 o[NPROD][RP];
+#pragma unroll
+    for (int pr = 0; pr < NPROD; ++pr)
+#pragma unroll
+      for (int i = 0; i < RP; ++i) o[pr][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int kk = 0; kk < kn; ++kk) {
+      const float4 vc = ld4(sv + kk * DP + c);
+      const float4 vr = ld4(sv + (KC + kk) * DP + c);
+      const float4 x = ld4(sp + kk * PLD + RP * py), y = ld4(sp + (KC + kk) * PLD + RP * py);
+      const float pc[RP] = {x.x, x.y, x.z, x.w}, pr[RP] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < RP; ++i) {
+        axpy4(o[0][i], pc[i], vc);
+        axpy4(o[1][i], pr[i], vc);
+        axpy4(o[2][i], pc[i], vr);
+        axpy4(o[3][i], pr[i], vr);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int row = RP * py + i;
+      if (row >= qn) break;
+      float* dst = a.part + ((row_base + row) * a.nch + chunk) * NPROD * DP + c;
+#pragma unroll
+      for (int pr = 0; pr < NPROD; ++pr)
+        *reinterpret_cast<float4*>(dst + pr * DP) = o[pr][i];
     }
   }
 }
 
-// Both logits of this warp's query row against the lane's key.
-__device__ __forceinline__ void logits(const float* sq_c, const float* sq_r,
-                                       const float* skc, const float* skr,
-                                       int kk, int D, float scale, float score,
-                                       float neg, float& lc, float& lr) {
-  const int ld = D + 1;
-  float dc = 0.f, dr = 0.f, nc = 0.f, nr = 0.f;
-  for (int t = 0; t < D; ++t) {
-    const float a = skc[kk * ld + t];
-    const float b = skr[kk * ld + t];
-    dc = fmaf(sq_c[t], a, dc);
-    dr = fmaf(sq_r[t], b, dr);
-    nc = fmaf(a, a, nc);
-    nr = fmaf(b, b, nr);
+__global__ void __launch_bounds__(CTHREADS)
+fused_dual_attention_combine(const Args a) {
+  extern __shared__ float cs[];
+  const int nch = a.nch, D = a.D, DP = a.DP;
+  float* f = cs;                 // [2][nch] exp(m - M) / S of each chunk
+  float* red = cs + 2 * nch;     // [G][2D] sums over a share of the chunks
+  const size_t r = static_cast<size_t>(blockIdx.y) * a.NQ + blockIdx.x;
+  const int tid = threadIdx.x;
+
+  if (tid < 32) {
+    const float4* __restrict__ st = a.stats + r * nch;
+    float mc = -INFINITY, mr = -INFINITY;
+    for (int j = tid; j < nch; j += 32) {
+      const float4 s = st[j];
+      mc = fmaxf(mc, s.x);
+      mr = fmaxf(mr, s.z);
+    }
+    mc = warp_max(mc);
+    mr = warp_max(mr);
+    float sc = 0.f, sr = 0.f;
+    for (int j = tid; j < nch; j += 32) {
+      const float4 s = st[j];
+      sc = fmaf(s.y, expf(s.x - mc), sc);
+      sr = fmaf(s.w, expf(s.z - mr), sr);
+    }
+    sc = warp_sum(sc);
+    sr = warp_sum(sr);
+    for (int j = tid; j < nch; j += 32) {
+      const float4 s = st[j];
+      f[j] = expf(s.x - mc) / sc;
+      f[nch + j] = expf(s.z - mr) / sr;
+    }
   }
-  dc = dc / fmaxf(sqrtf(nc), 1e-12f);
-  dr = dr / fmaxf(sqrtf(nr), 1e-12f);
-  lc = dc * scale * score + neg;
-  lr = dr * scale + neg;
+  __syncthreads();
+
+  const float* __restrict__ pc = a.p[0] + r * a.NK;
+  const float* __restrict__ pr = a.p[1] + r * a.NK;
+  float* __restrict__ at = a.attn + r * a.NK;
+#pragma unroll 4
+  for (int k = tid; k < a.NK; k += CTHREADS) {
+    const int j = k / KC;
+    at[k] = 0.5f * fmaf(pc[k], f[j], pr[k] * f[nch + j]);
+  }
+
+  // out = sum over chunks, in G interleaved shares, then the shares in order
+  const int n2 = 2 * D, G = CTHREADS / n2, g = tid / n2, o = tid - g * n2;
+  if (g < G) {
+    const int br = o / D, d = o - br * D;
+    const float* __restrict__ pp = a.part + r * nch * NPROD * DP + 2 * br * DP + d;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int j = g; j < nch; j += G) {
+      const float* pj = pp + static_cast<size_t>(j) * NPROD * DP;
+      acc = fmaf(f[j], pj[0], fmaf(f[nch + j], pj[DP], acc));
+    }
+    red[g * n2 + o] = acc;
+  }
+  __syncthreads();
+  if (tid < n2) {
+    float acc = 0.f;
+    for (int s = 0; s < G; ++s) acc += red[s * n2 + tid];
+    const int br = tid / D, d = tid - br * D;
+    a.out[br][r * D + d] = 0.5f * acc;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-fused_dual_attention_kernel(const float* __restrict__ qc,
-                            const float* __restrict__ kc,
-                            const float* __restrict__ vc,
-                            const float* __restrict__ qr,
-                            const float* __restrict__ kr,
-                            const float* __restrict__ vr,
-                            const float* __restrict__ score,
-                            const unsigned char* __restrict__ valid,
-                            float* __restrict__ out_c,
-                            float* __restrict__ out_r,
-                            float* __restrict__ attn, int H, int NQ, int NK,
-                            int D, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sq_c = smem;                 // TQ x D normalised queries
-  float* sq_r = sq_c + TQ * D;
-  float* skc = sq_r + TQ * D;         // TK x (D+1) keys
-  float* skr = skc + TK * ld;
-  float* svc = skr + TK * ld;         // TK x D values
-  float* svr = svc + TK * D;
+// The split kernel's shared-memory limit, raised once a device and kept.
+cudaError_t configure() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t status[MAX_DEVICES];
+  std::call_once(once[dev], [dev] {
+    status[dev] = cudaFuncSetAttribute(
+        fused_dual_attention_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(split_smem(DMAX, shared_stride(DMAX))));
+  });
+  return status[dev];
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.y * TQ + warp;
-  const bool row_ok = row < NQ;  // uniform within the warp
-
-  const size_t qoff = static_cast<size_t>(bh) * NQ * D;
-  const size_t koff = static_cast<size_t>(bh) * NK * D;
-  kc += koff; kr += koff; vc += koff; vr += koff;
-  score += static_cast<size_t>(b) * NK;
-  valid += static_cast<size_t>(b) * NK;
-  float* my_qc = sq_c + warp * D;
-  float* my_qr = sq_r + warp * D;
-
-  if (row_ok) {
-    const float* a = qc + qoff + static_cast<size_t>(row) * D;
-    const float* c = qr + qoff + static_cast<size_t>(row) * D;
-    float ssc = 0.f, ssr = 0.f;
-    for (int t = lane; t < D; t += 32) {
-      ssc = fmaf(a[t], a[t], ssc);
-      ssr = fmaf(c[t], c[t], ssr);
-    }
-    const float nc = fmaxf(sqrtf(warp_sum(ssc)), 1e-12f);
-    const float nr = fmaxf(sqrtf(warp_sum(ssr)), 1e-12f);
-    for (int t = lane; t < D; t += 32) {
-      my_qc[t] = a[t] / nc;
-      my_qr[t] = c[t] / nr;
-    }
-  }
-
-  // pass 1: running max / sum of both softmaxes
-  float mc = -INFINITY, sc = 0.f, mr = -INFINITY, sr = 0.f;
-  for (int k0 = 0; k0 < NK; k0 += TK) {
-    __syncthreads();
-    load_tile(kc, kr, vc, vr, skc, skr, svc, svr, k0, NK, D, false);
-    __syncthreads();
-    if (!row_ok) continue;
-    const int key = k0 + lane;
-    float lc = -INFINITY, lr = -INFINITY;
-    if (key < NK)
-      logits(my_qc, my_qr, skc, skr, lane, D, scale, score[key],
-             valid[key] ? 0.f : NEG, lc, lr);
-    const float nmc = fmaxf(mc, warp_max(lc));
-    const float nmr = fmaxf(mr, warp_max(lr));
-    sc = sc * expf(mc - nmc) + warp_sum(key < NK ? expf(lc - nmc) : 0.f);
-    sr = sr * expf(mr - nmr) + warp_sum(key < NK ? expf(lr - nmr) : 0.f);
-    mc = nmc;
-    mr = nmr;
-  }
-
-  // pass 2: attn written once, attn@V for both branches
-  float acc_c[DREG], acc_r[DREG];
-#pragma unroll
-  for (int i = 0; i < DREG; ++i) acc_c[i] = acc_r[i] = 0.f;
-  float* attn_row = attn + (static_cast<size_t>(bh) * NQ + row) * NK;
-  for (int k0 = 0; k0 < NK; k0 += TK) {
-    __syncthreads();
-    load_tile(kc, kr, vc, vr, skc, skr, svc, svr, k0, NK, D, true);
-    __syncthreads();
-    if (!row_ok) continue;
-    const int key = k0 + lane;
-    float p = 0.f;
-    if (key < NK) {
-      float lc, lr;
-      logits(my_qc, my_qr, skc, skr, lane, D, scale, score[key],
-             valid[key] ? 0.f : NEG, lc, lr);
-      p = 0.5f * (expf(lc - mc) / sc + expf(lr - mr) / sr);
-      attn_row[key] = p;
-    }
-    for (int j = 0; j < TK; ++j) {
-      const float pj = __shfl_sync(FULL, p, j);
-#pragma unroll
-      for (int i = 0; i < DREG; ++i) {
-        const int dd = lane + 32 * i;
-        if (dd < D) {
-          acc_c[i] = fmaf(pj, svc[j * D + dd], acc_c[i]);
-          acc_r[i] = fmaf(pj, svr[j * D + dd], acc_r[i]);
-        }
-      }
-    }
-  }
-  if (row_ok) {
-    const size_t o = qoff + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int i = 0; i < DREG; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < D) {
-        out_c[o + dd] = acc_c[i];
-        out_r[o + dd] = acc_r[i];
-      }
-    }
-  }
+size_t scratch_bytes(int B, int H, int NQ, int NK, int D) {
+  const size_t rows = static_cast<size_t>(B) * H * NQ;
+  const size_t nch = (NK + KC - 1) / KC, DP = (D + 3) / 4 * 4;
+  return sizeof(float) * rows * (nch * 4 + nch * NPROD * DP + 2 * static_cast<size_t>(NK));
 }
 
 }  // namespace
 
+// strides: (batch, head, row) of qc, kc, vc, qr, kr, vr in elements;
+// scratch: at least scratch_bytes(...) bytes, 16-byte aligned.
 extern "C" int tscd_fused_dual_attention(
     const void* qc, const void* kc, const void* vc, const void* qr,
     const void* kr, const void* vr, const void* score, const void* valid,
-    void* out_c, void* out_r, void* attn, int B, int H, int NQ, int NK, int D,
+    void* out_c, void* out_r, void* attn, void* scratch, size_t scratch_size,
+    const long long* strides, int B, int H, int NQ, int NK, int D,
     float scale, void* stream) {
   if (D < 1 || D > DMAX || B < 1 || H < 1 || NQ < 1 || NK < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (2 * TQ * D + 2 * TK * (D + 1) + 2 * TK * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_dual_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const long long BH = static_cast<long long>(B) * H;
+  const int nqt = (NQ + QT - 1) / QT;
+  Args a;
+  a.H = H; a.NQ = NQ; a.NK = NK; a.D = D;
+  a.DP = (D + 3) / 4 * 4;
+  a.DS = shared_stride(a.DP);
+  a.nch = (NK + KC - 1) / KC;
+  a.scale = scale;
+  const size_t combine_smem =
+      sizeof(float) * (2 * static_cast<size_t>(a.nch) + (CTHREADS / (2 * D)) * 2 * D);
+  if (BH > 65535 || nqt > 65535 || combine_smem > COMBINE_SMEM_MAX ||
+      scratch_size < scratch_bytes(B, H, NQ, NK, D) ||
+      reinterpret_cast<size_t>(scratch) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (NQ + TQ - 1) / TQ);
-  fused_dual_attention_kernel<<<grid, THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qc), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<const float*>(qr),
-      static_cast<const float*>(kr), static_cast<const float*>(vr),
-      static_cast<const float*>(score),
-      static_cast<const unsigned char*>(valid), static_cast<float*>(out_c),
-      static_cast<float*>(out_r), static_cast<float*>(attn), H, NQ, NK, D,
-      scale);
+
+  const float* qkv[6] = {static_cast<const float*>(qc), static_cast<const float*>(kc),
+                         static_cast<const float*>(vc), static_cast<const float*>(qr),
+                         static_cast<const float*>(kr), static_cast<const float*>(vr)};
+  for (int br = 0; br < 2; ++br) {
+    a.q[br] = qkv[3 * br];
+    a.k[br] = qkv[3 * br + 1];
+    a.v[br] = qkv[3 * br + 2];
+    for (int s = 0; s < 3; ++s) {
+      a.qs[br][s] = strides[(3 * br) * 3 + s];
+      a.ks[br][s] = strides[(3 * br + 1) * 3 + s];
+      a.vs[br][s] = strides[(3 * br + 2) * 3 + s];
+    }
+  }
+  a.score = static_cast<const float*>(score);
+  a.valid = static_cast<const unsigned char*>(valid);
+  a.out[0] = static_cast<float*>(out_c);
+  a.out[1] = static_cast<float*>(out_r);
+  a.attn = static_cast<float*>(attn);
+  const size_t rows = static_cast<size_t>(BH) * NQ;
+  a.stats = static_cast<float4*>(scratch);
+  a.part = reinterpret_cast<float*>(a.stats + rows * a.nch);
+  a.p[0] = a.part + rows * a.nch * NPROD * a.DP;
+  a.p[1] = a.p[0] + rows * NK;
+  a.vec = D % 4 == 0;
+  for (int i = 0; i < 6; ++i) {
+    a.vec = a.vec && reinterpret_cast<size_t>(qkv[i]) % 16 == 0;
+    for (int s = 0; s < 3; ++s) a.vec = a.vec && strides[3 * i + s] % 4 == 0;
+  }
+
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fused_dual_attention_split<<<dim3(a.nch, static_cast<unsigned>(BH), nqt), THREADS,
+                               split_smem(a.DP, a.DS), st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_dual_attention_combine<<<dim3(NQ, static_cast<unsigned>(BH)), CTHREADS,
+                                 combine_smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

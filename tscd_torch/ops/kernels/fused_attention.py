@@ -9,10 +9,15 @@ attn@Vr. The kernel writes attn, which the round-2 pooling reads.
 
 Bound on an H100 at the main-path shape (B=1, h=4, q=50, k=1600, d=64):
 8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA (2.45 us
-at 67 TFLOP/s), so operations bound it, by a hair; the simple kernel's
-28 blocks leave most SMs idle and it is latency bound in practice.
+at 67 TFLOP/s), so operations bound it, by a hair. The kernel splits the
+keys over blocks of KEY_CHUNK keys and combines the chunks' softmax
+statistics in a second launch (design in the CUDA source's header).
+
+q, k and v may be strided views, as the aggregation's heads are: the
+kernel reads any layout whose last dimension is contiguous.
 """
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -20,6 +25,25 @@ import torch
 from . import library
 
 NEG = -1e9
+KEY_CHUNK = 32      # keys a block of the split launch owns (KC in the source)
+
+
+def scratch_floats(B: int, h: int, q: int, k: int, d: int) -> int:
+    """fp32 scratch of one launch: per (batch, head, query row) the chunk
+    statistics (4 a chunk), the four chunk-local value products (4 x d
+    padded to a multiple of 4, a chunk) and exp(l - m) of both branches
+    (2 a key)."""
+    nch = -(-k // KEY_CHUNK)
+    dp = -(-d // 4) * 4
+    return B * h * q * (4 * nch + 4 * nch * dp + 2 * k)
+
+
+def _f32_rows(t: torch.Tensor) -> torch.Tensor:
+    """t as fp32 with a contiguous last dimension; a view that already is
+    one passes as it is."""
+    if t.dtype == torch.float32 and t.stride(-1) == 1:
+        return t
+    return t.to(torch.float32).contiguous()
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -48,7 +72,8 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
                          scale: float = 25.0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shapes as in `fused_dual_attention_plain`. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (fp32, d <= 128)."""
+    plain version; a CUDA tensor launches the kernel (fp32, d <= 128).
+    One call counts one launch, though the kernel runs as two."""
     if qc.device.type == "cpu":
         return fused_dual_attention_plain(qc, kc, vc, qr, kr, vr, cls_score,
                                           key_valid, scale)
@@ -68,20 +93,24 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
         raise TypeError("key_valid must be bool")
     if not 1 <= d <= 128:
         raise ValueError(f"head dim {d} outside 1..128")
-    ins = [t.to(torch.float32).contiguous()
-           for t in (qc, kc, vc, qr, kr, vr, cls_score)]
+    qkv = [_f32_rows(t) for t in (qc, kc, vc, qr, kr, vr)]
+    score = cls_score.to(torch.float32).contiguous()
     valid = key_valid.contiguous()
-    if any(t.device != qc.device for t in ins + [valid]):
+    if any(t.device != qc.device for t in qkv + [score, valid]):
         raise ValueError("all inputs must be on one device")
-    out_c = torch.empty(B, h, q, d, device=qc.device, dtype=torch.float32)
+    strides = (ctypes.c_longlong * 18)(*(s for t in qkv for s in t.stride()[:3]))
+    f32 = dict(device=qc.device, dtype=torch.float32)
+    out_c = torch.empty(B, h, q, d, **f32)
     out_r = torch.empty_like(out_c)
-    attn = torch.empty(B, h, q, k, device=qc.device, dtype=torch.float32)
+    attn = torch.empty(B, h, q, k, **f32)
+    scratch = torch.empty(scratch_floats(B, h, q, k, d), **f32)
     lib = library.load()
     with torch.cuda.device(qc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tscd_fused_dual_attention(
-            *(t.data_ptr() for t in ins), valid.data_ptr(),
+            *(t.data_ptr() for t in qkv), score.data_ptr(), valid.data_ptr(),
             out_c.data_ptr(), out_r.data_ptr(), attn.data_ptr(),
+            scratch.data_ptr(), 4 * scratch.numel(), strides,
             B, h, q, k, d, float(scale), stream)
     library.check(lib, rc, "fused_dual_attention")
     fused_dual_attention.launches += 1

@@ -28,7 +28,8 @@ _F = ctypes.c_float
 # C signature of every kernel entry point; each returns a cudaError_t
 _SIGNATURES = {
     "tscd_fused_dual_attention":
-        [_P] * 8 + [_P] * 3 + [_I] * 5 + [_F, _P],
+        [_P] * 8 + [_P] * 3 + [_P, ctypes.c_size_t, ctypes.POINTER(ctypes.c_longlong)]
+        + [_I] * 5 + [_F, _P],
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_focus_stem": [_P] * 4 + [_I] * 5 + [_P],
 }
