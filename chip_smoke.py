@@ -4,17 +4,23 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (so the run exits non-zero):
-  1. setup   build the three CUDA kernels from tscd_torch/csrc with nvcc;
+  1. setup   build the CUDA kernels from tscd_torch/csrc with nvcc;
              TF32 off for convs and matmuls (fp32 comparisons).
   2. kernels each kernel against its plain PyTorch version on the card,
              at main-path shapes (the stem also at the selftest's width
              and a ragged shape; the attention also on the aggregation's
-             strided views, and twice for bit-identical outputs), max abs
-             diff beside its tolerance; then each kernel's device time
-             (`ms`: its own CUDA kernels in torch.profiler over a loop of
-             calls), the time of a call with its host work (`call_ms`,
-             CUDA events), its plain version's time, the nearest single
-             PyTorch call's time and its bound.
+             strided views, and twice for bit-identical outputs; the
+             Hungarian solver on a random cost, near ties, the sequence
+             start's constant cost, n = 1, 33, 64, 128 and batches that
+             span blocks, exactly), max abs diff beside its tolerance; then each
+             kernel's device time (`ms`: its own CUDA kernels in
+             torch.profiler over a loop of calls), the time of a call with
+             its host work (`call_ms`, CUDA events), its plain version's
+             time, the nearest single PyTorch call's time and its bound.
+             The solver's bound is a latency bound: Dijkstra steps on the
+             cost times the cycles of one step's dependent chain (each
+             instruction's latency measured here by latency_probe.cu) over
+             the card's maximum SM clock.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -24,9 +30,10 @@ Phases, each of which raises on failure (so the run exits non-zero):
              window; one forward under CUDA's sync debug mode (it must
              wait on the device nowhere); per-window latency from CUDA
              events; launch counts of every kernel in those 3 windows;
-             then one more window under torch.profiler for the device
-             time by kernel, and the copies made inside the attention's
-             calls.
+             then one more streamed window whose Hungarian costs are kept
+             (the carried-state cost, checked and timed like the others),
+             and one more under torch.profiler for the device time by
+             kernel, and the copies made inside the attention's calls.
 Prints one JSON line per phase, the card's name and power limit, the
 `kernels` line, and last `{"ok": true, "device": {...}}`.
 """
@@ -136,6 +143,50 @@ def jv_steps(cost):
     return steps
 
 
+PROBE_REPS = 1024                 # REPS of tscd_torch/csrc/latency_probe.cu
+PROBE_KINDS = ("lds", "fadd", "imad", "redux", "vote", "ffs")
+
+
+def latencies(torch, lib):
+    """Cycles of one dependent instruction of each kind, on this card
+    (latency_probe.cu: chains of PROBE_REPS in one warp, clock64())."""
+    import ctypes
+    fn = lib.tscd_latency_probe
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    inp = torch.tensor([4 * k for k in range(32)] + [1, 0], dtype=torch.int32,
+                       device="cuda")
+    out = torch.zeros(len(PROBE_KINDS), dtype=torch.int64, device="cuda")
+    sink = torch.empty(32, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):                    # the second run, warm
+        rc = fn(inp.data_ptr(), out.data_ptr(), sink.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"latency probe launch failed: {rc}")
+    torch.cuda.synchronize()
+    return {k: c / PROBE_REPS for k, c in zip(PROBE_KINDS, out.tolist())}
+
+
+def chain_cycles(lat, n):
+    """Cycles of one Dijkstra step's dependent chain in hungarian.cu, with
+    S = ceil(n / 32) columns a lane: the shared load of the step's cost
+    row; 3 fp32 adds of r and the key's +0.0; the key's shift and xor,
+    its select into the slot, the (key, column) packing and S - 1 integer
+    minima over the lane's slots; redux.sync of the packed keys; the mask
+    of the column and the multiply-add of the next row's address. The
+    compare r < lim, the full key's warp minimum and the test of the
+    packed minimum run beside it."""
+    S = -(-n // 32)
+    return lat["lds"] + 4 * lat["fadd"] + (S + 5) * lat["imad"] + lat["redux"]
+
+
+def sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()
+    return float(out[0])
+
+
 def check_close(name, got, want, atol, rtol):
     import torch
     err = (got.double() - want.double()).abs().max().item()
@@ -147,6 +198,36 @@ def check_close(name, got, want, atol, rtol):
     return err
 
 
+HUNGARIAN_BOUND = ("latency: Dijkstra steps on the cost x cycles of one step's "
+                   "dependent chain (measured latencies) / max SM clock")
+
+
+def check_hungarian(name, cost):
+    """The kernel's col4row against the plain version's (on a host copy
+    of the same costs): equal element for element."""
+    from tscd_torch.ops.kernels import hungarian as hu
+    got = hu.linear_sum_assignment(cost).cpu()
+    want = hu.linear_sum_assignment_plain(cost.cpu())
+    diff = int((got.long() - want.long()).abs().max().item())
+    emit({"phase": "kernels", "check": name, "max_abs_err": diff,
+          "tolerance": "elementwise equal", "pass": diff == 0})
+    if diff:
+        raise AssertionError(f"{name}: {got.tolist()} != {want.tolist()}")
+    return diff
+
+
+def hungarian_cost_row(torch, cost, lat, clock_mhz):
+    """Device time and call time of the solver on one (1, n, n) cost,
+    its Dijkstra steps and its latency bound."""
+    from tscd_torch.ops.kernels import hungarian as hu
+    n = cost.shape[-1]
+    steps = jv_steps(cost[0].cpu().numpy())
+    return dict(**timed(torch, lambda: hu.linear_sum_assignment(cost), 50,
+                        "linear_sum_assignment"),
+                dijkstra_steps=steps,
+                bound_ms=steps * chain_cycles(lat, n) / (clock_mhz * 1e3))
+
+
 def kernel_phase(torch, dev):
     """Each kernel against its plain version at main-path shapes, then
     the timings. Returns {name: row of the kernels line}."""
@@ -154,9 +235,11 @@ def kernel_phase(torch, dev):
     import torch.nn.functional as F
 
     from tscd_torch.models.aggregation import DualBranchAttention, _split_heads
+    from tscd_torch.ops import hungarian as hungarian_ops
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
+    from tscd_torch.ops.kernels import library
 
     rng = np.random.default_rng(0)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
@@ -216,7 +299,7 @@ def kernel_phase(torch, dev):
         plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*main), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # -- Hungarian: one 50x50 matcher cost; exact -------------------------
+    # -- Hungarian: the matcher's 50x50 costs and the edges; exact --------
     n = 50
     c50 = rng.uniform(0, 2, (n, n)).astype(np.float32)
     masked = rng.uniform(0, 2, (6, 6)).astype(np.float32)
@@ -224,30 +307,48 @@ def kernel_phase(torch, dev):
     masked = np.where(rv[:, None] & cv[None], masked,
                       np.where(~rv[:, None] & ~cv[None], 0.0, 1e4)).astype(np.float32)
     tie = np.ones((8, 8), np.float32) - np.kron(np.eye(4), np.ones((2, 2))).astype(np.float32)
+    const = lambda m: np.full((m, m), 1e4, np.float32)
+    # reduced costs a few ulps apart: the packed warp minimum's class of
+    # 128 keys holds more than the minimal key
+    near = 1 + rng.integers(0, 4, (1, n, n)).astype(np.float32) * np.float32(2.0 ** -23)
+    cases = [("50x50 random", c50[None]), ("6x6 masked", masked[None]),
+             ("8x8 ties", tie[None]), ("50x50 sequence start", const(n)[None]),
+             ("50x50 near ties", near)]
+    for m in (1, 33, 64, 128):
+        cases += [(f"{m}x{m} random", rng.normal(size=(1, m, m)).astype(np.float32)),
+                  (f"{m}x{m} constant", const(m)[None])]
+    # 5 matrices: more than a block's warps; 3 of 33x33: unaligned starts
+    cases += [("5 x 50x50 batch", rng.uniform(0, 2, (5, n, n)).astype(np.float32)),
+              ("3 x 33x33 batch", rng.uniform(0, 2, (3, 33, 33)).astype(np.float32))]
     herr = 0
-    for case, c in (("50x50 random", c50), ("6x6 masked", masked),
-                    ("8x8 ties", tie)):
-        ct = t(c[None])
-        got = hu.linear_sum_assignment(ct)
-        want = hu.linear_sum_assignment_plain(ct)
-        torch.cuda.synchronize()
-        diff = int((got.long() - want.long()).abs().max().item())
-        herr = max(herr, diff)
-        emit({"phase": "kernels", "check": f"hungarian {case}",
-              "max_abs_err": diff, "tolerance": "elementwise equal",
-              "pass": diff == 0})
-        if diff:
-            raise AssertionError(f"hungarian {case}: {got.tolist()} != {want.tolist()}")
+    for case, c in cases:
+        herr = max(herr, check_hungarian(f"hungarian {case}", t(c)))
+    # the matcher's own route to the sequence start: an empty bank
+    got = hungarian_ops.masked_linear_sum_assignment(
+        t(c50), torch.zeros(n, dtype=torch.bool, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev))
+    want = hu.linear_sum_assignment_plain(torch.as_tensor(const(n)[None]))[0]
+    same = torch.equal(got.cpu(), want)
+    emit({"phase": "kernels", "check": "hungarian sequence start via the masked cost",
+          "tolerance": "elementwise equal", "pass": same})
+    if not same:
+        raise AssertionError("hungarian: the masked empty-bank cost differs")
     c50t = t(c50[None])
-    steps = jv_steps(c50)
-    # each Dijkstra step: 5 fp32 operations on each of the n columns
-    b_ms, b_by = bound(4 * (n * n + n), 5 * n * steps)
+    again = [hu.linear_sum_assignment(c50t) for _ in range(2)]
+    same = torch.equal(*again)
+    emit({"phase": "kernels", "check": "hungarian two calls",
+          "tolerance": "elementwise equal", "pass": same})
+    if not same:
+        raise AssertionError("hungarian: two calls differ")
+    lat = latencies(torch, library.load())
+    clock = sm_clock_mhz()
+    costs = {"random": hungarian_cost_row(torch, c50t, lat, clock),
+             "sequence_start": hungarian_cost_row(torch, t(const(n)[None]), lat, clock)}
     rows["hungarian"] = dict(
-        max_abs_err=herr,
-        **timed(torch, lambda: hu.linear_sum_assignment(c50t), 50,
-                "linear_sum_assignment"),
+        max_abs_err=herr, **costs["random"],
         plain_ms=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(c50t), 2, 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, dijkstra_steps=steps)
+        bound_by="operations", bound_model=HUNGARIAN_BOUND, library_ms=None,
+        latency_cycles=lat, sm_clock_max_mhz=clock, costs=costs)
 
     # -- Focus stem: 4 frames for the check, 32 (the window) for time ----
     # fp32 sums of 108 taps over pixel values up to 255: 1e-4 relative.
@@ -286,17 +387,20 @@ def kernel_phase(torch, dev):
     return rows
 
 
-def run_windows(torch, predict, exp, n_windows, seed, dev_sync):
-    """Streams n_windows seeded windows; returns per-window Detections on
-    the host and each window's latency in ms (CUDA events on the card)."""
+def run_windows(torch, predict, exp, n_windows, seed, dev_sync, state=None,
+                first=0):
+    """Streams n_windows seeded windows, numbered from `first` (window 0
+    starts a sequence; later ones resume from `state`); returns
+    per-window Detections on the host, each window's latency in ms (CUDA
+    events on the card) and the carried state."""
     import numpy as np
 
     from tscd_torch.ops.position import get_timing_signal_1d
     rng = np.random.default_rng(seed)
     F = exp.lframe_val + exp.gframe_val
     H, W = exp.test_size
-    state, dets, lat = None, [], []
-    for w in range(n_windows):
+    dets, lat = [], []
+    for w in range(first, first + n_windows):
         x = rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32)
         te = get_timing_signal_1d(np.arange(w, w + F))
         if dev_sync:
@@ -356,7 +460,8 @@ def small_phase(torch):
 
 def full_phase(torch, counters):
     """TSCD-Large streaming eval: warm-up window, then 3 timed windows
-    with carried state; returns launch counts over those 3 windows."""
+    with carried state; returns launch counts over those 3 windows and the
+    Hungarian costs of one more streamed window."""
     import numpy as np
 
     from tscd_torch.core.predict import make_predict_fn
@@ -402,8 +507,42 @@ def full_phase(torch, counters):
           "setup_s": setup_s, "window_ms": lat, "detections": n_det,
           "launches": launches, "forward_host_syncs": 0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    profile_window(torch, pred, exp)
-    return launches
+    state, carried = capture_costs(torch, pred, exp, state)
+    profile_window(torch, pred, exp, state)
+    return launches, carried
+
+
+def carried_phase(torch, row, carried):
+    """The solver on the costs of a streamed window with carried state:
+    checked against the plain version and timed like the kernel phase's
+    costs, into row["costs"]["carried_state"]."""
+    for k, cost in enumerate(carried):
+        check_hungarian(f"hungarian carried-state cost, local frame {k}", cost)
+    row["costs"]["carried_state"] = hungarian_cost_row(
+        torch, carried[0], row["latency_cycles"], row["sm_clock_max_mhz"])
+    emit({"phase": "carried", "hungarian": row["costs"]["carried_state"]})
+
+
+def capture_costs(torch, pred, exp, state):
+    """Streams window 3, resumed from `state`, keeping a copy of every
+    cost the matcher hands the solver (one a local frame); returns the
+    new state and the costs. Its launches are not counted."""
+    from tscd_torch.ops import hungarian
+    solve, kept = hungarian.linear_sum_assignment, []
+
+    def keep(cost):
+        kept.append(cost.detach().clone())
+        return solve(cost)
+
+    hungarian.linear_sum_assignment = keep
+    try:
+        _, _, state = run_windows(torch, pred, exp, 1, 3, True, state, 3)
+    finally:
+        hungarian.linear_sum_assignment = solve
+    if len(kept) != exp.lframe_val:
+        raise AssertionError(f"{len(kept)} solver calls in a window, "
+                             f"{exp.lframe_val} expected")
+    return state, kept
 
 
 KERNEL_CLASSES = (   # first match wins
@@ -413,7 +552,7 @@ KERNEL_CLASSES = (   # first match wins
     ("BatchNorm inference", ("bn_fw_inf",)),
     ("SiLU", ("silu_kernel",)),
     ("hand kernels", ("focus_stem_kernel", "fused_dual_attention",
-                      "linear_sum_assignment_kernel")),
+                      "linear_sum_assignment")),
     ("frame upload", ("Memcpy HtoD",)),
 )
 
@@ -442,11 +581,12 @@ def copies_under(event):
     return n, ms
 
 
-def profile_window(torch, pred, exp):
-    """Device time by kernel over one more window (torch.profiler), and
-    the window's device-busy time; its launches are not counted. Each
-    attention call runs in a profiler range, so that the copies made
-    inside it (of its inputs) are counted apart."""
+def profile_window(torch, pred, exp, state):
+    """Device time by kernel over one more window (torch.profiler),
+    window 4 resumed from `state` (a video's first window comes once a
+    video), and the window's device-busy time; its launches are not
+    counted. Each attention call runs in a profiler range, so that the
+    copies made inside it (of its inputs) are counted apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -460,7 +600,7 @@ def profile_window(torch, pred, exp):
     aggregation.fused_dual_attention = ranged
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, lat, _ = run_windows(torch, pred, exp, 1, 7, True)
+            _, lat, _ = run_windows(torch, pred, exp, 1, 7, True, state, 4)
     finally:
         aggregation.fused_dual_attention = attend
     # device-side events only (kernels, copies): a host op's entry sums the
@@ -488,10 +628,11 @@ def profile_window(torch, pred, exp):
         json.dump({"by_class": by_class, "attention": attention, "kernels": table}, f)
     # cuDNN's layout transposes, paid where a conv's input and its chosen
     # algorithm disagree on the memory format
-    emit({"phase": "profile", "window_ms": lat[0],
+    emit({"phase": "profile", "sequence_start": False, "window_ms": lat[0],
           "device_busy_ms": sum(r[1] for r in rows),
           "transpose_ms": by_class["cuDNN layout transposes"],
           "attention": attention,
+          "hungarian_ms": sum(r["ms"] for r in table if "linear_sum_assignment" in r["name"]),
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
 
 
@@ -525,7 +666,8 @@ def main() -> int:
 
     rows = kernel_phase(torch, dev)
     small_phase(torch)
-    launches = full_phase(torch, counters)
+    launches, carried = full_phase(torch, counters)
+    carried_phase(torch, rows["hungarian"], carried)
 
     expected = {"focus_stem": 3, "fused_dual_attention": 6, "hungarian": 3}
     if launches != expected:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tscd_torch.models.aggregation import _split_heads
+from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.ops.kernels import hungarian as pkh
@@ -97,15 +98,50 @@ def _tie_cost(n=8):
             - np.kron(np.eye(n // 2), np.ones((2, 2))).astype(np.float32))
 
 
+def _signed_zero_tie(n=40):
+    c = np.ones((n, n), np.float32)
+    c[:, 7] = 0.0
+    c[:, 33:37] = -0.0
+    return c
+
+
 @pytest.mark.cuda
 def test_cuda_hungarian_equals_plain(card):
     rng = np.random.default_rng(7)
+    const = lambda n: np.full((1, n, n), 1e4, np.float32)
     for c in (rng.uniform(0, 2, (2, 50, 50)).astype(np.float32),
               rng.normal(size=(1, 128, 128)).astype(np.float32),
-              _tie_cost()[None], np.ones((1, 5, 5), np.float32)):
+              _tie_cost()[None], np.ones((1, 5, 5), np.float32),
+              const(33), const(64), const(128), _signed_zero_tie()[None],
+              # reduced costs a few ulps apart
+              (1 + rng.integers(0, 4, (1, 50, 50)) * 2.0 ** -23).astype(np.float32),
+              rng.normal(size=(1, 1, 1)).astype(np.float32),
+              # more matrices than a block has warps
+              rng.uniform(0, 2, (5, 50, 50)).astype(np.float32),
+              # matrices whose starts are not 16-byte aligned
+              rng.uniform(0, 2, (3, 33, 33)).astype(np.float32)):
         ct = torch.from_numpy(c).to(card)
-        assert torch.equal(pkh.linear_sum_assignment(ct).cpu(),
-                           pkh.linear_sum_assignment_plain(ct.cpu()))
+        n0 = pkh.linear_sum_assignment.launches
+        got = pkh.linear_sum_assignment(ct)
+        assert pkh.linear_sum_assignment.launches == n0 + 1
+        assert torch.equal(got.cpu(), pkh.linear_sum_assignment_plain(ct.cpu()))
+    # the sequence start as the matcher builds it: an empty bank
+    n = 50
+    got = phu.masked_linear_sum_assignment(
+        torch.from_numpy(rng.uniform(0, 2, (n, n)).astype(np.float32)).to(card),
+        torch.zeros(n, dtype=torch.bool, device=card),
+        torch.ones(n, dtype=torch.bool, device=card))
+    assert torch.equal(got.cpu(), pkh.linear_sum_assignment_plain(
+        torch.from_numpy(const(n)))[0])
+
+
+@pytest.mark.cuda
+def test_cuda_hungarian_is_deterministic(card):
+    c = torch.from_numpy(np.random.default_rng(10).uniform(
+        0, 2, (5, 50, 50)).astype(np.float32)).to(card)
+    first = pkh.linear_sum_assignment(c)
+    second = pkh.linear_sum_assignment(c)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

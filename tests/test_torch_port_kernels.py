@@ -3,8 +3,10 @@
 Each wrapper takes its plain PyTorch version for a CPU tensor; these
 tests hold the plain versions against the Pallas kernels (interpret mode)
 and the JAX references, hold a numpy mirror of the CUDA attention's
-split-over-keys arithmetic against the JAX reference, and check that CPU
-calls never count a launch.
+split-over-keys arithmetic against the JAX reference and one of the CUDA
+Hungarian solver's warp design (lane-owned columns, order-preserving
+keys, two-stage warp minimum) against both JAX solvers, and check that
+CPU calls never count a launch.
 tests/test_torch_port_cuda.py holds each CUDA kernel against its plain
 version on a card.
 
@@ -141,6 +143,168 @@ def test_hungarian_plain_equals_jax(case):
     assert np.array_equal(got, want)
     pal = np.asarray(linear_sum_assignment_pallas(jnp.asarray(c), interpret=True))
     assert np.array_equal(got, pal)
+
+
+_KEY_PAST_N = np.uint32(0xFFFFFFFF)    # a slot past n: never the minimum
+_COL_MASK = np.uint32(127)              # a column index in a packed key
+
+
+def _order_key(x):
+    """The CUDA solver's order-preserving uint32 key of fp32 values, -0.0
+    canonicalised to +0.0 first (x + 0.0)."""
+    b = (np.asarray(x, np.float32) + np.float32(0)).view(np.uint32)
+    return b ^ np.where(b >> 31 == 1, np.uint32(0xFFFFFFFF), np.uint32(0x80000000))
+
+
+def _key_value(k):
+    """The float whose key is k (the inverse of _order_key)."""
+    k = np.uint32(k)
+    return (k ^ (np.uint32(0x80000000) if k >> 31 else np.uint32(0xFFFFFFFF))
+            ).view(np.float32)
+
+
+def _warp_argmin(key, col):
+    """The solver's argmin over a warp: key and col (S, 32), slot s of
+    lane l holding column l + 32 s. One warp min of the keys, one of
+    (key >> 7, column) packed in 32 bits: the first column of the minimal
+    key's class of 128 keys, which is the first minimal column unless
+    that column's key is larger; then a third warp min, of the columns
+    that hold the minimal key."""
+    kmin = key.min()
+    jmin = int(((key & ~_COL_MASK) | col.astype(np.uint32)).min() & _COL_MASK)
+    if key[jmin >> 5, jmin & 31] != kmin:
+        jmin = int(col[key == kmin].min())
+    return kmin, jmin
+
+
+def _warp_solver_mirror(cost):
+    """numpy mirror of tscd_torch/csrc/hungarian.cu on one (n, n) cost:
+    per-slot state (S, 32) as the lanes' registers hold it; row4col,
+    col4row, the cost rows by assigned column (cbc) and the duals u by
+    assigned column (ubc) as shared memory holds them; the same fp32
+    operations."""
+    f32 = np.float32
+    n = cost.shape[0]
+    S = -(-n // 32)
+    col = np.arange(32)[None, :] + 32 * np.arange(S)[:, None]
+    live = col < n
+    jc = np.where(live, col, n - 1)
+    key_inf = _order_key(np.inf)
+    v = np.zeros((S, 32), f32)
+    s_ubc = np.zeros(n, f32)
+    s_cbc = np.zeros((n, n), f32)
+    s_r4c, s_c4r = np.full(n, -1), np.full(n, -1)
+    for cur in range(n):
+        # lim: spc while a column remains, -inf once taken or past n
+        spc, path = np.full((S, 32), np.inf, f32), np.full((S, 32), -1)
+        lim = np.where(live, f32(np.inf), f32(-np.inf))
+        key = np.where(live, key_inf, _KEY_PAST_N)
+        i, crow, ui, mv = cur, cost[cur], f32(0), f32(0)
+        while True:
+            r = ((mv + crow[jc]) - ui) - v
+            better = r < lim
+            spc, lim = np.where(better, r, spc), np.where(better, r, lim)
+            path = np.where(better, i, path)
+            key = np.where(better, _order_key(r), key)
+            kmin, jmin = _warp_argmin(key, col)
+            mv = _key_value(kmin)
+            lim[jmin >> 5, jmin & 31] = -np.inf
+            key[jmin >> 5, jmin & 31] = key_inf
+            nxt = s_r4c[jmin]
+            if nxt < 0:
+                sink = jmin
+                break
+            i, crow, ui = nxt, s_cbc[jmin], s_ubc[jmin]
+        # u of each visited row but cur, held by its taken column as ubc
+        done = live & (lim == -np.inf)
+        v = v - np.where(done, mv - spc, f32(0))
+        other = done & (s_r4c[jc] >= 0)
+        s_ubc[col[other]] = s_ubc[col[other]] + (mv - spc[other])
+        s_path = path.ravel()[:n]
+        j = sink
+        while True:
+            ii = s_path[j]
+            next_j = s_c4r[ii]
+            uu = f32(0) + mv if ii == cur else s_ubc[next_j]
+            s_r4c[j], s_c4r[ii], s_ubc[j] = ii, j, uu
+            s_cbc[j] = cost[ii]
+            if ii == cur:
+                break
+            j = next_j
+    return s_c4r.astype(np.int32)
+
+
+def _near_tie_cost(rng, n=50):
+    return (np.float32(1) + rng.integers(0, 4, (n, n)).astype(np.float32)
+            * np.float32(2.0 ** -23))
+
+
+def _sequence_start_cost(monkeypatch, n=50):
+    """The cost the matcher hands the solver at a sequence start: every
+    bank row invalid, every proposal valid, through
+    masked_linear_sum_assignment."""
+    kept = []
+
+    def keep(cost):
+        kept.append(cost.clone())
+        return torch.zeros(cost.shape[:2], dtype=torch.int32)
+
+    monkeypatch.setattr(phu, "linear_sum_assignment", keep)
+    rand = torch.from_numpy(np.random.default_rng(12).uniform(0, 2, (n, n)).astype(np.float32))
+    phu.masked_linear_sum_assignment(rand, torch.zeros(n, dtype=torch.bool),
+                                     torch.ones(n, dtype=torch.bool))
+    return kept[0][0].numpy()
+
+
+@pytest.mark.parametrize("case", ["random50", "sequence_start", "ties",
+                                  "signed_zero_tie", "near_ties", "n1", "n33",
+                                  "n128"])
+def test_warp_solver_mirror_matches_jax(case, monkeypatch):
+    rng = np.random.default_rng(13)
+    if case == "random50":
+        c = rng.uniform(0, 2, (50, 50)).astype(np.float32)
+    elif case == "sequence_start":
+        c = _sequence_start_cost(monkeypatch)
+        assert (c == np.float32(1e4)).all()
+    elif case == "ties":
+        c = _tie_cost()
+    elif case == "signed_zero_tie":
+        # zeros of both signs tie for each row's minimum; from duals that
+        # start at +0.0 the first add (mv + c, mv = +0.0) already turns
+        # -0.0 into +0.0, so the key's canonicalisation is held apart in
+        # test_warp_argmin_ties_signed_zeros_like_jax
+        c = np.ones((40, 40), np.float32)
+        c[:, 7] = 0.0
+        c[:, 33:37] = -0.0
+    elif case == "near_ties":
+        # reduced costs a few ulps apart: the packed minimum's class holds
+        # several keys, so the third warp minimum decides
+        c = _near_tie_cost(rng)
+    else:
+        n = int(case[1:])
+        c = rng.normal(size=(n, n)).astype(np.float32)
+    got = _warp_solver_mirror(c)
+    want = np.asarray(jhu.linear_sum_assignment(jnp.asarray(c), use_pallas=False))
+    assert np.array_equal(got, want)
+    pal = np.asarray(linear_sum_assignment_pallas(jnp.asarray(c), interpret=True))
+    assert np.array_equal(got, pal)
+
+
+def test_warp_argmin_ties_signed_zeros_like_jax():
+    """-0.0 at column 40 and +0.0 at column 7 tie: the first index wins,
+    as in the JAX argmin, though -0.0's raw bits order below +0.0's."""
+    vals = np.full(64, 3.0, np.float32)
+    vals[40], vals[7] = -0.0, 0.0
+    col = np.arange(64).reshape(2, 32)
+    kmin, jmin = _warp_argmin(_order_key(vals).reshape(2, 32), col)
+    assert jmin == int(jnp.argmin(jnp.asarray(vals))) == 7
+    assert _key_value(kmin) == 0.0 and not np.signbit(_key_value(kmin))
+    vals[[3, 35]] = [0.5, -1.0]
+    kmin, jmin = _warp_argmin(_order_key(vals).reshape(2, 32), col)
+    assert jmin == int(jnp.argmin(jnp.asarray(vals))) == 35
+    assert _key_value(kmin) == np.float32(-1.0)
+    ranks = np.argsort(_order_key(vals), kind="stable")
+    assert np.array_equal(vals[ranks], np.sort(vals, kind="stable"))
 
 
 def test_hungarian_batch_and_masked():
