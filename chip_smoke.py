@@ -20,26 +20,44 @@ Phases, each of which raises on failure (so the run exits non-zero):
              The solver's bound is a latency bound: Dijkstra steps on the
              cost times the cycles of one step's dependent chain (each
              instruction's latency measured here by latency_probe.cu) over
-             the card's maximum SM clock.
+             the card's maximum SM clock. The NMS walk on random boxes at
+             K = 1500 and 50, a chain that needs K steps, all-invalid,
+             identical boxes and tied scores, B = 1 and 3, exactly; the
+             Hungarian solver past n = 128 (the block kernel) on random and
+             constant costs at n = 129, 200 and 500 and through
+             masked_linear_sum_assignment, exactly; both timed.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
              3 windows with carried matcher state: detections must match.
   4. full    TSCD-Large (depth 1.0, width 1.0, P=50, 1+31 frames, 576 px,
              seeded random weights) for 3 streamed windows after a warm-up
-             window; one forward under CUDA's sync debug mode (it must
+             window; one whole dispatch (upload of pinned uint8 frames,
+             forward, postprocess) under CUDA's sync debug mode (it must
              wait on the device nowhere); per-window latency from CUDA
              events; launch counts of every kernel in those 3 windows;
              then one more streamed window whose Hungarian costs are kept
              (the carried-state cost, checked and timed like the others),
              and one more under torch.profiler for the device time by
              kernel, and the copies made inside the attention's calls.
+  5. eval    the streaming evaluator on an in-memory dataset with
+             VIDDataset's interface (seeded uint8 frames at the size
+             load_frame gives a 720 x 1280 source, seeded ground truth):
+             the selftest config on the CPU and on the card (detections
+             and COCO stats must agree), then TSCD-Large at full width over
+             2 videos and 20 windows through WindowLoader(pin_memory=True)
+             and the pipelined VIDEvaluator: evaluated frames/s, the
+             evaluator's ms per frame, the mean window device time, the
+             upload of one pinned uint8 window, the device's busy share of
+             the evaluate loop and the host time a window outside
+             dispatch/materialize.
 Prints one JSON line per phase, the card's name and power limit, the
 `kernels` line, and last `{"ok": true, "device": {...}}`.
 """
 
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -56,6 +74,7 @@ KERNELS = {
                              "tscd_tpu/ops/pallas/fused_attention.py:109"),
     "hungarian": ("tscd_torch/csrc/hungarian.cu",
                   "tscd_tpu/ops/pallas/hungarian.py:111"),
+    "nms": ("tscd_torch/csrc/nms.cu", "tscd_tpu/ops/nms.py:55 (XLA scan)"),
 }
 
 
@@ -81,8 +100,9 @@ def cuda_ms(torch, fn, reps, warmup=2):
 def timed(torch, fn, reps, kernel, warmup=2):
     """One call's times in ms: `ms`, the self device time of the CUDA
     kernels whose names hold `kernel`, from torch.profiler over `reps`
-    calls; `call_ms`, CUDA events around `reps` back-to-back calls in a
-    loop of their own (host work included, no profiler)."""
+    calls (and `ms_by_kernel` where a call launches several); `call_ms`,
+    CUDA events around `reps` back-to-back calls in a loop of their own
+    (host work included, no profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call_ms = cuda_ms(torch, fn, reps, warmup)
@@ -94,8 +114,12 @@ def timed(torch, fn, reps, kernel, warmup=2):
            if e.device_type == DeviceType.CUDA and kernel in e.key]
     if not evs:
         raise AssertionError(f"no {kernel} kernel in the profile")
-    return dict(ms=sum(e.self_device_time_total for e in evs) / 1e3 / reps,
-                call_ms=call_ms)
+    out = dict(ms=sum(e.self_device_time_total for e in evs) / 1e3 / reps,
+               call_ms=call_ms)
+    if len(evs) > 1:       # a call of several launches: each one's share
+        out["ms_by_kernel"] = {e.key[:60]: e.self_device_time_total / 1e3 / reps
+                               for e in evs}
+    return out
 
 
 def bound(nbytes, flops):
@@ -216,6 +240,79 @@ def check_hungarian(name, cost):
     return diff
 
 
+HUNGARIAN_BLOCK_BOUND = ("latency: Dijkstra steps x cycles of a block-wide step's least "
+                         "dependent chain (2 shared loads, 3 fp32 adds, 2 warp minima, "
+                         "2 integer operations; measured latencies) / max SM clock")
+NMS_BOUND = ("latency: K walk steps x cycles of one step's dependent chain (a warp vote, "
+             "a word AND and a select; measured latencies) / max SM clock; beside it "
+             "the bytes bound of reading the K x K bools")
+
+
+def block_chain_cycles(lat):
+    """The least dependent chain of one Dijkstra step of any block-wide
+    argmin: the step's row and min value from shared memory, the three
+    adds of r, a warp minimum, its store and load across the warps and a
+    second warp minimum (block barriers not counted)."""
+    return 2 * lat["lds"] + 3 * lat["fadd"] + 2 * lat["redux"] + 2 * lat["imad"]
+
+
+def nms_chain_cycles(lat):
+    """One NMS walk step's dependent chain in nms.cu: the AND of the
+    row's words with the keep words, __any_sync of it, the select that
+    sets the box's bit."""
+    return lat["vote"] + 2 * lat["imad"]
+
+
+def nms_inputs(torch, rng, dev):
+    """(name, sup, valid in score order) on the card, built as nms_fixed
+    builds them: random boxes at the main path's K = 1500 and 50 and a
+    ragged K, B = 1 and 3, all-invalid, identical boxes, tied scores, and a
+    chain where box i overlaps box i + 1 only, so that the fixed point
+    needs K steps."""
+    import numpy as np
+
+    from tscd_torch.ops.nms import suppression_matrix
+    t = lambda a: torch.as_tensor(a, device=dev)
+
+    def rand(B, K):
+        xy = rng.uniform(0, 500, (B, K, 2))
+        wh = rng.uniform(10, 120, (B, K, 2))
+        return (np.concatenate([xy, xy + wh], -1).astype(np.float32),
+                rng.uniform(size=(B, K)).astype(np.float32),
+                rng.uniform(size=(B, K)) > 0.3)
+
+    cases = []
+    for B, K in ((1, 1500), (1, 50), (3, 1500), (3, 50), (2, 7)):
+        b, sc, v = rand(B, K)
+        cases += [(f"random {B}x{K}", b, sc, v),
+                  (f"all invalid {B}x{K}", b, sc, np.zeros_like(v)),
+                  (f"identical boxes {B}x{K}", np.repeat(b[:, :1], K, 1), sc, v),
+                  (f"tied scores {B}x{K}", b, np.full_like(sc, 0.5), v)]
+    K = 1500
+    x = np.arange(K, dtype=np.float32) * 0.3
+    cases.append(("chain 1x1500", np.stack([x, 0 * x, x + 1, 0 * x + 1], -1)[None],
+                  np.linspace(1, 0, K, dtype=np.float32)[None], np.ones((1, K), bool)))
+    out = []
+    for name, b, sc, v in cases:
+        _, sup, vs = suppression_matrix(t(b), t(sc), t(v), 0.5)
+        out.append((name, sup, vs))
+    return out
+
+
+def check_nms(torch, name, sup, valid):
+    """The kernel's keep mask against the plain version's (on a host copy
+    of the same inputs): equal element for element."""
+    from tscd_torch.ops.kernels import nms as kn
+    got = kn.nms_walk(sup, valid).cpu()
+    want = kn.nms_walk_plain(sup.cpu(), valid.cpu())
+    diff = int((got != want).sum())
+    emit({"phase": "kernels", "check": f"nms {name}", "max_abs_err": diff,
+          "kept": int(want.sum()), "tolerance": "elementwise equal", "pass": diff == 0})
+    if diff:
+        raise AssertionError(f"nms {name}: {diff} boxes differ")
+    return diff, want
+
+
 def hungarian_cost_row(torch, cost, lat, clock_mhz):
     """Device time and call time of the solver on one (1, n, n) cost,
     its Dijkstra steps and its latency bound."""
@@ -240,6 +337,7 @@ def kernel_phase(torch, dev):
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
     from tscd_torch.ops.kernels import library
+    from tscd_torch.ops.kernels import nms as kn
 
     rng = np.random.default_rng(0)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
@@ -350,6 +448,71 @@ def kernel_phase(torch, dev):
         bound_by="operations", bound_model=HUNGARIAN_BOUND, library_ms=None,
         latency_cycles=lat, sm_clock_max_mhz=clock, costs=costs)
 
+    # -- Hungarian past n = 128: the block kernel; exact -------------------
+    # (a generator of its own keeps the other kernels' inputs as they were)
+    rng_main, rng = rng, np.random.default_rng(6)
+    berr = 0
+    for m in (129, 200, 500):
+        for kind, c in (("random", rng.uniform(0, 2, (1, m, m))), ("constant", const(m)[None])):
+            berr = max(berr, check_hungarian(f"hungarian {m}x{m} {kind}",
+                                             t(c.astype(np.float32))))
+    berr = max(berr, check_hungarian("hungarian 2 x 200x200 batch",
+                                     t(rng.uniform(0, 2, (2, 200, 200)).astype(np.float32))))
+    m = 200
+    c200 = rng.uniform(0, 2, (m, m)).astype(np.float32)
+    for case, rv, cv in (("random validity", rng.uniform(size=m) > 0.3, rng.uniform(size=m) > 0.3),
+                         ("empty bank", np.zeros(m, bool), np.ones(m, bool))):
+        got = hungarian_ops.masked_linear_sum_assignment(
+            t(c200), t(rv, torch.bool), t(cv, torch.bool)).cpu()
+        want = hungarian_ops.masked_linear_sum_assignment(
+            torch.as_tensor(c200), torch.as_tensor(rv), torch.as_tensor(cv))
+        same = torch.equal(got, want)
+        emit({"phase": "kernels", "check": f"hungarian 200x200 masked, {case}",
+              "tolerance": "elementwise equal", "pass": same})
+        if not same:
+            raise AssertionError(f"hungarian 200x200 masked ({case}) differs")
+    if jv_steps(const(129)) != 129 * 130 // 2:
+        raise AssertionError("a constant cost should take n(n+1)/2 Dijkstra steps")
+    block = {}
+    for m, kind in ((129, "random"), (200, "random"), (500, "random"), (500, "constant")):
+        c = (rng.uniform(0, 2, (m, m)).astype(np.float32) if kind == "random" else const(m))
+        steps = jv_steps(c) if kind == "random" else m * (m + 1) // 2
+        ct = t(c[None])
+        block[f"{m}x{m} {kind}"] = dict(
+            **timed(torch, lambda: hu.linear_sum_assignment(ct), 20 if kind == "random" else 3,
+                    "linear_sum_assignment_block"),
+            dijkstra_steps=steps,
+            bound_ms=steps * block_chain_cycles(lat) / (clock * 1e3))
+    c200t = t(rng.uniform(0, 2, (1, 200, 200)).astype(np.float32))
+    rows["hungarian"]["block_kernel"] = dict(
+        replaces="tscd_tpu/ops/hungarian.py:88-128 (XLA lowering, n > 128)",
+        max_abs_err=berr, costs=block,
+        plain_ms_200x200_random=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(c200t), 1, 0),
+        bound_by="operations", bound_model=HUNGARIAN_BLOCK_BOUND)
+
+    # -- NMS walk: refined (K = P * C = 1500) and best class (K = 50); exact
+    nerr = 0
+    timing = {}
+    for name, sup, vs in nms_inputs(torch, rng, dev):
+        err, want = check_nms(torch, name, sup, vs)
+        nerr = max(nerr, err)
+        if name == "chain 1x1500" and not torch.equal(want[0], torch.arange(1500) % 2 == 0):
+            raise AssertionError("nms chain: every other box should survive")
+        if name in ("random 1x1500", "random 1x50"):
+            timing[vs.shape[1]] = (sup, vs)
+    nms_rows = {}
+    for K, (sup, vs) in sorted(timing.items(), reverse=True):
+        lat_ms = K * nms_chain_cycles(lat) / (clock * 1e3)
+        bytes_ms = (K * K + 2 * K) / H100_BYTES_PER_S * 1e3
+        nms_rows[K] = dict(**timed(torch, lambda: kn.nms_walk(sup, vs), 100, "nms_"),
+                           plain_ms=cuda_ms(torch, lambda: kn.nms_walk_plain(sup, vs), 5, 1),
+                           bound_ms=max(lat_ms, bytes_ms), bound_latency_ms=lat_ms,
+                           bound_bytes_ms=bytes_ms)
+    rows["nms"] = dict(max_abs_err=nerr, **nms_rows[1500], bound_by="operations",
+                       bound_model=NMS_BOUND, library_ms=None,
+                       sizes={f"K={K}": r for K, r in nms_rows.items()})
+    rng = rng_main
+
     # -- Focus stem: 4 frames for the check, 32 (the window) for time ----
     # fp32 sums of 108 taps over pixel values up to 255: 1e-4 relative.
     # Checked at TSCD-Large's width, the selftest's (O = 8) and a ragged
@@ -420,8 +583,6 @@ def run_windows(torch, predict, exp, n_windows, seed, dev_sync, state=None,
 
 def small_phase(torch):
     """CPU plain versions vs the card's kernels on the selftest config."""
-    import numpy as np
-
     from tscd_torch.core.predict import make_predict_fn
     from tscd_torch.exp.tscd_large import selftest_exp
     from tscd_torch.models.tscd import random_init_
@@ -436,26 +597,39 @@ def small_phase(torch):
     # fp32 on both sides, other conv algorithms: 1e-4 relative. Rows are
     # matched as a set per frame: two scores equal to ~1e-7 may swap rank.
     atol = rtol = 1e-4
-    worst, n = 0.0, 0
-    for w, (frames_c, frames_g) in enumerate(zip(out["cpu"], out["cuda"])):
-        for rows_c, rows_g in zip(frames_c, frames_g):
-            if len(rows_c) != len(rows_g):
-                raise AssertionError(f"small path window {w}: {len(rows_c)} "
-                                     f"detections on the CPU, {len(rows_g)} on the card")
-            free = list(range(len(rows_g)))
-            for r in rows_c:
-                hit = next((i for i in free if rows_g[i, 6] == r[6] and np.allclose(
-                    rows_g[i, :6], r[:6], atol=atol, rtol=rtol)), None)
-                if hit is None:
-                    raise AssertionError(f"small path window {w}: no card detection matches {r}")
-                free.remove(hit)
-                worst = max(worst, float(np.abs(rows_g[hit, :6] - r[:6]).max()))
-            n += len(rows_g)
-    if n == 0:
-        raise AssertionError("small path: no detections to compare")
+    worst, n = match_rows(out["cpu"], out["cuda"], atol, rtol)
     emit({"phase": "small", "windows": 3, "detections": n,
           "max_abs_err": worst, "tolerance": {"atol": atol, "rtol": rtol},
           "pass": True})
+
+
+def match_rows(windows_a, windows_b, atol, rtol):
+    """Per window and local frame, the detection rows [x1, y1, x2, y2,
+    obj, score, cls] of the two runs matched as sets: the same count, and
+    each row of `a` has its own row of `b` of the same class within the
+    tolerance. Returns (max abs diff, rows compared); raises on a
+    mismatch or when there is nothing to compare."""
+    import numpy as np
+    if len(windows_a) != len(windows_b):
+        raise AssertionError(f"{len(windows_a)} windows against {len(windows_b)}")
+    worst, n = 0.0, 0
+    for w, (frames_a, frames_b) in enumerate(zip(windows_a, windows_b)):
+        for rows_a, rows_b in zip(frames_a, frames_b):
+            if len(rows_a) != len(rows_b):
+                raise AssertionError(f"window {w}: {len(rows_a)} detections "
+                                     f"against {len(rows_b)}")
+            free = list(range(len(rows_b)))
+            for r in rows_a:
+                hit = next((i for i in free if rows_b[i, 6] == r[6] and np.allclose(
+                    rows_b[i, :6], r[:6], atol=atol, rtol=rtol)), None)
+                if hit is None:
+                    raise AssertionError(f"window {w}: no detection matches {r}")
+                free.remove(hit)
+                worst = max(worst, float(np.abs(rows_b[hit, :6] - r[:6]).max()))
+            n += len(rows_b)
+    if n == 0:
+        raise AssertionError("no detections to compare")
+    return worst, n
 
 
 def full_phase(torch, counters):
@@ -474,20 +648,24 @@ def full_phase(torch, counters):
     model = random_init_(exp.get_model(), exp.seed)
     pred = make_predict_fn(model, exp.lframe_val, exp.gframe_val,
                            exp.nmsthre, exp.test_conf)
-    run_windows(torch, pred, exp, 1, 100, True)            # warm-up
+    _, _, warm_state = run_windows(torch, pred, exp, 1, 100, True)   # warm-up
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    # the forward itself waits on the device nowhere (the NMS of the
-    # postprocess does): any synchronising call in it raises here
+    # the whole dispatch of a streamed window (upload of pinned uint8
+    # frames, forward, postprocess with the NMS walk) waits on the device
+    # nowhere: any synchronising call in it raises here
     F = exp.lframe_val + exp.gframe_val
-    x = torch.full((F, *exp.test_size, 3), 128.0, device="cuda")
-    te = torch.as_tensor(get_timing_signal_1d(np.arange(F)), device="cuda")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, (F, *exp.test_size, 3), dtype=np.uint8)).pin_memory()
+    te = torch.from_numpy(get_timing_signal_1d(np.arange(1, 1 + F))).pin_memory()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        model(x, te, exp.lframe_val, exp.gframe_val)
+        refined, _ = pred.dispatch(x, te, True, warm_state)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    if len(pred.materialize(refined)) != exp.lframe_val:
+        raise AssertionError("the checked dispatch gave no detections per local frame")
     for c in counters.values():
         c.launches = 0
     dets, lat, state = run_windows(torch, pred, exp, 3, exp.seed, True)
@@ -505,7 +683,7 @@ def full_phase(torch, counters):
         raise AssertionError("full path produced no carried state or no detections")
     emit({"phase": "full", "config": "TSCD-Large 1+31 frames 576px P=50",
           "setup_s": setup_s, "window_ms": lat, "detections": n_det,
-          "launches": launches, "forward_host_syncs": 0,
+          "launches": launches, "dispatch_host_syncs": 0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     state, carried = capture_costs(torch, pred, exp, state)
     profile_window(torch, pred, exp, state)
@@ -545,6 +723,169 @@ def capture_costs(torch, pred, exp, state):
     return state, kept
 
 
+class SyntheticVID:
+    """An in-memory dataset with the interface VIDDataset gives
+    WindowLoader (`res`, `img_size`, `load_frame`, `frame_index`): seeded
+    uint8 frames at the size load_frame returns for a 720 x 1280 source
+    (324 x 576 at 576 px, so the letterbox pads and the evaluator rescales),
+    seeded ground truth, and the windows VIDDataset builds (val, formal)
+    from `videos` videos of `frames` frames."""
+
+    SOURCE = (720, 1280)
+
+    def __init__(self, exp, videos, frames, seed):
+        import numpy as np
+
+        from tscd_torch.data.vid import build_sequences
+        rng = np.random.default_rng(seed)
+        self.img_size = tuple(exp.test_size)
+        r = min(self.img_size[0] / self.SOURCE[0], self.img_size[1] / self.SOURCE[1])
+        h, w = int(self.SOURCE[0] * r), int(self.SOURCE[1] * r)
+        names = [[f"Data/VID/val/vid{v}/{i:06d}.JPEG" for i in range(frames)]
+                 for v in range(videos)]
+        self.frames, self.annos = {}, {}
+        for p in (p for video in names for p in video):
+            self.frames[p] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            n = int(rng.integers(1, 4))
+            xy = rng.uniform(0, (w - 40, h - 40), (n, 2))
+            wh = rng.uniform(16, 160, (n, 2))
+            x2y2 = np.minimum(xy + wh, (w, h))
+            cls = rng.integers(0, exp.num_classes, (n, 1))
+            self.annos[p] = np.concatenate([xy, x2y2, cls], 1).astype(np.float32)
+        self.res = build_sequences(names, exp.lframe_val, exp.gframe_val,
+                                   mode=exp.mode, formal=True, val=True,
+                                   rng=random.Random(seed))
+
+    def load_frame(self, path):
+        return self.frames[path], self.annos[path].copy(), self.SOURCE
+
+    def frame_index(self, path):
+        from tscd_torch.data.vid import frame_index
+        return frame_index(path)
+
+
+def recording(predict, out, times=None):
+    """`predict` with its materialized rows appended to `out`; with
+    `times`, each dispatch's and materialize's host seconds, and CUDA
+    events around each dispatch, appended there."""
+    def dispatch(*args):
+        t0 = time.perf_counter()
+        ev = None
+        if times is not None:
+            import torch
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        res = predict.dispatch(*args)
+        if ev is not None:
+            ev[1].record()
+            times["events"].append(ev)
+            times["dispatch_s"].append(time.perf_counter() - t0)
+            times["marks"].append(t0)
+        return res
+
+    def materialize(dev):
+        t0 = time.perf_counter()
+        rows = predict.materialize(dev)
+        if times is not None:
+            t1 = time.perf_counter()
+            times["materialize_s"].append(t1 - t0)
+            times["marks"].append(t1)
+        out.append(rows)
+        return rows
+
+    def unpipelined(*args):
+        raise AssertionError("the evaluator must take the pipelined path")
+
+    unpipelined.dispatch = dispatch
+    unpipelined.materialize = materialize
+    return unpipelined
+
+
+def eval_phase(torch, counters):
+    """The streaming evaluator end to end: the selftest config on the CPU
+    and on the card, then TSCD-Large at full width with its numbers."""
+    import numpy as np
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.data.vid import WindowLoader
+    from tscd_torch.exp.tscd_large import Exp, selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    quiet = lambda *a: None
+
+    # selftest: CPU plain versions against the card's kernels, 1e-4
+    exp = selftest_exp()
+    ds = SyntheticVID(exp, videos=2, frames=6, seed=21)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = random_init_(exp.get_model(device=dev), exp.seed)
+        rows = []
+        pred = recording(make_predict_fn(model, exp.lframe_val, exp.gframe_val,
+                                         exp.nmsthre, exp.test_conf), rows)
+        res = exp.get_evaluator(WindowLoader(ds, pin_memory=dev == "cuda")).evaluate(pred, quiet)
+        out[dev] = (res, rows)
+    worst, n = match_rows(out["cpu"][1], out["cuda"][1], 1e-4, 1e-4)
+    stats_err = float(np.abs(np.subtract(out["cpu"][0]["stats"], out["cuda"][0]["stats"])).max())
+    emit({"phase": "eval", "config": "selftest", "windows": len(ds.res),
+          "videos": 2, "detections": n, "max_abs_err": worst,
+          "stats_max_abs_err": stats_err, "stats": out["cuda"][0]["stats"],
+          "tolerance": {"detections": 1e-4, "stats": 1e-4}, "pass": stats_err <= 1e-4})
+    if stats_err > 1e-4:
+        raise AssertionError(f"selftest eval: stats differ by {stats_err}")
+
+    # TSCD-Large at full width: 2 videos of 10 frames, 20 windows
+    exp = Exp()
+    ds = SyntheticVID(exp, videos=2, frames=10, seed=22)
+    model = random_init_(exp.get_model(), exp.seed)
+    pred = make_predict_fn(model, exp.lframe_val, exp.gframe_val, exp.nmsthre, exp.test_conf)
+    loader = WindowLoader(ds, pin_memory=True)
+    first = next(iter(loader))
+    pred.materialize(pred.dispatch(first["imgs"], first["time_embedding"], False, None)[0])
+    up = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(5)]
+    for a, b in up:
+        a.record()
+        first["imgs"].to("cuda", non_blocking=True)
+        b.record()
+    torch.cuda.synchronize()
+    upload_ms = [a.elapsed_time(b) for a, b in up]
+    for c in counters.values():
+        c.launches = 0
+    rows, times = [], {"events": [], "dispatch_s": [], "materialize_s": [], "marks": []}
+    t0 = time.perf_counter()
+    res = exp.get_evaluator(loader).evaluate(recording(pred, rows, times), quiet)
+    eval_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    nw = len(ds.res)
+    expected = {"focus_stem": nw, "fused_dual_attention": 2 * nw, "hungarian": nw, "nms": 2 * nw}
+    if launches != expected:
+        raise AssertionError(f"eval launch counts {launches} != {expected}")
+    if len(rows) != nw or nw < 16:
+        raise AssertionError(f"{len(rows)} windows evaluated, {nw} expected (>= 16)")
+    for per_frame in rows:
+        for r in per_frame:
+            if r.ndim != 2 or r.shape[1] != 7 or not np.isfinite(r).all():
+                raise AssertionError(f"bad detections {r.shape}")
+    if len(res.get("stats", [])) != 12 or not np.isfinite(res["stats"]).all():
+        raise AssertionError(f"eval gave no COCO stats: {res}")
+    window_ms = [a.elapsed_time(b) for a, b in times["events"]]
+    loop_s = times["marks"][-1] - times["marks"][0]
+    host_s = loop_s - sum(times["dispatch_s"]) - sum(times["materialize_s"])
+    frames = nw * exp.lframe_val
+    emit({"phase": "eval", "config": "TSCD-Large 1+31 frames 576px P=50",
+          "videos": 2, "windows": nw, "evaluated_frames": frames,
+          "evaluate_s": eval_s, "frames_per_s": frames / eval_s,
+          "loop_s": loop_s, "loop_frames_per_s": frames / loop_s,
+          "ms_per_frame": res["ms_per_frame"],
+          "window_ms_mean": float(np.mean(window_ms)), "window_ms": window_ms,
+          "upload_ms_pinned_uint8": upload_ms,
+          "upload_mb": first["imgs"].numel() / 1e6,
+          "device_busy_share": sum(window_ms) / 1e3 / loop_s,
+          "host_ms_per_window_outside_predict": 1e3 * host_s / nw,
+          "dispatch_ms_mean": 1e3 * float(np.mean(times["dispatch_s"])),
+          "materialize_ms_mean": 1e3 * float(np.mean(times["materialize_s"])),
+          "launches": launches, "stats": res["stats"], "mAP": res["mAP"]})
+
+
 KERNEL_CLASSES = (   # first match wins
     ("cuDNN implicit-GEMM convs", ("fprop", "implicit_convolve", "convolve_common")),
     ("cuDNN FFT convs", ("fft", "pointwise_mult_and_sum_complex")),
@@ -552,7 +893,7 @@ KERNEL_CLASSES = (   # first match wins
     ("BatchNorm inference", ("bn_fw_inf",)),
     ("SiLU", ("silu_kernel",)),
     ("hand kernels", ("focus_stem_kernel", "fused_dual_attention",
-                      "linear_sum_assignment")),
+                      "linear_sum_assignment", "nms_pack_rows", "nms_walk")),
     ("frame upload", ("Memcpy HtoD",)),
 )
 
@@ -633,6 +974,7 @@ def profile_window(torch, pred, exp, state):
           "transpose_ms": by_class["cuDNN layout transposes"],
           "attention": attention,
           "hungarian_ms": sum(r["ms"] for r in table if "linear_sum_assignment" in r["name"]),
+          "nms_ms": sum(r["ms"] for r in table if "nms_" in r["name"]),
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
 
 
@@ -652,9 +994,11 @@ def main() -> int:
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
     from tscd_torch.ops.kernels import library
+    from tscd_torch.ops.kernels import nms as kn
     counters = {"focus_stem": fs.focus_stem,
                 "fused_dual_attention": fa.fused_dual_attention,
-                "hungarian": hu.linear_sum_assignment}
+                "hungarian": hu.linear_sum_assignment,
+                "nms": kn.nms_walk}
 
     t0 = time.time()
     library.load()
@@ -668,10 +1012,11 @@ def main() -> int:
     small_phase(torch)
     launches, carried = full_phase(torch, counters)
     carried_phase(torch, rows["hungarian"], carried)
-
-    expected = {"focus_stem": 3, "fused_dual_attention": 6, "hungarian": 3}
+    expected = {"focus_stem": 3, "fused_dual_attention": 6, "hungarian": 3, "nms": 6}
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
+    eval_phase(torch, counters)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -679,7 +1024,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name], **rows[name]}
-        for name in ("focus_stem", "fused_dual_attention", "hungarian")]})
+        for name in ("focus_stem", "fused_dual_attention", "hungarian", "nms")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

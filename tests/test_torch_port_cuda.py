@@ -8,7 +8,9 @@ machine with the card and no JAX installed:
 
 Tolerances: fp32 with another summation order, 1e-5 absolute on the
 attention's unit-scale values and 1e-4 relative on the stem's pixel-scale
-sums (TF32 off); col4row is exact.
+sums (TF32 off); col4row and the NMS keep mask are exact; the selftest
+evaluator on the card against the CPU, detections 1e-4 (matched as sets
+per frame) and stats 1e-4.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.ops.kernels import hungarian as pkh
+from tscd_torch.ops.kernels import nms as pkn
 
 
 @pytest.fixture
@@ -169,3 +172,91 @@ def test_cuda_focus_stem_matches_plain(card, F, H, W, O, border):
     assert got.shape == (F, O, H // 2, W // 2) and got.is_contiguous()
     torch.testing.assert_close(got, pfs.focus_stem_plain(*ins),
                                atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_walk_equals_plain(card):
+    """chip_smoke.py's cases: random boxes at K = 1500, 50 and 7, B = 1, 3
+    and 2, all invalid, identical boxes, tied scores, the K-step chain."""
+    import chip_smoke
+    for name, sup, vs in chip_smoke.nms_inputs(torch, np.random.default_rng(14), card):
+        n0 = pkn.nms_walk.launches
+        got = pkn.nms_walk(sup, vs)
+        assert pkn.nms_walk.launches == n0 + 1
+        want = pkn.nms_walk_plain(sup.cpu(), vs.cpu())
+        assert torch.equal(got.cpu(), want), name
+    assert torch.equal(got.cpu()[0], torch.arange(1500) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_hungarian_past_128_equals_plain(card):
+    rng = np.random.default_rng(15)
+    for n in (129, 200):
+        for c in (rng.uniform(0, 2, (2, n, n)).astype(np.float32),
+                  np.full((1, n, n), 1e4, np.float32)):
+            ct = torch.from_numpy(c).to(card)
+            n0 = pkh.linear_sum_assignment.launches
+            got = pkh.linear_sum_assignment(ct)
+            assert pkh.linear_sum_assignment.launches == n0 + 1
+            assert torch.equal(got.cpu(), pkh.linear_sum_assignment_plain(ct.cpu()))
+    n = 200
+    rv = torch.from_numpy(rng.uniform(size=n) > 0.3)
+    cv = torch.from_numpy(rng.uniform(size=n) > 0.3)
+    c = torch.from_numpy(rng.uniform(0, 2, (n, n)).astype(np.float32))
+    got = phu.masked_linear_sum_assignment(c.to(card), rv.to(card), cv.to(card))
+    assert torch.equal(got.cpu(), phu.masked_linear_sum_assignment(c, rv, cv))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_waits_on_nothing(card):
+    """The whole dispatch (upload, forward, postprocess) of a streamed
+    window from pinned uint8 frames runs under sync debug mode "error"."""
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    exp = selftest_exp()
+    model = random_init_(exp.get_model(device=card), exp.seed)
+    predict = make_predict_fn(model, exp.lframe_val, exp.gframe_val,
+                              exp.nmsthre, exp.test_conf)
+    F, (H, W) = exp.lframe_val + exp.gframe_val, exp.test_size
+    rng = np.random.default_rng(16)
+    windows = [(torch.from_numpy(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)).pin_memory(),
+                torch.from_numpy(get_timing_signal_1d(np.arange(w, w + F))).pin_memory())
+               for w in range(2)]
+    _, state = predict.dispatch(*windows[0], False, None)      # warm-up
+    torch.cuda.synchronize()
+    n0 = pkn.nms_walk.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refined, state = predict.dispatch(*windows[1], True, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pkn.nms_walk.launches == n0 + 2
+    rows = predict.materialize(refined)
+    assert len(rows) == exp.lframe_val and np.isfinite(rows[0]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_selftest_evaluator_matches_cpu(card):
+    """The selftest evaluator over an in-memory dataset (chip_smoke.py's
+    `SyntheticVID`) on the card against the CPU."""
+    import chip_smoke
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.data.vid import WindowLoader
+    from tscd_torch.exp import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    exp = selftest_exp()
+    ds = chip_smoke.SyntheticVID(exp, videos=2, frames=6, seed=17)
+    out = {}
+    for dev in ("cpu", card):
+        model = random_init_(exp.get_model(device=dev), exp.seed)
+        rows = []
+        predict = chip_smoke.recording(make_predict_fn(
+            model, exp.lframe_val, exp.gframe_val, exp.nmsthre, exp.test_conf), rows)
+        loader = WindowLoader(ds, pin_memory=torch.device(dev).type == "cuda")
+        res = exp.get_evaluator(loader).evaluate(predict, log=lambda *a: None)
+        out[torch.device(dev).type] = (res, rows)
+    (rc, wc), (rg, wg) = out["cpu"], out["cuda"]
+    assert chip_smoke.match_rows(wc, wg, 1e-4, 1e-4)[1] > 0
+    np.testing.assert_allclose(rg["stats"], rc["stats"], atol=1e-4)

@@ -1,12 +1,13 @@
-"""The port's three kernel modules against the JAX package on the CPU.
+"""The port's kernel modules against the JAX package on the CPU.
 
 Each wrapper takes its plain PyTorch version for a CPU tensor; these
 tests hold the plain versions against the Pallas kernels (interpret mode)
 and the JAX references, hold a numpy mirror of the CUDA attention's
 split-over-keys arithmetic against the JAX reference and one of the CUDA
 Hungarian solver's warp design (lane-owned columns, order-preserving
-keys, two-stage warp minimum) against both JAX solvers, and check that
-CPU calls never count a launch.
+keys, two-stage warp minimum) against both JAX solvers, hold the NMS
+walk's plain version (through `nms_fixed`) against the JAX scan, and
+check that CPU calls never count a launch.
 tests/test_torch_port_cuda.py holds each CUDA kernel against its plain
 version on a card.
 
@@ -22,6 +23,7 @@ import torch
 
 from tscd_tpu.models.blocks import _FocusConv
 from tscd_tpu.ops import hungarian as jhu
+from tscd_tpu.ops import nms as jnms
 from tscd_tpu.ops.pallas import focus_stem as jfs
 from tscd_tpu.ops.pallas.fused_attention import (dual_attention_reference,
                                                  fused_dual_attention as jfused)
@@ -30,7 +32,9 @@ from tscd_torch.models.darknet import CSPDarknet
 from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
+from tscd_torch.ops import nms as pnms
 from tscd_torch.ops.kernels import hungarian as pkh
+from tscd_torch.ops.kernels import nms as pkn
 
 
 def _attn_inputs(rng, B, h, q, k, d, p_valid=0.8):
@@ -307,6 +311,56 @@ def test_warp_argmin_ties_signed_zeros_like_jax():
     assert np.array_equal(vals[ranks], np.sort(vals, kind="stable"))
 
 
+@pytest.mark.parametrize("kind", ["random", "constant"])
+def test_hungarian_plain_equals_jax_xla_past_128(kind):
+    """Past n = 128 the JAX package runs its XLA lowering; the plain
+    version (and so the card's block kernel, held against it on the card)
+    equals it element for element."""
+    n = 129
+    rng = np.random.default_rng(12)
+    c = (rng.uniform(0, 2, (n, n)) if kind == "random"
+         else np.full((n, n), 1e4)).astype(np.float32)
+    got = pkh.linear_sum_assignment(torch.from_numpy(c[None]))[0].numpy()
+    want = np.asarray(jhu.linear_sum_assignment(jnp.asarray(c), use_pallas=False))
+    assert np.array_equal(got, want)
+    assert np.array_equal(np.sort(got), np.arange(n))
+
+
+def nms_chain(K):
+    """Boxes in score order where box i overlaps box i + 1 only (IoU 0.54
+    against 0.25 for box i + 2): the walk keeps every other box, and the
+    fixed point needs K steps to settle."""
+    x = np.arange(K, dtype=np.float32) * 0.3
+    boxes = np.stack([x, np.zeros(K), x + 1, np.ones(K)], -1).astype(np.float32)
+    return boxes, np.linspace(1, 0, K).astype(np.float32), np.ones(K, bool)
+
+
+def nms_ties(K, seed=13):
+    """Boxes on a coarse grid, some identical, and scores of 8 levels, so
+    the score order's ties (to the lower slot) and exact overlaps decide."""
+    rng = np.random.default_rng(seed)
+    xy = rng.integers(0, 40, (K, 2)) * 8.0
+    wh = rng.integers(2, 8, (K, 2)) * 8.0
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[1::7] = boxes[0::7][:len(boxes[1::7])]
+    scores = (rng.integers(0, 8, K) / 8).astype(np.float32)
+    return boxes, scores, rng.uniform(size=K) > 0.2
+
+
+@pytest.mark.parametrize("case", ["chain", "ties"])
+def test_nms_plain_walk_matches_jax_scan(case):
+    K = 1500
+    boxes, scores, valid = nms_chain(K) if case == "chain" else nms_ties(K)
+    got = pnms.nms_fixed(*(torch.from_numpy(a[None]) for a in (boxes, scores, valid)),
+                         0.5)[0].numpy()
+    want = np.asarray(jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores),
+                                     jnp.asarray(valid), 0.5))
+    assert np.array_equal(got, want)
+    if case == "chain":
+        assert np.array_equal(got, np.arange(K) % 2 == 0)
+    assert 0 < got.sum() < valid.sum()
+
+
 def test_hungarian_batch_and_masked():
     rng = np.random.default_rng(4)
     costs = rng.uniform(0, 2, (3, 6, 6)).astype(np.float32)
@@ -388,10 +442,12 @@ def test_focus_cpu_output_is_nchw_like_the_card():
 def test_cpu_tensors_never_count_a_launch():
     rng = np.random.default_rng(5)
     counters = (pfa.fused_dual_attention, pkh.linear_sum_assignment,
-                pfs.focus_stem)
+                pfs.focus_stem, pkn.nms_walk)
     before = [c.launches for c in counters]
     pfa.fused_dual_attention(*map(torch.from_numpy,
                                   _attn_inputs(rng, 1, 2, 4, 8, 8)))
     pkh.linear_sum_assignment(torch.rand(1, 4, 4))
     pfs.focus_stem(*map(torch.from_numpy, _stem_inputs(rng, 1, 32, 32, 8)))
-    assert [c.launches for c in counters] == before == [0, 0, 0]
+    pkn.nms_walk(torch.ones(1, 4, 4, dtype=torch.bool).tril(-1),
+                 torch.ones(1, 4, dtype=torch.bool))
+    assert [c.launches for c in counters] == before == [0, 0, 0, 0]

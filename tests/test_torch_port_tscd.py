@@ -12,6 +12,7 @@ Tolerances: fp32 on both sides with another summation order, 1e-4
 relative (boxes in pixels, scores in [0, 1]); masks and class ids exact.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -200,15 +201,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_port_imports_no_jax():
-    """Every module of tscd_torch, and chip_smoke.py, imports with jax,
-    flax and tscd_tpu blocked."""
+    """Every module of tscd_torch (data, eval and tools included), and
+    chip_smoke.py, imports with jax, flax and tscd_tpu blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'flax', 'tscd_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import tscd_torch\n"
-        "for info in pkgutil.walk_packages(tscd_torch.__path__, 'tscd_torch.'):\n"
-        "    importlib.import_module(info.name)\n"
+        "names = [info.name for info in pkgutil.walk_packages(tscd_torch.__path__, 'tscd_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('tscd_torch.data.vid', 'tscd_torch.eval.vid_evaluator',\n"
+        "             'tscd_torch.eval.fast_cocoeval', 'tscd_torch.tools.tscd_eval',\n"
+        "             'tscd_torch.exp.build', 'tscd_torch.ops.kernels.nms'):\n"
+        "    assert name in names, name\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tscd_tpu')"
         " and sys.modules[m] is not None]\n"
@@ -217,3 +223,42 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_port_sources_reach_nothing_of_tscd_tpu():
+    """No import of tscd_tpu, no path into tscd_tpu/ in the port's code
+    (docstrings and comments may name its files), and no C++ or CUDA
+    source that includes one: the port builds nothing from there."""
+    root = os.path.join(REPO, "tscd_torch")
+    n = 0
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            if f.endswith(".py"):
+                tree = ast.parse(open(path).read())
+                for node in ast.walk(tree):
+                    if isinstance(node, ast.Import):
+                        assert not any(a.name.split(".")[0] == "tscd_tpu"
+                                       for a in node.names), path
+                    if isinstance(node, ast.ImportFrom):
+                        assert (node.module or "").split(".")[0] != "tscd_tpu", path
+                assert not [v for v in _code_strings(tree) if "tscd_tpu" in v], path
+                n += 1
+            elif f.endswith((".cu", ".cuh", ".cpp", ".h")):
+                includes = [ln for ln in open(path) if ln.lstrip().startswith("#include")]
+                assert not [ln for ln in includes if "tscd_tpu" in ln], path
+                n += 1
+    assert n > 40
+    from tscd_torch.eval import fast_cocoeval
+    assert os.path.commonpath([str(fast_cocoeval._SRC), root]) == root

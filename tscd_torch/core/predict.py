@@ -18,9 +18,12 @@ def make_predict_fn(model: TSCD, lframe: int, gframe: int,
 
     `predict.dispatch` runs one window on the model's device and returns
     the refined Detections and the new MatcherState without reading them
-    back; `predict.materialize` copies the Detections to the host as
-    per-frame [x1, y1, x2, y2, obj, score, cls] rows. `resume` chooses
-    the carried state, else a fresh one (the sequence-start reset)."""
+    back or waiting on the card: the frames (numpy or tensors, uint8 as
+    the loader ships them; the model casts them on the device) upload
+    with non_blocking copies, which from pinned memory do not wait.
+    `predict.materialize` copies the Detections to the host as per-frame
+    [x1, y1, x2, y2, obj, score, cls] rows. `resume` chooses the carried
+    state, else a fresh one (the sequence-start reset)."""
     head = model.head
     device = model.device
     # a fresh bank in the model dtype, gated by has_state=False
@@ -33,8 +36,8 @@ def make_predict_fn(model: TSCD, lframe: int, gframe: int,
     def dispatch(imgs, te, resume: bool, state: Optional[MatcherState]
                  ) -> Tuple[Detections, MatcherState]:
         st = state if (resume and state is not None) else fresh
-        x = torch.as_tensor(imgs).to(device)
-        t = torch.as_tensor(te, dtype=torch.float32).to(device)
+        x = torch.as_tensor(imgs).to(device, non_blocking=True)
+        t = torch.as_tensor(te, dtype=torch.float32).to(device, non_blocking=True)
         out = model(x, t, lframe, gframe, matcher_state=st)
         refined, _ = tscd_eval_postprocess(out, lframe, C,
                                            nms_thresh=nms_thresh,

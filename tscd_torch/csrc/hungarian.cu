@@ -340,6 +340,174 @@ cudaError_t configure(int* limit) {
   return status[dev];
 }
 
+// ---------------------------------------------------------------------------
+// n > 128: one block a matrix (the counterpart of the XLA lowering that the
+// JAX package takes for n > 128, tscd_tpu/ops/hungarian.py:69-128).
+//
+// Thread t owns columns t, t + T, t + 2T, ... (T = blockDim.x, at most 1024
+// threads, so a thread owns ceil(n / 1024) columns past n = 1024). Each
+// column's spc, path, remaining flag and dual v, and each row's dual u,
+// col4row and visited flag, live in shared memory (n = 500: 14 KB); the
+// cost rows are read from global memory (n = 500: 1 MB, in L2), one
+// coalesced row a Dijkstra step. The step's argmin is a warp shuffle
+// reduction of (value, column) pairs with ties to the lower column, then
+// one across the warps in warp 0, between two block barriers. The dual
+// updates and the augmenting walk follow the lowering in order; the walk
+// is serial, on thread 0. Same fp32 operations in the same order as the
+// lowering, r = ((mv + c[i,j]) - u[i]) - v[j], so col4row is equal
+// element for element.
+//
+// Bound: latency, like the warp kernel, with a longer step: a cost load
+// from L1/L2, three adds, two shuffle reductions and two barriers.
+
+__device__ __forceinline__ void argmin_pair(float& val, int& idx, float ov, int oi) {
+  if (ov < val || (ov == val && oi < idx)) {
+    val = ov;
+    idx = oi;
+  }
+}
+
+__device__ __forceinline__ void warp_argmin(float& val, int& idx) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    argmin_pair(val, idx, __shfl_down_sync(FULL, val, o), __shfl_down_sync(FULL, idx, o));
+}
+
+constexpr int BLOCK_THREADS_MAX = 1024;
+constexpr int BLOCK_NMAX = 4096;
+
+__host__ __device__ constexpr size_t block_smem_bytes(int n) {
+  return static_cast<size_t>(n) * (3 * sizeof(float) + 3 * sizeof(int) + 2);
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS_MAX)
+linear_sum_assignment_block(const float* __restrict__ cost,
+                            int* __restrict__ col4row_out, int n) {
+  extern __shared__ __align__(16) float bsm[];
+  __shared__ float s_wval[32];
+  __shared__ int s_widx[32];
+  __shared__ int s_i, s_sink;
+  __shared__ float s_min;
+  float* s_v = bsm;
+  float* s_spc = s_v + n;
+  float* s_u = s_spc + n;
+  int* s_path = reinterpret_cast<int*>(s_u + n);
+  int* s_r4c = s_path + n;
+  int* s_c4r = s_r4c + n;
+  unsigned char* s_rem = reinterpret_cast<unsigned char*>(s_c4r + n);
+  unsigned char* s_sr = s_rem + n;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int lane = t & 31, warp = t >> 5, nwarps = T >> 5;
+  const float* c = cost + static_cast<size_t>(blockIdx.x) * n * n;
+  for (int j = t; j < n; j += T) {
+    s_v[j] = 0.f;
+    s_u[j] = 0.f;
+    s_r4c[j] = -1;
+    s_c4r[j] = -1;
+  }
+  for (int cur = 0; cur < n; ++cur) {
+    for (int j = t; j < n; j += T) {
+      s_spc[j] = INFINITY;
+      s_path[j] = -1;
+      s_rem[j] = 1;
+      s_sr[j] = 0;
+    }
+    if (t == 0) {
+      s_i = cur;
+      s_min = 0.f;
+      s_sink = -1;
+    }
+    __syncthreads();
+    // --- Dijkstra to the nearest unassigned column ----------------------
+    while (true) {
+      const int i = s_i;
+      const float mv = s_min;
+      const float ui = s_u[i];
+      const float* ci = c + static_cast<size_t>(i) * n;
+      if (t == 0) s_sr[i] = 1;
+      // masked = where(remaining, spc, inf); argmin takes the first minimum
+      float val = INFINITY;
+      int idx = 0x7fffffff;
+      for (int j = t; j < n; j += T) {
+        float spc = s_spc[j];
+        const bool rem = s_rem[j] != 0;
+        if (rem) {
+          const float r = ((mv + __ldg(ci + j)) - ui) - s_v[j];
+          if (r < spc) {
+            spc = r;
+            s_spc[j] = r;
+            s_path[j] = i;
+          }
+        }
+        argmin_pair(val, idx, rem ? spc : INFINITY, j);
+      }
+      warp_argmin(val, idx);
+      if (lane == 0) {
+        s_wval[warp] = val;
+        s_widx[warp] = idx;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        val = lane < nwarps ? s_wval[lane] : INFINITY;
+        idx = lane < nwarps ? s_widx[lane] : 0x7fffffff;
+        warp_argmin(val, idx);
+        if (lane == 0) {
+          s_min = val;
+          s_rem[idx] = 0;
+          const int nxt = s_r4c[idx];
+          if (nxt < 0)
+            s_sink = idx;
+          else
+            s_i = nxt;
+        }
+      }
+      __syncthreads();
+      if (s_sink >= 0) break;
+    }
+    // --- dual updates, as the XLA lowering orders them -------------------
+    const float mv = s_min;
+    for (int j = t; j < n; j += T) {
+      if (j == cur)
+        s_u[j] = s_u[j] + mv;
+      else if (s_sr[j])
+        s_u[j] = s_u[j] + (mv - s_spc[s_c4r[j]]);
+      if (!s_rem[j]) s_v[j] = s_v[j] - (mv - s_spc[j]);
+    }
+    __syncthreads();
+    // --- augment along the predecessor path ------------------------------
+    if (t == 0) {
+      int j = s_sink;
+      while (true) {
+        const int i = s_path[j];
+        s_r4c[j] = i;
+        const int next_j = s_c4r[i];
+        s_c4r[i] = j;
+        if (i == cur) break;
+        j = next_j;
+      }
+    }
+    __syncthreads();
+  }
+  for (int j = t; j < n; j += T)
+    col4row_out[static_cast<size_t>(blockIdx.x) * n + j] = s_c4r[j];
+}
+
+cudaError_t configure_block() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t status[MAX_DEVICES];
+  std::call_once(once[dev], [dev] {
+    status[dev] = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(linear_sum_assignment_block),
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(block_smem_bytes(BLOCK_NMAX)));
+  });
+  return status[dev];
+}
+
 }  // namespace
 
 extern "C" int tscd_linear_sum_assignment(const void* cost, void* col4row,
@@ -364,5 +532,17 @@ extern "C" int tscd_linear_sum_assignment(const void* cost, void* col4row,
     case 3: linear_sum_assignment_warp<3><<<grid, block, smem, st>>>(c, out, B, n); break;
     default: linear_sum_assignment_warp<4><<<grid, block, smem, st>>>(c, out, B, n); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tscd_linear_sum_assignment_block(const void* cost, void* col4row,
+                                                int B, int n, void* stream) {
+  if (n < 1 || n > BLOCK_NMAX || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure_block();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = n < BLOCK_THREADS_MAX ? (n + 31) / 32 * 32 : BLOCK_THREADS_MAX;
+  linear_sum_assignment_block<<<B, threads, block_smem_bytes(n),
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cost), static_cast<int*>(col4row), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,9 @@
 """Experiment configurations of the port."""
+
+from .base_exp import BaseExp
+from .build import get_exp, get_exp_by_file, get_exp_by_name
+from .tscd_base import TSCDExp
+from .tscd_large import Exp, SelftestExp, selftest_exp
+
+__all__ = ["BaseExp", "Exp", "SelftestExp", "TSCDExp", "get_exp",
+           "get_exp_by_file", "get_exp_by_name", "selftest_exp"]

@@ -2,23 +2,15 @@
 leading frame axis.
 
 Greedy NMS keeps box i (in score order) when it is valid and no earlier
-KEPT box overlaps it. The JAX package runs that as a K-step scan. Here it
-is the fixed point of
-
-    keep = valid & ~any_j<i(overlap[i, j] & keep[j])
-
-reached by masked matrix-vector products: after t steps the first t
-boxes are final, and the greedy answer is the only fixed point, so the
-loop stops at the first step that changes nothing. Convergence is
-checked every `_CHECK_EVERY` steps, which costs one host read per check;
-this runs in the postprocess, never inside the model's forward.
+KEPT box overlaps it. The JAX package runs that as a K-step scan; here
+the overlap matrix is torch and the K-step walk is the hand kernel
+`ops.kernels.nms.nms_walk`, which on the card waits on nothing.
 """
 
 import torch
 
 from .boxes import pairwise_iou_xyxy
-
-_CHECK_EVERY = 8
+from .kernels.nms import nms_walk
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -28,11 +20,11 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-              iou_threshold: float) -> torch.Tensor:
-    """boxes (B, K, 4) xyxy, scores (B, K), valid (B, K) bool ->
-    keep (B, K) bool. Score order is stable (ties go to the lower slot);
-    invalid slots neither keep nor suppress."""
+def suppression_matrix(boxes: torch.Tensor, scores: torch.Tensor,
+                       valid: torch.Tensor, iou_threshold: float):
+    """The walk's inputs: the stable score order (B, K), sup (B, K, K)
+    bool in that order with sup[b, i, j] = box j comes before box i and
+    overlaps it above the threshold, and valid (B, K) in that order."""
     B, K = scores.shape
     key = torch.where(valid, scores, torch.full_like(scores, -float("inf")))
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
@@ -40,16 +32,17 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     valid_s = torch.gather(valid, 1, order)
     overlap = pairwise_iou_xyxy(boxes_s, boxes_s) > iou_threshold
     earlier = torch.ones(K, K, dtype=torch.bool, device=boxes.device).tril(-1)
-    suppress = (overlap & earlier).to(torch.float32)          # (B, K, K)
+    return order, overlap & earlier, valid_s
 
-    keep = valid_s
-    while True:
-        for _ in range(_CHECK_EVERY):
-            prev = keep
-            hit = torch.bmm(suppress, keep.to(torch.float32)[..., None])[..., 0]
-            keep = valid_s & ~(hit > 0)
-        if torch.equal(keep, prev):
-            break
+
+def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+              iou_threshold: float) -> torch.Tensor:
+    """boxes (B, K, 4) xyxy, scores (B, K), valid (B, K) bool ->
+    keep (B, K) bool. Score order is stable (ties go to the lower slot);
+    invalid slots neither keep nor suppress."""
+    order, sup, valid_s = suppression_matrix(boxes, scores, valid,
+                                             iou_threshold)
+    keep = nms_walk(sup, valid_s)
     return torch.zeros_like(valid).scatter(1, order, keep)
 
 
