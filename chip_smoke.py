@@ -25,7 +25,10 @@ Phases, each of which raises on failure (so the run exits non-zero):
              identical boxes and tied scores, B = 1 and 3, exactly; the
              Hungarian solver past n = 128 (the block kernel) on random and
              constant costs at n = 129, 200 and 500 and through
-             masked_linear_sum_assignment, exactly; both timed.
+             masked_linear_sum_assignment, exactly; both timed. The bf16
+             variants: the stem reading uint8 frames and writing bf16
+             (within one bf16 ulp, at the window's 32 frames too) and the
+             attention reading bf16 q/k/v (1e-5), checked and timed alike.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -33,24 +36,44 @@ Phases, each of which raises on failure (so the run exits non-zero):
   4. full    TSCD-Large (depth 1.0, width 1.0, P=50, 1+31 frames, 576 px,
              seeded random weights) for 3 streamed windows after a warm-up
              window; one whole dispatch (upload of pinned uint8 frames,
-             forward, postprocess) under CUDA's sync debug mode (it must
-             wait on the device nowhere); per-window latency from CUDA
-             events; launch counts of every kernel in those 3 windows;
-             then one more streamed window whose Hungarian costs are kept
-             (the carried-state cost, checked and timed like the others),
-             and one more under torch.profiler for the device time by
+             the window's CUDA graph, copies of its outputs) under CUDA's
+             sync debug mode (it must wait on the device nowhere);
+             per-window latency from CUDA events and the launches of every
+             kernel in those 3 windows, traced; then one more streamed window,
+             dispatched eagerly, whose Hungarian costs are kept (the
+             carried-state cost, checked and timed like the others), and
+             one more, eagerly, under torch.profiler for the device time by
              kernel, and the copies made inside the attention's calls.
-  5. eval    the streaming evaluator on an in-memory dataset with
+  5. bf16    TSCD-Large computing in bf16 with BN folded, on the full
+             phase's weights: the max and 99.9th percentile of |raw
+             outputs - fp32 raw outputs| on one window (by part, beside
+             the fp32 values' size); on its first local and global frame,
+             the card's bf16 raw outputs no farther from the bf16 port on
+             the CPU than that is from fp32; a warm-up window and 3
+             streamed windows, traced (window ms, launches, the replays'
+             device time by kernel class); 10 windows back to back as
+             graph replays and 5 launched eagerly (frames/s as F x
+             windows / s and as evaluated local frames / s, device busy
+             share, host ms a dispatch); the graph's window equal to the
+             eager one; a sync-free dispatch; one window profiled eagerly
+             by kernel class.
+  6. eval    the streaming evaluator on an in-memory dataset with
              VIDDataset's interface (seeded uint8 frames at the size
              load_frame gives a 720 x 1280 source, seeded ground truth):
              the selftest config on the CPU and on the card (detections
-             and COCO stats must agree), then TSCD-Large at full width over
-             2 videos and 20 windows through WindowLoader(pin_memory=True)
-             and the pipelined VIDEvaluator: evaluated frames/s, the
-             evaluator's ms per frame, the mean window device time, the
-             upload of one pinned uint8 window, the device's busy share of
-             the evaluate loop and the host time a window outside
-             dispatch/materialize.
+             and COCO stats must agree), then TSCD-Large at full width, in
+             fp32 and in bf16 with BN folded, over 2 videos and 20 windows
+             through WindowLoader(pin_memory=True) and the pipelined
+             VIDEvaluator: evaluated frames/s, the evaluator's ms per
+             frame, the mean window device time, the upload of one pinned
+             uint8 window, the device's busy share of the evaluate loop
+             and the host time a window outside dispatch/materialize;
+             then the same evaluation again, traced, for the launches.
+On a card, `make_predict_fn(...).dispatch` runs each window as one
+replayed CUDA graph, which runs no Python: the launches of a path are
+counted in the device trace of torch.profiler (`traced_path`), with every
+kernel wrapper's `.launches` set to 0 before and required to stay 0 (no
+eager fallback).
 Prints one JSON line per phase, the card's name and power limit, the
 `kernels` line, and last `{"ok": true, "device": {...}}`.
 """
@@ -66,6 +89,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 
 KERNELS = {
     "focus_stem": ("tscd_torch/csrc/focus_stem.cu",
@@ -75,7 +99,36 @@ KERNELS = {
     "hungarian": ("tscd_torch/csrc/hungarian.cu",
                   "tscd_tpu/ops/pallas/hungarian.py:111"),
     "nms": ("tscd_torch/csrc/nms.cu", "tscd_tpu/ops/nms.py:55 (XLA scan)"),
+    "focus_stem_bf16": ("tscd_torch/csrc/focus_stem.cu",
+                        "tscd_tpu/ops/pallas/focus_stem.py:138"),
+    "fused_dual_attention_bf16": ("tscd_torch/csrc/fused_attention.cu",
+                                  "tscd_tpu/ops/pallas/fused_attention.py:109"),
 }
+# each row's kernel as a device trace names its launches: substrings
+# that must all be in the name (the bf16 variants are template instances)
+TRACE_NAMES = {
+    "focus_stem": ("focus_stem_kernel<", ", false>("),
+    "fused_dual_attention": ("fused_dual_attention_split<float>",),
+    "hungarian": ("linear_sum_assignment_",),
+    "nms": ("nms_walk<",),
+    "focus_stem_bf16": ("focus_stem_kernel<", ", true>("),
+    "fused_dual_attention_bf16": ("fused_dual_attention_split<__nv_bfloat16>",),
+}
+# the second kernel of a call, launched once with each first one
+PAIRED = {"fused_dual_attention_combine": ("fused_dual_attention",
+                                           "fused_dual_attention_bf16"),
+          "nms_pack_rows": ("nms",)}
+# Two bf16 models of one fp32 model are two draws of rounding noise: at
+# the selftest width on the CPU the port's distance from fp32 is 0.82x
+# and 1.09x JAX's (max, p99.9 of |raw outputs|; BN folded: 0.95x, 0.96x),
+# and the two models sit 0.97x and 1.27x JAX's distance apart (folded:
+# 0.68x, 0.83x), as tests/test_torch_port_bf16.py's
+# test_bf16_distance_from_fp32_like_jax prints them. The card's bf16
+# model is held within twice the CPU port's distance.
+BF16_SPREAD = 2.0
+# fp32 sums in another order (the stem's floor, as its fp32 check), then
+# rounded to bf16: one bf16 ulp is at most 2^-7 of the value
+BF16_TOL = {"atol": 1e-3, "rtol": 2.0 ** -7}
 
 
 def emit(obj):
@@ -122,9 +175,71 @@ def timed(torch, fn, reps, kernel, warmup=2):
     return out
 
 
-def bound(nbytes, flops):
+def trace_launches(prof):
+    """Launches of each row's kernel in a torch.profiler trace: the
+    device's own record, so a CUDA graph's replayed kernels count too.
+    Raises where a call's second kernel (the attention's combine, the NMS
+    walk's pack) was not launched once with each first one."""
+    from torch.autograd import DeviceType
+    n = dict.fromkeys(TRACE_NAMES, 0)
+    second = dict.fromkeys(PAIRED, 0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for row, keys in TRACE_NAMES.items():
+            if all(k in e.key for k in keys):
+                n[row] += e.count
+        for name in PAIRED:
+            if name in e.key:
+                second[name] += e.count
+    for name, rows in PAIRED.items():
+        if second[name] != sum(n[r] for r in rows):
+            raise AssertionError(f"{second[name]} {name} launches for "
+                                 f"{sum(n[r] for r in rows)} calls of {rows}")
+    return n
+
+
+def window_launches(windows, lframe, bf16):
+    """Launches of each row's kernel in `windows` windows of the model:
+    one stem, two attention calls, a solver a local frame, two NMS walks,
+    of the variants of the model's compute dtype."""
+    stem, attention = (("focus_stem_bf16", "fused_dual_attention_bf16") if bf16
+                       else ("focus_stem", "fused_dual_attention"))
+    want = dict.fromkeys(TRACE_NAMES, 0)
+    want.update({stem: windows, attention: 2 * windows,
+                 "hungarian": lframe * windows, "nms": 2 * windows})
+    return want
+
+
+def traced_path(torch, counters, run, windows, lframe, bf16):
+    """Drives the main path, `run()` (`windows` windows, each dispatched
+    as a replay of the window's CUDA graph), under torch.profiler, every
+    wrapper's count set to 0 just before. Returns run()'s result, the
+    launches of each row's kernel in the device trace, and the profile.
+    Raises unless the trace holds each window's kernels (`window_launches`)
+    and the wrappers counted none: a replay runs no Python, so a wrapper's
+    launch there would be an eager fallback."""
+    from torch.profiler import ProfilerActivity, profile
+    for c in counters.values():
+        c.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    wrapped = {name: c.launches for name, c in counters.items()}
+    launches = trace_launches(prof)
+    want = window_launches(windows, lframe, bf16)
+    if launches != want or any(wrapped.values()):
+        raise AssertionError(f"launches in the trace {launches} != {want}, "
+                             f"or eager launches {wrapped}")
+    return out, launches, prof
+
+
+def bound(nbytes, *work):
+    """The least time of a call in ms, and what sets it: the larger of its
+    bytes over the memory rate and its operations, each part of the work
+    a (flops, peak rate of their type) pair, the parts' times summed."""
     t_b = nbytes / H100_BYTES_PER_S * 1e3
-    t_f = flops / H100_FP32_FLOPS * 1e3
+    t_f = sum(flops / rate for flops, rate in work) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -213,8 +328,10 @@ def sm_clock_mhz():
 
 def check_close(name, got, want, atol, rtol):
     import torch
+    if got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} against {want.dtype}")
     err = (got.double() - want.double()).abs().max().item()
-    ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
+    ok = bool(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol))
     emit({"phase": "kernels", "check": name, "max_abs_err": err,
           "tolerance": {"atol": atol, "rtol": rtol}, "pass": ok})
     if not ok:
@@ -389,7 +506,7 @@ def kernel_phase(torch, dev):
     nbytes = 4 * (2 * B * h * q * d + 4 * B * h * k * d + B * k) + B * k \
         + 4 * (2 * B * h * q * d + B * h * q * k)
     flops = B * h * (2 * 2 * q * k * d + 2 * 2 * q * k * d)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, (flops, H100_FP32_FLOPS))
     rows["fused_dual_attention"] = dict(
         max_abs_err=max(errs),
         **timed(torch, lambda: fa.fused_dual_attention(*main), 200,
@@ -538,7 +655,7 @@ def kernel_phase(torch, dev):
     Fr, H, W = 32, 576, 576
     nbytes = 4 * (Fr * H * W * 3 + Fr * (H // 2) * (W // 2) * O + w3.numel() + 2 * O)
     flops = 2 * Fr * (H // 2) * (W // 2) * O * 108
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, (flops, H100_FP32_FLOPS))
     rows["focus_stem"] = dict(
         max_abs_err=serr,
         **timed(torch, lambda: fs.focus_stem(x32, w3, scale, shift), 20,
@@ -547,36 +664,156 @@ def kernel_phase(torch, dev):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(torch, lambda: F.conv2d(x32_nchw, w6, shift, stride=2,
                                                    padding=2), 20))
+    del x32, x32_nchw
+    rows.update(kernel_phase_bf16(torch, dev, np.random.default_rng(30)))
+    return rows
+
+
+def kernel_phase_bf16(torch, dev, rng):
+    """The bf16 variants against their plain versions at main-path
+    shapes: the stem reading uint8 frames (or fp32 ones, rounded as read)
+    and writing bf16, within one bf16 ulp (at the window's 32 frames too); the attention reading bf16
+    q/k/v, 1e-5 as at fp32 (both compute in fp32 from the same values).
+    Then their times, bounds and the nearest library call's time."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tscd_torch.models.aggregation import DualBranchAttention, _split_heads
+    from tscd_torch.ops.kernels import focus_stem as fs
+    from tscd_torch.ops.kernels import fused_attention as fa
+    bf = torch.bfloat16
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)
+    rows = {}
+
+    # -- stem: uint8 in, bf16 out ------------------------------------------
+    serr = 0.0
+    for (Fr, H, W), O, kind in (((4, 576, 576), 64, "uint8"), ((4, 128, 128), 8, "uint8"),
+                                ((1, 70, 34), 16, "fp32"), ((2, 70, 66), 64, "uint8 border")):
+        w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
+        scale = t(rng.uniform(0.5, 1.5, O))
+        shift = t(rng.normal(0, 0.5, O))
+        if kind == "fp32":
+            xc = t(rng.uniform(0, 255, (Fr, H, W, 3)))
+        else:
+            x = rng.integers(0, 256, (Fr, H, W, 3), dtype=np.uint8)
+            if kind == "uint8 border":
+                for edge in (np.s_[:, :2], np.s_[:, -2:], np.s_[:, :, :2], np.s_[:, :, -2:]):
+                    x[edge] = 255
+            xc = t(x, torch.uint8)
+        got = fs.focus_stem(xc, w3, scale, shift, out_dtype=bf)
+        want = fs.focus_stem_plain(xc, w3, scale, shift, bf)
+        torch.cuda.synchronize()
+        serr = max(serr, check_close(f"focus_stem bf16 ({Fr}, {H}, {W}, 3) {kind} -> {O}",
+                                     got, want, **BF16_TOL))
+        del xc, got, want
+    O, Fr, H, W = 64, 32, 576, 576
+    w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
+    scale = t(rng.uniform(0.5, 1.5, O))
+    shift = t(rng.normal(0, 0.5, O))
+    x8 = t(rng.integers(0, 256, (Fr, H, W, 3), dtype=np.uint8), torch.uint8)
+    serr = max(serr, check_close(f"focus_stem bf16 ({Fr}, {H}, {W}, 3) uint8 -> {O}",
+                                 fs.focus_stem(x8, w3, scale, shift, out_dtype=bf),
+                                 fs.focus_stem_plain(x8, w3, scale, shift, bf), **BF16_TOL))
+    xb = x8.to(bf).permute(0, 3, 1, 2)             # channels_last view
+    w6 = fs.rearrange_weight(w3, scale).to(bf)
+    nbytes = Fr * H * W * 3 + 2 * Fr * (H // 2) * (W // 2) * O + 4 * (w3.numel() + 2 * O)
+    flops = 2 * Fr * (H // 2) * (W // 2) * O * 108
+    b_ms, b_by = bound(nbytes, (flops, H100_BF16_FLOPS))
+    rows["focus_stem_bf16"] = dict(
+        max_abs_err=serr, tolerance=BF16_TOL,
+        **timed(torch, lambda: fs.focus_stem(x8, w3, scale, shift, out_dtype=bf), 20,
+                "focus_stem"),
+        plain_ms=cuda_ms(torch, lambda: fs.focus_stem_plain(x8, w3, scale, shift, bf), 10),
+        bound_ms=b_ms, bound_by=b_by, input_mb=x8.numel() / 1e6,
+        output_mb=2 * Fr * (H // 2) * (W // 2) * O / 1e6,
+        library_ms=cuda_ms(torch, lambda: F.conv2d(xb, w6, shift.to(bf), stride=2,
+                                                   padding=2), 20))
+    del x8, xb
+
+    # -- attention: bf16 q/k/v ---------------------------------------------
+    B, h, q, k, d = 1, 4, 50, 1600, 64
+    qc, qr = (t(rng.normal(size=(B, h, q, d)), bf) for _ in range(2))
+    kc, vc, kr, vr = (t(rng.normal(size=(B, h, k, d)), bf) for _ in range(4))
+    score = t(rng.uniform(0, 1, (B, k)))
+    valid = t(rng.uniform(size=(B, k)) > 0.2, torch.bool)
+    args = (qc, kc, vc, qr, kr, vr, score, valid)
+    torch.manual_seed(0)
+    att = DualBranchAttention(h * d, h, dtype=bf).to(dev)
+    x_cls, x_reg = (t(rng.normal(size=(B, k, h * d)), bf) for _ in range(2))
+    with torch.no_grad():
+        k_cls, v_cls = att.kv_cls(x_cls).chunk(2, -1)
+        k_reg, v_reg = att.kv_reg(x_reg).chunk(2, -1)
+        main = (_split_heads(att.q_cls_local(x_cls[:, :q]), h),
+                _split_heads(k_cls, h), _split_heads(v_cls, h),
+                _split_heads(att.q_reg_local(x_reg[:, :q]), h),
+                _split_heads(k_reg, h), _split_heads(v_reg, h), score, valid)
+    if any(a.dtype != bf for a in main[:6]) or main[1].is_contiguous():
+        raise AssertionError("the bf16 aggregation should hand over strided bf16 views")
+    last = (torch.arange(k, device=dev) >= k - 32)[None].expand(B, k).contiguous()
+    errs = []
+    for case, a in (("20% invalid keys", args),
+                    ("all keys invalid", args[:7] + (torch.zeros_like(valid),)),
+                    ("valid keys in the last chunk only", args[:7] + (last,)),
+                    ("main-path layout", main)):
+        got, want = fa.fused_dual_attention(*a), fa.fused_dual_attention_plain(*a)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("out_cls", "out_reg", "attn"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attention bf16 ({case}): non-finite {part}")
+            errs.append(check_close(f"fused_dual_attention bf16 {case} {part}",
+                                    g, w, atol=1e-5, rtol=1e-4))
+    nbytes = 2 * (2 * B * h * q * d + 4 * B * h * k * d) + 4 * B * k + B * k \
+        + 4 * (2 * B * h * q * d + B * h * q * k)
+    # the logits' products of bf16 q and k are exact in fp32, so bf16
+    # tensor cores with fp32 sums give the same cosines; attn @ V takes
+    # fp32 probabilities, at the fp32 rate
+    logit_flops = attn_v_flops = B * h * 2 * 2 * q * k * d
+    b_ms, b_by = bound(nbytes, (logit_flops, H100_BF16_FLOPS),
+                       (attn_v_flops, H100_FP32_FLOPS))
+    rows["fused_dual_attention_bf16"] = dict(
+        max_abs_err=max(errs),
+        **timed(torch, lambda: fa.fused_dual_attention(*main), 200,
+                "fused_dual_attention"),
+        plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*main), 50),
+        bound_ms=b_ms, bound_by=b_by, bytes_mb=nbytes / 1e6, library_ms=None)
+    emit({"phase": "kernels", "bf16": {n: {k: v for k, v in r.items() if "ms" in k}
+                                       for n, r in rows.items()}})
     return rows
 
 
 def run_windows(torch, predict, exp, n_windows, seed, dev_sync, state=None,
-                first=0):
+                first=0, eager=False, uint8=False):
     """Streams n_windows seeded windows, numbered from `first` (window 0
     starts a sequence; later ones resume from `state`); returns
     per-window Detections on the host, each window's latency in ms (CUDA
-    events on the card) and the carried state."""
+    events on the card) and the carried state. Frames are fp32 (uint8
+    with `uint8`); `eager` dispatches launch by launch, not as the
+    window's CUDA graph."""
     import numpy as np
 
     from tscd_torch.ops.position import get_timing_signal_1d
     rng = np.random.default_rng(seed)
     F = exp.lframe_val + exp.gframe_val
     H, W = exp.test_size
+    dispatch = predict.dispatch_eager if eager else predict.dispatch
     dets, lat = [], []
     for w in range(first, first + n_windows):
-        x = rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32)
+        if uint8:
+            x = rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)
+        else:
+            x = rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32)
         te = get_timing_signal_1d(np.arange(w, w + F))
         if dev_sync:
             xd = torch.as_tensor(x, device="cuda")
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            refined, state = predict.dispatch(xd, te, w > 0, state)
+            refined, state = dispatch(xd, te, w > 0, state)
             end.record()
             end.synchronize()
             lat.append(start.elapsed_time(end))
         else:
-            refined, state = predict.dispatch(x, te, w > 0, state)
+            refined, state = dispatch(x, te, w > 0, state)
         dets.append(refined)
     return dets, lat, state
 
@@ -634,14 +871,13 @@ def match_rows(windows_a, windows_b, atol, rtol):
 
 def full_phase(torch, counters):
     """TSCD-Large streaming eval: warm-up window, then 3 timed windows
-    with carried state; returns launch counts over those 3 windows and the
-    Hungarian costs of one more streamed window."""
+    with carried state, traced; returns the launches of each kernel in
+    those 3 windows and the Hungarian costs of one more streamed window."""
     import numpy as np
 
     from tscd_torch.core.predict import make_predict_fn
     from tscd_torch.exp.tscd_large import Exp
     from tscd_torch.models.tscd import random_init_
-    from tscd_torch.ops.position import get_timing_signal_1d
     exp = Exp()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -651,25 +887,10 @@ def full_phase(torch, counters):
     _, _, warm_state = run_windows(torch, pred, exp, 1, 100, True)   # warm-up
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    # the whole dispatch of a streamed window (upload of pinned uint8
-    # frames, forward, postprocess with the NMS walk) waits on the device
-    # nowhere: any synchronising call in it raises here
-    F = exp.lframe_val + exp.gframe_val
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.integers(0, 256, (F, *exp.test_size, 3), dtype=np.uint8)).pin_memory()
-    te = torch.from_numpy(get_timing_signal_1d(np.arange(1, 1 + F))).pin_memory()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        refined, _ = pred.dispatch(x, te, True, warm_state)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    if len(pred.materialize(refined)) != exp.lframe_val:
-        raise AssertionError("the checked dispatch gave no detections per local frame")
-    for c in counters.values():
-        c.launches = 0
-    dets, lat, state = run_windows(torch, pred, exp, 3, exp.seed, True)
-    launches = {name: c.launches for name, c in counters.items()}
+    sync_free_dispatch(torch, pred, exp, warm_state)
+    (dets, lat, state), launches, _ = traced_path(
+        torch, counters, lambda: run_windows(torch, pred, exp, 3, exp.seed, True),
+        3, exp.lframe_val, bf16=False)
     rows = [pred.materialize(d) for d in dets]
     n_det = 0
     for per_frame in rows:
@@ -682,12 +903,38 @@ def full_phase(torch, counters):
     if not bool(state.has_state) or n_det == 0:
         raise AssertionError("full path produced no carried state or no detections")
     emit({"phase": "full", "config": "TSCD-Large 1+31 frames 576px P=50",
-          "setup_s": setup_s, "window_ms": lat, "detections": n_det,
+          "setup_s": setup_s, "window_ms": lat, "traced": True, "detections": n_det,
           "launches": launches, "dispatch_host_syncs": 0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     state, carried = capture_costs(torch, pred, exp, state)
     profile_window(torch, pred, exp, state)
     return launches, carried
+
+
+def sync_free_dispatch(torch, pred, exp, state):
+    """The whole dispatch of a streamed window (upload of pinned uint8
+    frames, the window's graph replay, copies of its outputs) waits on the
+    device nowhere: any synchronising call in it raises here. The first
+    uint8 dispatch captures that frame dtype's graph, outside the check."""
+    import numpy as np
+
+    from tscd_torch.ops.position import get_timing_signal_1d
+    F = exp.lframe_val + exp.gframe_val
+    rng = np.random.default_rng(5)
+    wins = [(torch.from_numpy(rng.integers(0, 256, (F, *exp.test_size, 3),
+                                           dtype=np.uint8)).pin_memory(),
+             torch.from_numpy(get_timing_signal_1d(np.arange(w, w + F))).pin_memory())
+            for w in (1, 2)]
+    _, state = pred.dispatch(*wins[0], True, state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refined, _ = pred.dispatch(*wins[1], True, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if len(pred.materialize(refined)) != exp.lframe_val:
+        raise AssertionError("the checked dispatch gave no detections per local frame")
 
 
 def carried_phase(torch, row, carried):
@@ -714,7 +961,7 @@ def capture_costs(torch, pred, exp, state):
 
     hungarian.linear_sum_assignment = keep
     try:
-        _, _, state = run_windows(torch, pred, exp, 1, 3, True, state, 3)
+        _, _, state = run_windows(torch, pred, exp, 1, 3, True, state, 3, eager=True)
     finally:
         hungarian.linear_sum_assignment = solve
     if len(kept) != exp.lframe_val:
@@ -832,10 +1079,28 @@ def eval_phase(torch, counters):
     if stats_err > 1e-4:
         raise AssertionError(f"selftest eval: stats differ by {stats_err}")
 
-    # TSCD-Large at full width: 2 videos of 10 frames, 20 windows
+    # TSCD-Large at full width, fp32 and then bf16 with BN folded, on
+    # the same weights: 2 videos of 10 frames, 20 windows each
     exp = Exp()
-    ds = SyntheticVID(exp, videos=2, frames=10, seed=22)
     model = random_init_(exp.get_model(), exp.seed)
+    sd32 = model.state_dict()
+    eval_large(torch, counters, exp, model, "fp32")
+    del model
+    eval_large(torch, counters, exp, bf16_model(torch, exp, sd32), "bf16")
+
+
+def eval_large(torch, counters, exp, model, dtype):
+    """VIDEvaluator with the pipelined predict of `model` (TSCD-Large)
+    over 2 videos and 20 windows through WindowLoader(pin_memory=True):
+    frames/s, ms per frame, window device spans, the pinned upload, the
+    busy share of the loop and the host time outside predict. Then the
+    same evaluation again, traced, for the launches of each kernel."""
+    import numpy as np
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.data.vid import WindowLoader
+    quiet = lambda *a: None
+    ds = SyntheticVID(exp, videos=2, frames=10, seed=22)
     pred = make_predict_fn(model, exp.lframe_val, exp.gframe_val, exp.nmsthre, exp.test_conf)
     loader = WindowLoader(ds, pin_memory=True)
     first = next(iter(loader))
@@ -848,17 +1113,21 @@ def eval_phase(torch, counters):
         b.record()
     torch.cuda.synchronize()
     upload_ms = [a.elapsed_time(b) for a, b in up]
-    for c in counters.values():
-        c.launches = 0
     rows, times = [], {"events": [], "dispatch_s": [], "materialize_s": [], "marks": []}
     t0 = time.perf_counter()
     res = exp.get_evaluator(loader).evaluate(recording(pred, rows, times), quiet)
-    eval_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    t1 = time.perf_counter()
+    eval_s = t1 - t0
     nw = len(ds.res)
-    expected = {"focus_stem": nw, "fused_dual_attention": 2 * nw, "hungarian": nw, "nms": 2 * nw}
-    if launches != expected:
-        raise AssertionError(f"eval launch counts {launches} != {expected}")
+
+    def again():
+        t = time.perf_counter()
+        exp.get_evaluator(WindowLoader(ds, pin_memory=True)).evaluate(
+            recording(pred, []), quiet)
+        return time.perf_counter() - t
+
+    traced_s, launches, _ = traced_path(torch, counters, again, nw, exp.lframe_val,
+                                        bf16=dtype == "bf16")
     if len(rows) != nw or nw < 16:
         raise AssertionError(f"{len(rows)} windows evaluated, {nw} expected (>= 16)")
     for per_frame in rows:
@@ -871,10 +1140,15 @@ def eval_phase(torch, counters):
     loop_s = times["marks"][-1] - times["marks"][0]
     host_s = loop_s - sum(times["dispatch_s"]) - sum(times["materialize_s"])
     frames = nw * exp.lframe_val
-    emit({"phase": "eval", "config": "TSCD-Large 1+31 frames 576px P=50",
+    emit({"phase": "eval", "config": "TSCD-Large 1+31 frames 576px P=50", "dtype": dtype,
+          "bn_folded": dtype == "bf16",
           "videos": 2, "windows": nw, "evaluated_frames": frames,
           "evaluate_s": eval_s, "frames_per_s": frames / eval_s,
           "loop_s": loop_s, "loop_frames_per_s": frames / loop_s,
+          # the first window's collate before the loop, COCO scoring after it
+          "before_loop_s": times["marks"][0] - t0, "after_loop_s": t1 - times["marks"][-1],
+          "scored_detections": int(sum((r[:, 4] * r[:, 5] >= exp.test_conf).sum()
+                                       for per_frame in rows for r in per_frame)),
           "ms_per_frame": res["ms_per_frame"],
           "window_ms_mean": float(np.mean(window_ms)), "window_ms": window_ms,
           "upload_ms_pinned_uint8": upload_ms,
@@ -883,17 +1157,187 @@ def eval_phase(torch, counters):
           "host_ms_per_window_outside_predict": 1e3 * host_s / nw,
           "dispatch_ms_mean": 1e3 * float(np.mean(times["dispatch_s"])),
           "materialize_ms_mean": 1e3 * float(np.mean(times["materialize_s"])),
-          "launches": launches, "stats": res["stats"], "mAP": res["mAP"]})
+          "launches": launches, "launches_from": "the evaluation again, traced",
+          "traced_evaluate_s": traced_s, "stats": res["stats"], "mAP": res["mAP"]})
 
 
+def bf16_model(torch, exp, sd32, device=None):
+    """TSCD-Large computing in bf16, built as bench.py:261-262 builds it
+    (`TSCD(..., dtype=bfloat16)`), with BN folded from the fp32 weights
+    `sd32` (folded in fp32, then cast), on `device` (the card unless
+    given)."""
+    from tscd_torch.models.tscd import TSCD
+    from tscd_torch.utils.model_utils import fuse_model
+    model = TSCD(num_classes=exp.num_classes, depth=exp.depth, width=exp.width,
+                 num_proposals=exp.num_proposals, minimal_limit=exp.minimal_limit,
+                 heads=exp.heads, device=device, dtype=torch.bfloat16)
+    return fuse_model(model, sd32)
+
+
+def distance(a, b):
+    """max and 99.9th percentile of |a - b| (numpy arrays)."""
+    import numpy as np
+    d = np.abs(a - b)
+    return {"max": float(d.max()), "p999": float(np.percentile(d, 99.9))}
+
+
+def raw_delta_parts(b16, f32):
+    """|bf16 - fp32| of the dense raw outputs (numpy) beside the fp32
+    values' own size, for the box offsets, the objectness and the class
+    logits."""
+    import numpy as np
+    return {part: {"raw_delta": distance(b16[c], f32[c]), "abs_fp32": distance(f32[c], 0.0)}
+            for part, c in (("reg", np.s_[..., :4]), ("obj", np.s_[..., 4:5]),
+                            ("cls", np.s_[..., 5:]))}
+
+
+def cpu_reference(torch, exp, sd32, x, te, b16, f32):
+    """The card's bf16 raw outputs on the window's first local and first
+    global frame against the bf16 port on the CPU (plain versions, held
+    to JAX's bf16 model by tests/test_torch_port_bf16.py) on the same
+    weights and frames, with the fp32 outputs beside (`b16`, `f32`: the
+    card's raw outputs of the window, numpy): the card's distance
+    from fp32, and its distance from the CPU's bf16, each within
+    BF16_SPREAD times the CPU's own distance from fp32 (max and p99.9).
+    The dense outputs of a frame depend on that frame alone."""
+    L = exp.lframe_val
+    pick = [0, L]
+    t0 = time.time()
+    cpu = bf16_model(torch, exp, {k: v.cpu() for k, v in sd32.items()}, "cpu")
+    ref = cpu(x[pick].cpu(), te[pick].cpu(), 1, 1)["raw_outputs"].float().numpy()
+    cpu_s = time.time() - t0
+    card, f32 = b16[pick], f32[pick]
+    d = {"card_vs_fp32": distance(card, f32), "cpu_vs_fp32": distance(ref, f32),
+         "card_vs_cpu": distance(card, ref)}
+    limit = {k: BF16_SPREAD * v for k, v in d["cpu_vs_fp32"].items()}
+    ok = all(0 < v for v in limit.values()) and all(
+        d[pair][k] <= limit[k] for pair in ("card_vs_fp32", "card_vs_cpu") for k in limit)
+    emit({"phase": "bf16", "check": "card against the CPU's bf16 port, frames 0 and L",
+          "distances": d, "limit": limit,
+          "tolerance": f"card_vs_fp32 and card_vs_cpu <= {BF16_SPREAD} x cpu_vs_fp32",
+          "cpu_s": cpu_s, "pass": ok})
+    if not ok:
+        raise AssertionError(f"bf16 on the card: {d} against the limit {limit}")
+
+
+def bf16_phase(torch, counters):
+    """TSCD-Large at bf16 with BN folded: the dense raw outputs against
+    the fp32 port on the same weights and frames, and against the bf16
+    port on the CPU (`cpu_reference`); a warm-up window (eager, then the
+    window's CUDA graph is captured) and 3 streamed windows with the
+    carried bank, traced (window ms by CUDA events, launches from the
+    trace, the replays' device time by kernel class); 10 streamed windows
+    back to back through the graph and 5 launched eagerly (frames/s both
+    ways, busy share, host ms a dispatch); graph replay against eager
+    dispatch of one window; a sync-free dispatch; an eager window
+    profiled. Returns the launches of the 3 streamed windows."""
+    import numpy as np
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp.tscd_large import Exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    exp = Exp()
+    L, G = exp.lframe_val, exp.gframe_val
+    F, (H, W) = L + G, exp.test_size
+    rng = np.random.default_rng(40)
+    x = torch.as_tensor(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8), device="cuda")
+    te = torch.as_tensor(get_timing_signal_1d(np.arange(F)), device="cuda")
+    f32 = random_init_(exp.get_model(), exp.seed)
+    sd32 = f32.state_dict()
+    raw32 = f32(x, te, L, G)["raw_outputs"].float()
+    del f32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = bf16_model(torch, exp, sd32)
+    raw16 = model(x, te, L, G)["raw_outputs"]
+    if raw16.dtype != torch.bfloat16 or raw16.shape != raw32.shape:
+        raise AssertionError(f"bf16 raw outputs {raw16.dtype} {tuple(raw16.shape)}")
+    b16, f32r = raw16.float().cpu().numpy(), raw32.cpu().numpy()
+    del raw16, raw32
+    if not np.isfinite(b16).all():
+        raise AssertionError("bf16 raw outputs are not finite")
+    delta = distance(b16, f32r)
+    pred = make_predict_fn(model, L, G, exp.nmsthre, exp.test_conf)
+    _, _, state = run_windows(torch, pred, exp, 1, 100, True, uint8=True)   # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    (dets, lat, state), launches, prof = traced_path(
+        torch, counters,
+        lambda: run_windows(torch, pred, exp, 3, exp.seed, True, state, 1, uint8=True),
+        3, L, bf16=True)
+    n_det = 0
+    for d in dets:
+        for r in pred.materialize(d):
+            if r.ndim != 2 or r.shape[1] != 7 or not np.isfinite(r).all():
+                raise AssertionError(f"bad bf16 detections {r.shape}")
+            n_det += len(r)
+    if n_det == 0 or not bool(state.has_state) or state.out.dtype != torch.bfloat16:
+        raise AssertionError("bf16 path: no detections, or no bf16 carried bank")
+
+    # throughput: streamed windows back to back, frames on the card
+    wins = [(torch.as_tensor(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8), device="cuda"),
+             torch.as_tensor(get_timing_signal_1d(np.arange(w, w + F)), device="cuda"))
+            for w in range(4, 14)]
+    loops = {}
+    for mode, fn, n in (("graph", pred.dispatch, 10), ("eager", pred.dispatch_eager, 5)):
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(n)]
+        host = []
+        st = state
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for (xw, tw), (a, b) in zip(wins, evs):
+            h0 = time.perf_counter()
+            a.record()
+            _, st = fn(xw, tw, True, st)
+            b.record()
+            host.append(time.perf_counter() - h0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        spans = [a.elapsed_time(b) for a, b in evs]
+        loops[mode] = {"windows": n, "wall_s": wall,
+                       "frames_per_s": F * n / wall,
+                       "evaluated_frames_per_s": L * n / wall,
+                       "window_ms": spans, "device_busy_share": sum(spans) / 1e3 / wall,
+                       "host_dispatch_ms": [1e3 * h for h in host]}
+
+    # the graph's window against the same window launched eagerly
+    xw, tw = wins[0]
+    got = pred.dispatch(xw, tw, True, state)
+    want = pred.dispatch_eager(xw, tw, True, state)
+    equal = all(torch.equal(a, b) for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    emit({"phase": "bf16", "check": "graph replay against eager dispatch", "pass": equal,
+          "tolerance": "equal (detections and carried bank)"})
+    if not equal:
+        raise AssertionError("bf16: the graph's window differs from the eager one")
+    sync_free_dispatch(torch, pred, exp, state)
+    emit({"phase": "bf16", "config": "TSCD-Large 1+31 frames 576px P=50, BN folded",
+          "setup_s": setup_s, "window_ms": lat, "traced": True, "detections": n_det,
+          "launches": launches, "dispatch_host_syncs": 0,
+          "max_raw_delta": delta["max"], "p999_raw_delta": delta["p999"],
+          "raw_delta_vs": "fp32 port, same weights and frames (dense raw_outputs)",
+          "raw_delta_parts": raw_delta_parts(b16, f32r),
+          "loops": loops, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    cpu_reference(torch, exp, sd32, x, te, b16, f32r)
+    profile_window(torch, pred, exp, state, dtype="bf16")
+    replay_breakdown(prof, 3)
+    return launches
+
+
+HAND_KERNELS = ("focus_stem_kernel", "fused_dual_attention", "linear_sum_assignment",
+                "nms_pack_rows", "nms_walk")
 KERNEL_CLASSES = (   # first match wins
     ("cuDNN implicit-GEMM convs", ("fprop", "implicit_convolve", "convolve_common")),
     ("cuDNN FFT convs", ("fft", "pointwise_mult_and_sum_complex")),
     ("cuDNN layout transposes", ("nhwcToNchw", "nchwToNhwc")),
     ("BatchNorm inference", ("bn_fw_inf",)),
+    # a conv's bias (the folded BN's shift) added by PyTorch in a
+    # broadcast pass of its own after cuDNN's conv
+    ("conv bias adds", ("gpu_kernel_impl_nocast<at::native::CUDAFunctor_add",)),
     ("SiLU", ("silu_kernel",)),
-    ("hand kernels", ("focus_stem_kernel", "fused_dual_attention",
-                      "linear_sum_assignment", "nms_pack_rows", "nms_walk")),
+    ("hand kernels", HAND_KERNELS),
     ("frame upload", ("Memcpy HtoD",)),
 )
 
@@ -922,12 +1366,14 @@ def copies_under(event):
     return n, ms
 
 
-def profile_window(torch, pred, exp, state):
+def profile_window(torch, pred, exp, state, dtype="fp32"):
     """Device time by kernel over one more window (torch.profiler),
     window 4 resumed from `state` (a video's first window comes once a
-    video), and the window's device-busy time; its launches are not
-    counted. Each attention call runs in a profiler range, so that the
-    copies made inside it (of its inputs) are counted apart."""
+    video), dispatched launch by launch, and the window's device-busy
+    time; its launches are not counted. Each attention call runs in a
+    profiler range, so that the copies made inside it (of its inputs) are
+    counted apart. The bf16 model gets uint8 frames, as the loader ships
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -941,7 +1387,8 @@ def profile_window(torch, pred, exp, state):
     aggregation.fused_dual_attention = ranged
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, lat, _ = run_windows(torch, pred, exp, 1, 7, True, state, 4)
+            _, lat, _ = run_windows(torch, pred, exp, 1, 7, True, state, 4, eager=True,
+                                    uint8=dtype == "bf16")
     finally:
         aggregation.fused_dual_attention = attend
     # device-side events only (kernels, copies): a host op's entry sums the
@@ -965,17 +1412,40 @@ def profile_window(torch, pred, exp, state):
                  "input_copies": sum(n for n, _ in feed),
                  "input_copy_ms": sum(ms for _, ms in feed)}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    with open(os.path.join(HERE, "build", "profile_window.json"), "w") as f:
+    name = "profile_window.json" if dtype == "fp32" else f"profile_window_{dtype}.json"
+    with open(os.path.join(HERE, "build", name), "w") as f:
         json.dump({"by_class": by_class, "attention": attention, "kernels": table}, f)
     # cuDNN's layout transposes, paid where a conv's input and its chosen
     # algorithm disagree on the memory format
-    emit({"phase": "profile", "sequence_start": False, "window_ms": lat[0],
+    emit({"phase": "profile", "dtype": dtype, "sequence_start": False, "window_ms": lat[0],
+          "by_class": by_class,
           "device_busy_ms": sum(r[1] for r in rows),
           "transpose_ms": by_class["cuDNN layout transposes"],
           "attention": attention,
           "hungarian_ms": sum(r["ms"] for r in table if "linear_sum_assignment" in r["name"]),
           "nms_ms": sum(r["ms"] for r in table if "nms_" in r["name"]),
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
+
+
+def replay_breakdown(prof, windows):
+    """Device ms a window by kernel class in the traced graph replays of
+    the bf16 phase, as `profile_window` classes an eager window; every
+    kernel into build/profile_replay_bf16.json."""
+    from torch.autograd import DeviceType
+    table = [{"name": e.key, "ms": e.self_device_time_total / 1e3 / windows,
+              "calls": e.count / windows}
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+             and e.key != "Activity Buffer Request"]
+    table.sort(key=lambda r: -r["ms"])
+    by_class = breakdown(table)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "profile_replay_bf16.json"), "w") as f:
+        json.dump({"windows": windows, "by_class": by_class, "kernels": table}, f)
+    emit({"phase": "profile", "dtype": "bf16", "graph_replay": True, "windows": windows,
+          "kernels_a_window": sum(r["calls"] for r in table),
+          "device_busy_ms": sum(r["ms"] for r in table), "by_class": by_class,
+          "hand_kernels": [r for r in table if any(k in r["name"] for k in HAND_KERNELS)]})
 
 
 def main() -> int:
@@ -1010,11 +1480,12 @@ def main() -> int:
 
     rows = kernel_phase(torch, dev)
     small_phase(torch)
+    # each row's launches in the 3 traced windows of its model's phase
     launches, carried = full_phase(torch, counters)
     carried_phase(torch, rows["hungarian"], carried)
-    expected = {"focus_stem": 3, "fused_dual_attention": 6, "hungarian": 3, "nms": 6}
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+    launches_bf16 = bf16_phase(torch, counters)
+    for name in ("focus_stem_bf16", "fused_dual_attention_bf16"):
+        launches[name] = launches_bf16[name]
     eval_phase(torch, counters)
 
     smi = subprocess.run(
@@ -1024,7 +1495,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name], **rows[name]}
-        for name in ("focus_stem", "fused_dual_attention", "hungarian", "nms")]})
+        for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

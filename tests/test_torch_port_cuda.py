@@ -8,9 +8,11 @@ machine with the card and no JAX installed:
 
 Tolerances: fp32 with another summation order, 1e-5 absolute on the
 attention's unit-scale values and 1e-4 relative on the stem's pixel-scale
-sums (TF32 off); col4row and the NMS keep mask are exact; the selftest
-evaluator on the card against the CPU, detections 1e-4 (matched as sets
-per frame) and stats 1e-4.
+sums (TF32 off); the bf16 stem one bf16 ulp (2^-7 relative) over the
+same 1e-3 floor, the attention on bf16 q/k/v as at fp32 (it computes in
+fp32); col4row and the NMS keep mask are exact; the selftest evaluator
+on the card against the CPU, detections 1e-4 (matched as sets per frame)
+and stats 1e-4; a window's CUDA graph replay equals its eager dispatch.
 """
 
 import numpy as np
@@ -175,6 +177,132 @@ def test_cuda_focus_stem_matches_plain(card, F, H, W, O, border):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,H,W,O,kind", [
+    (2, 128, 96, 64, "uint8"),
+    (1, 70, 34, 16, "uint8"),     # single frame, ragged last tiles
+    (4, 128, 128, 8, "uint8"),    # the selftest's width
+    (2, 70, 66, 64, "border"),    # 255 at the border: padding must be zeros
+    (2, 64, 64, 64, "fp32")])     # fp32 frames, rounded to bf16 as read
+def test_cuda_focus_stem_bf16_matches_plain(card, F, H, W, O, kind):
+    import chip_smoke
+    rng = np.random.default_rng(18)
+    x = rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)
+    if kind == "border":
+        for edge in (np.s_[:, :2], np.s_[:, -2:], np.s_[:, :, :2], np.s_[:, :, -2:]):
+            x[edge] = 255
+    xin = rng.uniform(0, 255, (F, H, W, 3)).astype(np.float32) if kind == "fp32" else x
+    ins = [torch.from_numpy(a).to(card) for a in (
+        xin, rng.normal(0, 0.1, (O, 12, 3, 3)).astype(np.float32),
+        rng.uniform(0.5, 1.5, O).astype(np.float32),
+        rng.normal(0, 0.5, O).astype(np.float32))]
+    n0 = pfs.focus_stem.launches
+    got = pfs.focus_stem(*ins, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert pfs.focus_stem.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (F, O, H // 2, W // 2)
+    assert got.is_contiguous()
+    want = pfs.focus_stem_plain(*ins, torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **chip_smoke.BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True])
+def test_cuda_attention_bf16_matches_plain(card, strided):
+    ins = [torch.from_numpy(a).to(card)
+           for a in _attn_inputs(np.random.default_rng(19), 1, 4, 50, 1600, 64)]
+    ins = [t.to(torch.bfloat16) for t in ins[:6]] + ins[6:]
+    want = pfa.fused_dual_attention_plain(*ins)
+    if strided:
+        ins = _as_aggregation_views(ins)
+    got = pfa.fused_dual_attention(*ins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+def _selftest_predict(card, dtype, seed=20):
+    """The selftest model on the card at `dtype` (BN folded at bf16) and
+    its predict function, with 3 seeded windows of pinned uint8 frames."""
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp import selftest_exp
+    from tscd_torch.models.tscd import TSCD, random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    from tscd_torch.utils.model_utils import fuse_model
+    exp = selftest_exp()
+    model = random_init_(exp.get_model(device=card), exp.seed)
+    if dtype == torch.bfloat16:
+        model = fuse_model(TSCD(num_classes=exp.num_classes, depth=exp.depth,
+                                width=exp.width, num_proposals=exp.num_proposals,
+                                minimal_limit=exp.minimal_limit, heads=exp.heads,
+                                device=card, dtype=dtype), model.state_dict())
+    predict = make_predict_fn(model, exp.lframe_val, exp.gframe_val,
+                              exp.nmsthre, exp.test_conf)
+    F, (H, W) = exp.lframe_val + exp.gframe_val, exp.test_size
+    rng = np.random.default_rng(seed)
+    windows = [(torch.from_numpy(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)).pin_memory(),
+                torch.from_numpy(get_timing_signal_1d(np.arange(w, w + F))).pin_memory())
+               for w in range(3)]
+    return predict, windows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graph_replay_equals_eager_dispatch(card, dtype):
+    """A carried window as the window's CUDA graph and launch by launch:
+    the same detections and bank. The replay's device trace holds the
+    window's hand kernels, in the variants of the model's dtype, and the
+    wrappers count no launch for it (a replay runs no Python)."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    predict, windows = _selftest_predict(card, dtype)
+    _, state = predict.dispatch(*windows[0], False, None)        # captures
+    counters = (pkn.nms_walk, pfs.focus_stem, pfa.fused_dual_attention,
+                pkh.linear_sum_assignment)
+    n0 = [c.launches for c in counters]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = predict.dispatch(*windows[1], True, state)
+        torch.cuda.synchronize()
+    assert [c.launches for c in counters] == n0
+    assert chip_smoke.trace_launches(prof) == chip_smoke.window_launches(
+        1, 1, bf16=dtype == torch.bfloat16)
+    want = predict.dispatch_eager(*windows[1], True, state)
+    assert got[1].out.dtype == dtype
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    assert got[0].mask.any()
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_window_survives_next_replay(card):
+    """The evaluator reads window i after dispatching i + 1: what a replay
+    returns is a copy, which the next replay leaves as it was."""
+    predict, windows = _selftest_predict(card, torch.bfloat16)
+    _, state = predict.dispatch(*windows[0], False, None)
+    first, state = predict.dispatch(*windows[1], True, state)
+    kept = [t.clone() for t in first]
+    second, _ = predict.dispatch(*windows[2], True, state)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert not all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first.boxes.data_ptr() != second.boxes.data_ptr()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_dispatch_waits_on_nothing(card):
+    predict, windows = _selftest_predict(card, torch.bfloat16)
+    _, state = predict.dispatch(*windows[0], False, None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        refined, state = predict.dispatch(*windows[1], True, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows = predict.materialize(refined)
+    assert np.isfinite(rows[0]).all() and state.out.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
 def test_cuda_nms_walk_equals_plain(card):
     """chip_smoke.py's cases: random boxes at K = 1500, 50 and 7, B = 1, 3
     and 2, all invalid, identical boxes, tied scores, the K-step chain."""
@@ -210,7 +338,11 @@ def test_cuda_hungarian_past_128_equals_plain(card):
 @pytest.mark.cuda
 def test_cuda_dispatch_waits_on_nothing(card):
     """The whole dispatch (upload, forward, postprocess) of a streamed
-    window from pinned uint8 frames runs under sync debug mode "error"."""
+    window from pinned uint8 frames runs under sync debug mode "error",
+    and its device trace holds the window's two NMS walks."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
     from tscd_torch.core.predict import make_predict_fn
     from tscd_torch.exp import selftest_exp
     from tscd_torch.models.tscd import random_init_
@@ -226,13 +358,14 @@ def test_cuda_dispatch_waits_on_nothing(card):
                for w in range(2)]
     _, state = predict.dispatch(*windows[0], False, None)      # warm-up
     torch.cuda.synchronize()
-    n0 = pkn.nms_walk.launches
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        refined, state = predict.dispatch(*windows[1], True, state)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    assert pkn.nms_walk.launches == n0 + 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            refined, state = predict.dispatch(*windows[1], True, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert chip_smoke.trace_launches(prof)["nms"] == 2
     rows = predict.materialize(refined)
     assert len(rows) == exp.lframe_val and np.isfinite(rows[0]).all()
 

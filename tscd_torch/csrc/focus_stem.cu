@@ -6,9 +6,23 @@
 // rearranges them to (ky, kx, c, o) tap order, with ky = 2u + dy and
 // kx = 2v + dx for the s2d channel (dx*2 + dy)*C + c of the 3x3 kernel.
 //
-// Layout: x (F, H, W, 3) fp32 NHWC; w (6, 6, 3, OC); shift (OC);
-// out (F, OC, H/2, W/2) NCHW, the layout every conv after the stem runs
-// in. H and W even, OC a multiple of 8.
+// Layout: x (F, H, W, 3) NHWC, fp32 (or uint8 with bf16 out); w (6, 6, 3, OC) fp32;
+// shift (OC) fp32; out (F, OC, H/2, W/2) NCHW, fp32 or bf16, the layout
+// every conv after the stem runs in. H and W even, OC a multiple of 8.
+//
+// The bf16 variant computes what the Pallas kernel computes at
+// out_dtype bf16 (focus_stem.py:144-148): the image and the folded
+// weights rounded to bf16 (the wrapper rounds the weights; a uint8 pixel
+// is exact in bf16, an fp32 one is rounded here as it is read), fp32
+// sums, + shift and SiLU in fp32, the result rounded to bf16. A product
+// of two bf16 values is exact in fp32, so the kernel and its plain
+// version differ only in the order of the sums. It reads uint8 frames
+// straight from the loader's upload (no cast pass): 31.85 MB in and
+// 340 MB out at the window's shape, 0.111 ms at 3.35 TB/s, which bounds
+// it (its 36.7 GFLOP take 0.037 ms at the bf16 tensor-core rate). It
+// runs the fp32 kernel's FMA loop on the CUDA cores, so its operations
+// (0.548 ms at 67 TFLOP/s) set its pace; a uint8 or rounded pixel is
+// converted as it is read, with plain loads in place of cp.async.
 //
 // Bound at (32, 576, 576, 3) -> 64 channels: 127 MB read and 679 MB
 // written (0.24 ms at 3.35 TB/s) against 36.7 GFLOP of fp32 FMA (0.548 ms
@@ -45,8 +59,12 @@
 // bytes, 62.5 KB at OC = 64. `-Xptxas -v` output is in
 // build/kernels/build.log.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -60,6 +78,7 @@ constexpr int TW = 32;                    // output columns per tile
 constexpr int WARP_ROWS = 4;              // output rows per warp item
 constexpr int HALO_W = 2 * TW + KS - 2;   // 68 input columns
 constexpr int LINE = HALO_W / 2 + 2;      // 36 floats per (c, row, parity)
+constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           int src_bytes) {
@@ -81,11 +100,24 @@ struct Tiles {
   int H, W, H2, W2, O, TH, HR, tiles_x, per_frame, n;
 };
 
+__device__ __forceinline__ float pixel(unsigned char v) {
+  return static_cast<float>(v);
+}
+
+// an fp32 pixel of the bf16 variant, rounded to bf16 as the Pallas kernel
+// rounds its input
+__device__ __forceinline__ float pixel(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Starts the copy of `tile`'s halo into `dst`: element (c, r, k) of the
 // window at input rows iy0.., columns ix0.. lands at
 // ((c * HR + r) * 2 + k % 2) * LINE + k / 2. Thread m < 204 copies
-// element m = 3k + c of every row, so a warp reads consecutive floats.
-__device__ __forceinline__ void load_halo(float* dst, const float* x,
+// element m = 3k + c of every row, so a warp reads consecutive elements.
+// fp32 frames at fp32 go by cp.async; the other variants convert each
+// pixel as they read it, with plain loads and stores.
+template <typename TIn, bool BF16>
+__device__ __forceinline__ void load_halo(float* dst, const TIn* x,
                                           int tile, const Tiles& g) {
   const int m = threadIdx.x;
   if (m >= HALO_W * CIN) return;
@@ -103,14 +135,17 @@ __device__ __forceinline__ void load_halo(float* dst, const float* x,
   for (int r = 0; r < g.HR; ++r, src += row, d += 2 * LINE) {
     const int iy = iy0 + r;
     const bool in = col_in && iy >= 0 && iy < g.H;
-    cp_async4(d, in ? x + src : x, in ? 4 : 0);
+    if constexpr (std::is_same<TIn, float>::value && !BF16)
+      cp_async4(d, in ? x + src : x, in ? 4 : 0);
+    else
+      *d = in ? pixel(x[src]) : 0.f;
   }
 }
 
-template <int CB>
+template <int CB, typename TIn, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
-focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ shift, float* __restrict__ out,
+focus_stem_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ shift, void* __restrict__ out,
                   Tiles g, int rg) {
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem;                         // (O / CB) x TAPS x CB
@@ -132,12 +167,12 @@ focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int items = rg * (g.O / CB);
 
   int tile = blockIdx.x;
-  if (tile < g.n) load_halo(s_x, x, tile, g);
+  if (tile < g.n) load_halo<TIn, BF16>(s_x, x, tile, g);
   cp_async_commit();
   for (int it = 0; tile < g.n; ++it, tile += gridDim.x) {
     const float* cur = s_x + (it & 1) * buf;
     const int next = tile + gridDim.x;
-    if (next < g.n) load_halo(s_x + ((it + 1) & 1) * buf, x, next, g);
+    if (next < g.n) load_halo<TIn, BF16>(s_x + ((it + 1) & 1) * buf, x, next, g);
     cp_async_commit();                       // possibly empty: keeps the count
     cp_async_wait<1>();                      // this tile's halo has landed
     __syncthreads();
@@ -198,14 +233,31 @@ focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float v = acc[i][o];
             y[i] = __fdividef(v, 1.f + expf(-v));
           }
-          float* dst = out + ((static_cast<size_t>(f) * g.O + cb * CB + o) * g.H2 + oy)
-                                 * g.W2 + ox;
-          if (vec) {
-            *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
-          } else {
+          const size_t at = ((static_cast<size_t>(f) * g.O + cb * CB + o) * g.H2 + oy)
+                                * g.W2 + ox;
+          if constexpr (BF16) {
+            __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + at;
+            if (vec) {                       // 4 pixels, one 8-byte store
+              const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+              const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+              uint2 u;
+              u.x = *reinterpret_cast<const unsigned*>(&lo);
+              u.y = *reinterpret_cast<const unsigned*>(&hi);
+              *reinterpret_cast<uint2*>(dst) = u;
+            } else {
 #pragma unroll
-            for (int i = 0; i < PX; ++i)
-              if (ox + i < g.W2) dst[i] = y[i];
+              for (int i = 0; i < PX; ++i)
+                if (ox + i < g.W2) dst[i] = __float2bfloat16_rn(y[i]);
+            }
+          } else {
+            float* dst = static_cast<float*>(out) + at;
+            if (vec) {
+              *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < PX; ++i)
+                if (ox + i < g.W2) dst[i] = y[i];
+            }
           }
         }
       }
@@ -215,8 +267,25 @@ focus_stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
   cp_async_wait<0>();
 }
 
-template <int CB>
-int launch(const float* x, const float* w, const float* shift, float* out,
+// The kernel's shared-memory limit, raised to the card's opt-in maximum
+// once a device and kept.
+template <int CB, typename TIn, bool BF16>
+cudaError_t configure(int dev) {
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t status[MAX_DEVICES];
+  std::call_once(once[dev], [dev] {
+    int optin = 0;
+    status[dev] = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (status[dev] == cudaSuccess)
+      status[dev] = cudaFuncSetAttribute(focus_stem_kernel<CB, TIn, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  });
+  return status[dev];
+}
+
+template <int CB, typename TIn, bool BF16>
+int launch(const TIn* x, const float* w, const float* shift, void* out,
            int F, int H, int W, int OC, cudaStream_t stream) {
   const int rg = (OC / CB) >= WARPS ? 1 : WARPS / (OC / CB);
   Tiles g;
@@ -227,35 +296,42 @@ int launch(const float* x, const float* w, const float* shift, float* out,
   g.per_frame = ((g.H2 + g.TH - 1) / g.TH) * g.tiles_x;
   g.n = F * g.per_frame;
   const size_t smem = sizeof(float) * (TAPS * OC + OC + 2 * CIN * g.HR * 2 * LINE);
-  cudaError_t err = cudaFuncSetAttribute(
-      focus_stem_kernel<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = configure<CB, TIn, BF16>(dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, focus_stem_kernel<CB>, THREADS, smem)) != cudaSuccess)
+           &per_sm, focus_stem_kernel<CB, TIn, BF16>, THREADS, smem)) != cudaSuccess)
     return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = g.n < per_sm * sms ? g.n : per_sm * sms;
-  focus_stem_kernel<CB><<<grid, THREADS, smem, stream>>>(x, w, shift, out, g, rg);
+  focus_stem_kernel<CB, TIn, BF16><<<grid, THREADS, smem, stream>>>(x, w, shift, out, g, rg);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TIn, bool BF16>
+int launch_oc(const void* x, const float* w, const float* shift, void* out,
+              int F, int H, int W, int OC, cudaStream_t stream) {
+  const auto xs = static_cast<const TIn*>(x);
+  return OC % 16 == 0 ? launch<16, TIn, BF16>(xs, w, shift, out, F, H, W, OC, stream)
+                      : launch<8, TIn, BF16>(xs, w, shift, out, F, H, W, OC, stream);
 }
 
 }  // namespace
 
+// out_bf16: out is bf16 (else fp32); x_u8: x is uint8 (else fp32), with
+// bf16 out only.
 extern "C" int tscd_focus_stem(const void* x, const void* w, const void* shift,
                                void* out, int F, int H, int W, int C, int OC,
-                               void* stream) {
+                               int x_u8, int out_bf16, void* stream) {
   if (C != CIN || OC < 8 || OC % 8 != 0 || H < 2 || W < 2 || H % 2 || W % 2 ||
-      F < 1)
+      F < 1 || (x_u8 && !out_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto xs = static_cast<const float*>(x);
   const auto ws = static_cast<const float*>(w);
   const auto ss = static_cast<const float*>(shift);
-  const auto os = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  return OC % 16 == 0 ? launch<16>(xs, ws, ss, os, F, H, W, OC, st)
-                      : launch<8>(xs, ws, ss, os, F, H, W, OC, st);
+  if (x_u8) return launch_oc<unsigned char, true>(x, ws, ss, out, F, H, W, OC, st);
+  return out_bf16 ? launch_oc<float, true>(x, ws, ss, out, F, H, W, OC, st)
+                  : launch_oc<float, false>(x, ws, ss, out, F, H, W, OC, st);
 }

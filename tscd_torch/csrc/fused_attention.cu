@@ -11,8 +11,14 @@
 // Layout: q (B, H, NQ, D), k/v (B, H, NK, D), each with its last dim
 // contiguous and its other three strides passed in (the caller's heads
 // are transposed views of a Linear output); score/valid (B, NK)
-// contiguous; out (B, H, NQ, D), attn (B, H, NQ, NK) contiguous; fp32,
-// valid uint8.
+// contiguous; out (B, H, NQ, D), attn (B, H, NQ, NK) contiguous; q, k
+// and v fp32 or bf16 (all six alike), everything else fp32, valid uint8.
+//
+// bf16 q/k/v (the bf16 model's Linear outputs) are read as they are and
+// upcast as they land in shared memory, as the Pallas kernel upcasts in
+// its body (fused_attention.py:33-37): norms, logits, softmaxes and the
+// outputs are fp32 as at fp32, and only the copy-in differs (8-byte
+// loads of 4 values and a conversion, in place of cp.async).
 //
 // Bound on an H100 at the main-path shape (B=1, H=4, NQ=50, NK=1600,
 // D=64): 8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA
@@ -61,10 +67,12 @@
 // registers, combine 32, no spills; dynamic shared memory 85 KiB a split
 // block at D = 64 (149 KiB at D = 128), 4.4 KiB a combine block.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
 
@@ -83,15 +91,15 @@ constexpr int MAX_DEVICES = 64;
 constexpr size_t COMBINE_SMEM_MAX = 48 * 1024;
 
 struct Args {
-  const float* q[2];            // qc, qr
-  const float* k[2];            // kc, kr
-  const float* v[2];            // vc, vr
+  const void* q[2];             // qc, qr (fp32 or bf16)
+  const void* k[2];             // kc, kr
+  const void* v[2];             // vc, vr
   long long qs[2][3], ks[2][3], vs[2][3];   // strides of batch, head, row
   const float* score;
   const unsigned char* valid;
   float* out[2];
   float* attn;
-  bool vec;                     // q, k, v rows 16-byte aligned: 16-byte copies
+  bool vec;                     // q, k, v rows in aligned groups of 4: 4 a copy
   float4* stats;                // scratch (B*H, NQ, nch): m_c, s_c, m_r, s_r
   float* part;                  // scratch (B*H, NQ, nch, NPROD, DP)
   float* p[2];                  // scratch (B*H, NQ, NK): exp(l - m)
@@ -135,17 +143,33 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
                  :: "r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
 }
 
-// Starts the copy of rows x DP floats into dst (row stride ld) from src
-// (row stride rs); rows >= n and columns >= D land as zeros. With vec
-// (D, rs and src 16-byte aligned) 16 bytes a copy, else 4.
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+// Copies rows x DP values into dst (fp32, row stride ld) from src (row
+// stride rs); rows >= n and columns >= D land as zeros. With vec (D and
+// rs multiples of 4, src aligned to 4 values) 4 values a copy, else 1.
+// fp32 goes by cp.async (wait before reading); bf16 by plain loads,
+// converted to fp32 as they are stored.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
                                           long long rs, int rows, int n,
                                           int D, int DP, bool vec) {
   const int w = vec ? 4 : 1, per_row = DP / w;
   for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
     const int r = i / per_row, t = (i - r * per_row) * w;
     const bool in = r < n && t < D;
-    cp_async(dst + r * ld + t, in ? src + r * rs + t : src, 4 * w, in);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async(dst + r * ld + t, in ? src + r * rs + t : src, 4 * w, in);
+    } else if (vec) {
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) {
+        const uint2 u = *reinterpret_cast<const uint2*>(src + r * rs + t);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        o = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * ld + t) = o;
+    } else {
+      dst[r * ld + t] = in ? __bfloat162float(src[r * rs + t]) : 0.f;
+    }
   }
 }
 
@@ -158,6 +182,7 @@ size_t split_smem(int DP, int DS) {
 // puts 8 neighbouring rows' float4 loads on distinct banks
 int shared_stride(int DP) { return ((DP / 4) | 1) * 4; }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_dual_attention_split(const Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -178,14 +203,17 @@ fused_dual_attention_split(const Args a) {
   const int tid = threadIdx.x;
 
   for (int br = 0; br < 2; ++br) {
+    const T* q = static_cast<const T*>(a.q[br]);
+    const T* k = static_cast<const T*>(a.k[br]);
+    const T* v = static_cast<const T*>(a.v[br]);
     load_rows(sq + br * QT * DS, DS,
-              a.q[br] + b * a.qs[br][0] + h * a.qs[br][1] + q0 * a.qs[br][2],
+              q + b * a.qs[br][0] + h * a.qs[br][1] + q0 * a.qs[br][2],
               a.qs[br][2], QT, qn, a.D, DP, a.vec);
     load_rows(sk + br * KC * DS, DS,
-              a.k[br] + b * a.ks[br][0] + h * a.ks[br][1] + k0 * a.ks[br][2],
+              k + b * a.ks[br][0] + h * a.ks[br][1] + k0 * a.ks[br][2],
               a.ks[br][2], KC, kn, a.D, DP, a.vec);
     load_rows(sv + br * KC * DP, DP,
-              a.v[br] + b * a.vs[br][0] + h * a.vs[br][1] + k0 * a.vs[br][2],
+              v + b * a.vs[br][0] + h * a.vs[br][1] + k0 * a.vs[br][2],
               a.vs[br][2], KC, kn, a.D, DP, a.vec);
   }
   if (tid < KC) {
@@ -378,7 +406,7 @@ fused_dual_attention_combine(const Args a) {
   }
 }
 
-// The split kernel's shared-memory limit, raised once a device and kept.
+// The split kernels' shared-memory limit, raised once a device and kept.
 cudaError_t configure() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -387,9 +415,13 @@ cudaError_t configure() {
   static std::once_flag once[MAX_DEVICES];
   static cudaError_t status[MAX_DEVICES];
   std::call_once(once[dev], [dev] {
+    const int smem = static_cast<int>(split_smem(DMAX, shared_stride(DMAX)));
     status[dev] = cudaFuncSetAttribute(
-        fused_dual_attention_split, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(split_smem(DMAX, shared_stride(DMAX))));
+        fused_dual_attention_split<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status[dev] == cudaSuccess)
+      status[dev] = cudaFuncSetAttribute(
+          fused_dual_attention_split<__nv_bfloat16>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   });
   return status[dev];
 }
@@ -403,13 +435,14 @@ size_t scratch_bytes(int B, int H, int NQ, int NK, int D) {
 }  // namespace
 
 // strides: (batch, head, row) of qc, kc, vc, qr, kr, vr in elements;
-// scratch: at least scratch_bytes(...) bytes, 16-byte aligned.
+// scratch: at least scratch_bytes(...) bytes, 16-byte aligned; bf16: q, k
+// and v are bf16 (else fp32).
 extern "C" int tscd_fused_dual_attention(
     const void* qc, const void* kc, const void* vc, const void* qr,
     const void* kr, const void* vr, const void* score, const void* valid,
     void* out_c, void* out_r, void* attn, void* scratch, size_t scratch_size,
     const long long* strides, int B, int H, int NQ, int NK, int D,
-    float scale, void* stream) {
+    float scale, int bf16, void* stream) {
   if (D < 1 || D > DMAX || B < 1 || H < 1 || NQ < 1 || NK < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long BH = static_cast<long long>(B) * H;
@@ -429,9 +462,7 @@ extern "C" int tscd_fused_dual_attention(
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const float* qkv[6] = {static_cast<const float*>(qc), static_cast<const float*>(kc),
-                         static_cast<const float*>(vc), static_cast<const float*>(qr),
-                         static_cast<const float*>(kr), static_cast<const float*>(vr)};
+  const void* qkv[6] = {qc, kc, vc, qr, kr, vr};
   for (int br = 0; br < 2; ++br) {
     a.q[br] = qkv[3 * br];
     a.k[br] = qkv[3 * br + 1];
@@ -452,15 +483,19 @@ extern "C" int tscd_fused_dual_attention(
   a.part = reinterpret_cast<float*>(a.stats + rows * a.nch);
   a.p[0] = a.part + rows * a.nch * NPROD * a.DP;
   a.p[1] = a.p[0] + rows * NK;
+  const size_t group = bf16 ? 8 : 16;      // bytes of 4 values
   a.vec = D % 4 == 0;
   for (int i = 0; i < 6; ++i) {
-    a.vec = a.vec && reinterpret_cast<size_t>(qkv[i]) % 16 == 0;
+    a.vec = a.vec && reinterpret_cast<size_t>(qkv[i]) % group == 0;
     for (int s = 0; s < 3; ++s) a.vec = a.vec && strides[3 * i + s] % 4 == 0;
   }
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_dual_attention_split<<<dim3(a.nch, static_cast<unsigned>(BH), nqt), THREADS,
-                               split_smem(a.DP, a.DS), st>>>(a);
+  const dim3 grid(a.nch, static_cast<unsigned>(BH), nqt);
+  if (bf16)
+    fused_dual_attention_split<__nv_bfloat16><<<grid, THREADS, split_smem(a.DP, a.DS), st>>>(a);
+  else
+    fused_dual_attention_split<float><<<grid, THREADS, split_smem(a.DP, a.DS), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_dual_attention_combine<<<dim3(NQ, static_cast<unsigned>(BH)), CTHREADS,

@@ -7,6 +7,12 @@ global frame. The JAX package vmaps over local frames; here the local
 frame is a batch axis written out. The fused branch (no score-window
 mask) goes through the hand kernel `ops.kernels.fused_attention`; the
 masked branch (`use_mask`) is plain tensor code.
+
+Compute dtype (`dtype`) as in the JAX modules: the Linear layers run in
+it; logits, softmaxes and `attn @ V` are fp32 (the kernel upcasts bf16
+q/k/v itself), and the outputs are cast back where JAX casts them
+(aggregation.py:148-150,173-174). Vectors are L2-normalised in their
+own dtype and only the products accumulate in fp32, as in JAX.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -15,6 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.fused_attention import fused_dual_attention
+from .matching import _norm
 
 NEG = -1e9
 
@@ -30,8 +37,9 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    # eps 1e-12 under a max, as aggregation.py:42 (the matcher's differs)
-    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=eps)
+    # eps 1e-12 under a max, as aggregation.py:42 (the matcher's differs);
+    # the jitted JAX function's roundings, as matching._l2norm
+    return (x.float() / _norm(x).clamp(min=eps)).to(x.dtype)
 
 
 class AttnPieces(NamedTuple):
@@ -48,14 +56,16 @@ class DualBranchAttention(nn.Module):
     the first n_query tokens, k/v over all tokens."""
 
     def __init__(self, dim: int, num_heads: int = 4, scale: float = 25.0,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.scale = scale
-        self.q_cls_local = nn.Linear(dim, dim, bias=qkv_bias)
-        self.kv_cls = nn.Linear(dim, 2 * dim, bias=qkv_bias)
-        self.q_reg_local = nn.Linear(dim, dim, bias=qkv_bias)
-        self.kv_reg = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.dtype = dtype
+        kw = dict(bias=qkv_bias, dtype=dtype)
+        self.q_cls_local = nn.Linear(dim, dim, **kw)
+        self.kv_cls = nn.Linear(dim, 2 * dim, **kw)
+        self.q_reg_local = nn.Linear(dim, dim, **kw)
+        self.kv_reg = nn.Linear(dim, 2 * dim, **kw)
 
     def attend(self, x_cls: torch.Tensor, x_reg: torch.Tensor,
                cls_score: Optional[torch.Tensor],
@@ -82,7 +92,7 @@ class DualBranchAttention(nn.Module):
             x, xr, attn = fused_dual_attention(qc0, kc0, vc, qr0, kr0, vr,
                                                score, key_valid, self.scale)
         else:
-            qc, kc, qr, kr = map(_l2norm, (qc0, kc0, qr0, kr0))
+            qc, kc, qr, kr = (_l2norm(t).to(f32) for t in (qc0, kc0, qr0, kr0))
             logits_cls = torch.einsum("bhqd,bhkd->bhqk", qc, kc) * self.scale
             logits_reg = torch.einsum("bhqd,bhkd->bhqk", qr, kr) * self.scale
             if cls_score is not None:
@@ -101,10 +111,14 @@ class DualBranchAttention(nn.Module):
             x = torch.einsum("bhqk,bhkd->bhqd", attn, vc.to(f32))
             xr = torch.einsum("bhqk,bhkd->bhqd", attn, vr.to(f32))
 
-        out_cls = torch.cat([_merge_heads(x), _merge_heads(vc[:, :, :n_query])], -1)
-        out_reg = torch.cat([_merge_heads(xr), _merge_heads(vr[:, :, :n_query])], -1)
+        dt = self.dtype
+        out_cls = torch.cat([_merge_heads(x), _merge_heads(vc[:, :, :n_query]).to(f32)],
+                            -1).to(dt)
+        out_reg = torch.cat([_merge_heads(xr), _merge_heads(vr[:, :, :n_query]).to(f32)],
+                            -1).to(dt)
 
         # round-2 similarity masks (post_trans.py:803-824)
+        vcn, vrn = vcn.to(f32), vrn.to(f32)
         raw_cls = torch.einsum("bhqd,bhkd->bqk", vcn[:, :, :n_query], vcn) / h
         raw_reg = torch.einsum("bhqd,bhkd->bqk", vrn[:, :, :n_query], vrn) / h
         sim_mask = ((raw_cls > sim_thresh) & kv).to(f32)
@@ -119,7 +133,7 @@ class DualBranchAttention(nn.Module):
         sim_round2 = sim_mask * sim_round2 / denom
         denom_o = (obj_mask * sim_round2).sum(-1, keepdim=True).clamp(min=1e-12)
         obj_round2 = obj_mask * sim_round2 / denom_o
-        return AttnPieces(out_cls, out_reg, sim_round2, obj_round2,
+        return AttnPieces(out_cls, out_reg, sim_round2.to(dt), obj_round2.to(dt),
                           _merge_heads(vc), _merge_heads(vr))
 
 
@@ -131,12 +145,12 @@ class MCACore(DualBranchAttention):
     `mca.linear`) as in the reference."""
 
     def __init__(self, dim: int, num_heads: int = 4, scale: float = 25.0,
-                 reconf: bool = False):
-        super().__init__(dim, num_heads, scale)
+                 reconf: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, num_heads, scale, dtype=dtype)
         self.reconf = reconf
-        self.linear = nn.Linear(2 * dim, 2 * dim)
+        self.linear = nn.Linear(2 * dim, 2 * dim, dtype=dtype)
         if reconf:
-            self.linear_reg = nn.Linear(2 * dim, 2 * dim)
+            self.linear_reg = nn.Linear(2 * dim, 2 * dim, dtype=dtype)
 
     def forward(self, x_cls, x_reg, cls_score, fg_score, key_valid, n_query,
                 sim_thresh=0.75, use_mask=False, conf_sim_thresh=0.99
@@ -157,13 +171,14 @@ class MCAg2l(nn.Module):
     attend to own frame + all global frames."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
-                 scale: float = 25.0, reconf: bool = False):
+                 scale: float = 25.0, reconf: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.reconf = reconf
-        self.mca = MCACore(in_dim, num_heads, scale, reconf)
-        self.linear = nn.Linear(3 * in_dim, out_dim)
+        self.mca = MCACore(in_dim, num_heads, scale, reconf, dtype)
+        self.linear = nn.Linear(3 * in_dim, out_dim, dtype=dtype)
         if reconf:
-            self.linear_obj = nn.Linear(3 * in_dim, out_dim)
+            self.linear_obj = nn.Linear(3 * in_dim, out_dim, dtype=dtype)
 
     def forward(self, feat_cls: torch.Tensor, feat_reg: torch.Tensor,
                 cls_score: torch.Tensor, fg_score: torch.Tensor,

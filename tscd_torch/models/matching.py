@@ -11,6 +11,15 @@ no host sync.
 LayerNorms use eps 1e-6 (flax's default, matching.py:140,205,280,290),
 not torch's 1e-5, and `_l2norm` adds its eps 1e-6 to the norm
 (matching.py:37), unlike aggregation's max(norm, 1e-12).
+
+Compute dtype (`dtype`) as in the JAX modules: Linear layers, SE gates
+and the carried bank run in it; LayerNorms keep fp32 parameters and run
+in fp32 on the sum in the compute dtype, then cast back
+(matching.py:140-141,205,258,280-291); attention logits, softmax and
+`attn @ V` are fp32 (:110-120); vectors are normalised in their own
+dtype and only the products accumulate in fp32, which for the match
+cost is full fp32 (:163-176): the Hungarian decision sits on ~1e-3
+margins.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -24,18 +33,37 @@ NEG = -1e9
 LN_EPS = 1e-6
 
 
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.linalg.norm` over the last axis as XLA computes it under jit,
+    returned in fp32: the squares summed in fp32, the sum and its root
+    each rounded to x's dtype (no rounding at fp32)."""
+    xf = x.float()
+    s = (xf * xf).sum(-1, keepdim=True).to(x.dtype).float()
+    return torch.sqrt(s).to(x.dtype).float()
+
+
 def _l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+    """x / (|x| + eps) over the last axis with the jitted JAX function's
+    roundings: the denominator rounded to x's dtype, the quotient taken
+    in fp32 and rounded once."""
+    d = (_norm(x) + eps).to(x.dtype).float()
+    return (x.float() / d).to(x.dtype)
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """fp32 LayerNorm of x, cast back to x's dtype."""
+    return norm(x.float()).to(x.dtype)
 
 
 class SEGate(nn.Module):
     """SEModule (tscd_matching.py:264): per-(token, channel) 2-way gate
     fusing a content feature with its edge counterpart."""
 
-    def __init__(self, hidden: int = 32):
+    def __init__(self, hidden: int = 32, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = nn.Sequential(nn.Linear(2, hidden, bias=False), nn.ReLU(),
-                                nn.Linear(hidden, 2, bias=False))
+        self.fc = nn.Sequential(nn.Linear(2, hidden, bias=False, dtype=dtype),
+                                nn.ReLU(),
+                                nn.Linear(hidden, 2, bias=False, dtype=dtype))
 
     def forward(self, feat: torch.Tensor, edge: torch.Tensor) -> torch.Tensor:
         w = torch.sigmoid(self.fc(torch.stack([feat, edge], -1)))
@@ -75,12 +103,15 @@ class CosineMHAttention(nn.Module):
     which no caller on the ported path passes: cosine-normalised QK,
     masked softmax, attn @ V. Leading batch axes are allowed."""
 
-    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.q_reg = nn.Linear(dim, dim, bias=qkv_bias)
-        self.k_reg = nn.Linear(dim, dim, bias=qkv_bias)
-        self.v_reg = nn.Linear(dim, dim, bias=qkv_bias)
+        self.dtype = dtype
+        kw = dict(bias=qkv_bias, dtype=dtype)
+        self.q_reg = nn.Linear(dim, dim, **kw)
+        self.k_reg = nn.Linear(dim, dim, **kw)
+        self.v_reg = nn.Linear(dim, dim, **kw)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         *lead, n, c = x.shape
@@ -88,16 +119,17 @@ class CosineMHAttention(nn.Module):
         return x.reshape(*lead, n, h, c // h).transpose(-2, -3)
 
     def forward(self, query, key, value, key_valid=None) -> torch.Tensor:
-        q = _l2norm(self._heads(self.q_reg(query)))
-        k = _l2norm(self._heads(self.k_reg(key)))
-        v = self._heads(self.v_reg(value))
+        f32 = torch.float32
+        q = _l2norm(self._heads(self.q_reg(query))).to(f32)
+        k = _l2norm(self._heads(self.k_reg(key))).to(f32)
+        v = self._heads(self.v_reg(value)).to(f32)
         logits = torch.einsum("...hqd,...hkd->...hqk", q, k)
         if key_valid is not None:
             logits = logits + torch.where(key_valid[..., None, None, :],
-                                          0.0, NEG).to(logits.dtype)
+                                          0.0, NEG).to(f32)
         attn = torch.softmax(logits, -1)
         out = torch.einsum("...hqk,...hkd->...hqd", attn, v)
-        return out.transpose(-2, -3).reshape(query.shape)
+        return out.transpose(-2, -3).reshape(query.shape).to(self.dtype)
 
 
 class ReferringCrossAttention(nn.Module):
@@ -105,10 +137,11 @@ class ReferringCrossAttention(nn.Module):
     LayerNorm(identify + attn(q=SE(tgt,q_edge)+q_pos,
                               k=SE(mem,edge)+pos, v=mem))."""
 
-    def __init__(self, dim: int, num_heads: int = 8):
+    def __init__(self, dim: int, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.CA = SEGate()
-        self.multihead_attn = CosineMHAttention(dim, num_heads)
+        self.CA = SEGate(dtype=dtype)
+        self.multihead_attn = CosineMHAttention(dim, num_heads, dtype=dtype)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, identify, tgt, memory, pos, query_pos, edge,
@@ -116,7 +149,7 @@ class ReferringCrossAttention(nn.Module):
         q = self.CA(tgt, query_edge) + query_pos
         k = self.CA(memory, edge) + pos
         out = self.multihead_attn(q, k, memory, key_valid)
-        return self.norm(identify + out)
+        return _layer_norm(self.norm, identify + out)
 
 
 class MatcherState(NamedTuple):
@@ -141,10 +174,12 @@ def init_matcher_state(p: int, c: int, cr: int, dtype=torch.float32,
 
 def dual_match_cost(prev_cls, cur_cls, prev_reg, cur_reg) -> torch.Tensor:
     """1 - mean cosine similarity over both branches
-    (double_match_embds, tscd_matching.py:912), fp32."""
+    (double_match_embds, tscd_matching.py:912). The embeddings are
+    normalised in their own dtype, as in JAX (matching.py:163-176), and
+    the products accumulate in full fp32 (exact for bf16 factors)."""
     f32 = torch.float32
-    sim_cls = _l2norm(prev_cls.to(f32)) @ _l2norm(cur_cls.to(f32)).T
-    sim_reg = _l2norm(prev_reg.to(f32)) @ _l2norm(cur_reg.to(f32)).T
+    sim_cls = _l2norm(prev_cls).to(f32) @ _l2norm(cur_cls).to(f32).T
+    sim_reg = _l2norm(prev_reg).to(f32) @ _l2norm(cur_reg).to(f32).T
     return torch.nan_to_num(1.0 - (sim_cls + sim_reg) / 2.0, nan=0.0)
 
 
@@ -157,11 +192,12 @@ class RegMatcher(nn.Module):
     the bank."""
 
     def __init__(self, dim: int, num_heads: int = 8, num_layers: int = 1,
-                 time_dim: int = 256):
+                 time_dim: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.absolute_position_embedding = nn.Linear(time_dim, dim)
+        self.absolute_position_embedding = nn.Linear(time_dim, dim, dtype=dtype)
         self.transformer_aware_cross_attention_layers = nn.ModuleList(
-            ReferringCrossAttention(dim, num_heads) for _ in range(num_layers))
+            ReferringCrossAttention(dim, num_heads, dtype)
+            for _ in range(num_layers))
         self.decoder_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, feats, reg_embeds, cls_embeds, edges, time_emb, valid,
@@ -200,15 +236,16 @@ class RegMatcher(nn.Module):
                                  cls_embeds=cls_e[perm], edge=m_edge, time=t,
                                  valid=vl[perm],
                                  has_state=torch.ones_like(st.has_state))
-        return self.decoder_norm(torch.stack(outs, 0)), state
+        return _layer_norm(self.decoder_norm, torch.stack(outs, 0)), state
 
 
 class _CrossAttentionLayer(nn.Module):
     """CrossAttentionLayer (tscd_matching.py:394), post-norm."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.multihead_attn = CosineMHAttention(dim, num_heads)
+        self.multihead_attn = CosineMHAttention(dim, num_heads, dtype=dtype)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
 
@@ -216,10 +253,12 @@ class TaskAligned(nn.Module):
     """TaskAligned (tscd_matching.py:1076): per-frame cross-attention
     aligning obj features to the matched reg features + final LayerNorm."""
 
-    def __init__(self, dim: int, num_heads: int = 8, num_layers: int = 1):
+    def __init__(self, dim: int, num_heads: int = 8, num_layers: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.transformer_cross_attention_layers = nn.ModuleList(
-            _CrossAttentionLayer(dim, num_heads) for _ in range(num_layers))
+            _CrossAttentionLayer(dim, num_heads, dtype)
+            for _ in range(num_layers))
         self.decoder_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, feat_reg: torch.Tensor, feat_obj: torch.Tensor,
@@ -228,5 +267,5 @@ class TaskAligned(nn.Module):
         out = feat_obj
         for layer in self.transformer_cross_attention_layers:
             a = layer.multihead_attn(out, feat_reg, feat_reg, key_valid=valid)
-            out = layer.norm(out + a)
-        return self.decoder_norm(out)
+            out = _layer_norm(layer.norm, out + a)
+        return _layer_norm(self.decoder_norm, out)

@@ -21,26 +21,30 @@ class YOLOPAFPN(nn.Module):
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  in_features: Sequence[str] = ("dark3", "dark4", "dark5"),
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 depthwise: bool = False, act: str = "silu"):
+                 depthwise: bool = False, act: str = "silu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.in_features = tuple(in_features)
+        self.dtype = dtype
         Conv = conv_cls(depthwise)
         c0, c1, c2 = (int(c * width) for c in in_channels)
         n = round(3 * depth)
-        self.backbone = CSPDarknet(depth, width, in_features, depthwise, act)
-        self.lateral_conv0 = BaseConv(c2, c1, 1, 1, act=act)
-        self.C3_p4 = CSPLayer(2 * c1, c1, n, False, depthwise=depthwise, act=act)
-        self.reduce_conv1 = BaseConv(c1, c0, 1, 1, act=act)
-        self.C3_p3 = CSPLayer(2 * c0, c0, n, False, depthwise=depthwise, act=act)
-        self.bu_conv2 = Conv(c0, c0, 3, 2, act=act)
-        self.C3_n3 = CSPLayer(2 * c0, c1, n, False, depthwise=depthwise, act=act)
-        self.bu_conv1 = Conv(c1, c1, 3, 2, act=act)
-        self.C3_n4 = CSPLayer(2 * c1, c2, n, False, depthwise=depthwise, act=act)
+        kw = dict(act=act, dtype=dtype)
+        self.backbone = CSPDarknet(depth, width, in_features, depthwise, **kw)
+        self.lateral_conv0 = BaseConv(c2, c1, 1, 1, **kw)
+        self.C3_p4 = CSPLayer(2 * c1, c1, n, False, depthwise=depthwise, **kw)
+        self.reduce_conv1 = BaseConv(c1, c0, 1, 1, **kw)
+        self.C3_p3 = CSPLayer(2 * c0, c0, n, False, depthwise=depthwise, **kw)
+        self.bu_conv2 = Conv(c0, c0, 3, 2, **kw)
+        self.C3_n3 = CSPLayer(2 * c0, c1, n, False, depthwise=depthwise, **kw)
+        self.bu_conv1 = Conv(c1, c1, 3, 2, **kw)
+        self.C3_n4 = CSPLayer(2 * c1, c2, n, False, depthwise=depthwise, **kw)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (F, H, W, 3) image, NHWC; uint8 is cast to fp32 exactly."""
-        if x.dtype == torch.uint8:
+        """x: (F, H, W, 3) image, NHWC. At fp32, uint8 is cast to fp32
+        exactly; at bf16 the stem reads uint8 frames itself."""
+        if x.dtype == torch.uint8 and self.dtype == torch.float32:
             x = x.to(torch.float32)
         feats = self.backbone(x)
         x2, x1, x0 = (feats[f] for f in self.in_features)
@@ -56,10 +60,11 @@ class YOLOPAFPN(nn.Module):
 
 
 def build_pafpn_backbone(name: str, depth: float, width: float,
-                         act: str = "silu", depthwise: bool = False
-                         ) -> nn.Module:
+                         act: str = "silu", depthwise: bool = False,
+                         dtype: torch.dtype = torch.float32) -> nn.Module:
     """Exp `backbone_name` -> feature pyramid. Only the CSPDarknet
     PAFPN ("MCSP") is ported so far."""
     if name in ("MCSP", "mcsp", None, ""):
-        return YOLOPAFPN(depth, width, act=act, depthwise=depthwise)
+        return YOLOPAFPN(depth, width, act=act, depthwise=depthwise,
+                         dtype=dtype)
     raise NotImplementedError(f"backbone {name!r} is not ported yet")

@@ -20,7 +20,15 @@ class TSCD(nn.Module):
     """Eval-mode TSCD on the TSCD-Large path (MCA aggregation, decoupled
     reg, reconf heads, top-k proposals). Built on `device`, the card
     unless the caller passes another; random init from the default torch
-    initialisers until weights are loaded (see `random_init_`)."""
+    initialisers until weights are loaded (see `random_init_`).
+
+    `dtype` is the compute dtype, as `TSCD.dtype` in JAX (tscd.py:56):
+    fp32 or bf16. Conv and Linear weights are stored in it (an fp32
+    checkpoint is cast on load); BatchNorm, LayerNorm and the Focus stem
+    keep fp32 parameters. At bf16 BN, LayerNorm, attention logits, decode,
+    the matcher cost and the postprocess stay fp32, as in JAX. For
+    serving, fold BN into the convs with
+    `utils.model_utils.fuse_model(model, fp32_state_dict)`."""
 
     def __init__(self, num_classes: int = 30, depth: float = 1.0,
                  width: float = 1.0, act: str = "silu",
@@ -29,18 +37,23 @@ class TSCD(nn.Module):
                  decoder_layer_num: int = 1, sim_thresh: float = 0.75,
                  conf_sim_thresh: float = 0.99, test_conf: float = 0.001,
                  backbone_name: str = "MCSP",
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype fp32 or bf16, not {dtype}")
         device = resolve_device(device)
         self.num_classes = num_classes
+        self.dtype = dtype
         self.backbone = build_pafpn_backbone(backbone_name, depth, width,
-                                             act=act, depthwise=depthwise)
+                                             act=act, depthwise=depthwise,
+                                             dtype=dtype)
         self.head = TSCDHead(
             num_classes, width=width, act=act, depthwise=depthwise,
             heads=heads, decoder_layer_num=decoder_layer_num,
             num_proposals=num_proposals, minimal_limit=minimal_limit,
             sim_thresh=sim_thresh, conf_sim_thresh=conf_sim_thresh,
-            test_conf=test_conf)
+            test_conf=test_conf, dtype=dtype)
         self.to(device)
         self.eval()
 
@@ -58,8 +71,9 @@ class TSCD(nn.Module):
                 matcher_state: Optional[MatcherState] = None
                 ) -> Dict[str, Any]:
         """x: (F, H, W, 3) frame window [local..., global...] (F =
-        lframe + gframe, H and W multiples of 32); time_embedding:
-        (F, 256). Returns the head's dict; thread
+        lframe + gframe, H and W multiples of 32), fp32 or uint8;
+        time_embedding: (F, 256). Returns the head's dict (raw outputs,
+        refined logits and the matcher state in the compute dtype); thread
         out["matcher_state"] into the next window."""
         if x.shape[0] != lframe + gframe:
             raise ValueError(f"{x.shape[0]} frames != {lframe} + {gframe}")

@@ -4,7 +4,11 @@ aggregation, decoupled reg branch with the CAFM matcher, reconf heads,
 proposal selection by plain top-k (no pre-NMS).
 
 Fixed P proposal slots per frame with validity masks; every stage is a
-fixed-shape tensor op, so the forward takes no host sync. The
+fixed-shape tensor op, so the forward takes no host sync. Towers, edge
+block, aggregation and matcher run in the compute dtype (`dtype`);
+decode and proposal selection read the raw outputs in fp32
+(tscd_head.py:263), and at bf16 those hold many exact ties, which the
+stable top-k ranks lowest anchor first as `lax.top_k` does. The
 `use_pre_nms`, `cat_ota_fg`, `localagg`, `mca_aware` and sparse-tower
 branches of the JAX head are not ported yet.
 """
@@ -89,7 +93,8 @@ class TSCDHead(nn.Module):
                  decoder_layer_num: int = 1, num_proposals: int = 50,
                  minimal_limit: Optional[int] = None,
                  sim_thresh: float = 0.75, conf_sim_thresh: float = 0.99,
-                 test_conf: float = 0.001, use_mask: bool = False):
+                 test_conf: float = 0.001, use_mask: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
@@ -103,34 +108,40 @@ class TSCDHead(nn.Module):
         self.use_mask = use_mask
         Conv = conv_cls(depthwise)
         n = len(in_channels)
+        kw = dict(act=act, dtype=dtype)
 
         def tower():
-            return nn.Sequential(Conv(hidden, hidden, 3, 1, act=act),
-                                 Conv(hidden, hidden, 3, 1, act=act))
+            return nn.Sequential(Conv(hidden, hidden, 3, 1, **kw),
+                                 Conv(hidden, hidden, 3, 1, **kw))
 
         self.stems = nn.ModuleList(
-            BaseConv(int(c * width), hidden, 1, 1, act=act) for c in in_channels)
+            BaseConv(int(c * width), hidden, 1, 1, **kw) for c in in_channels)
         self.cls_convs = nn.ModuleList(tower() for _ in range(n))
         self.reg_convs = nn.ModuleList(tower() for _ in range(n))
         self.cls_preds = nn.ModuleList(
-            nn.Conv2d(hidden, num_classes, 1) for _ in range(n))
-        self.reg_preds = nn.ModuleList(nn.Conv2d(hidden, 4, 1) for _ in range(n))
-        self.obj_preds = nn.ModuleList(nn.Conv2d(hidden, 1, 1) for _ in range(n))
+            nn.Conv2d(hidden, num_classes, 1, dtype=dtype) for _ in range(n))
+        self.reg_preds = nn.ModuleList(
+            nn.Conv2d(hidden, 4, 1, dtype=dtype) for _ in range(n))
+        self.obj_preds = nn.ModuleList(
+            nn.Conv2d(hidden, 1, 1, dtype=dtype) for _ in range(n))
         # extra video towers (tscd_head.py:240-281) and the per-level
         # wavelet edge block on the reg branch (:206-212)
         self.cls_convs2 = nn.ModuleList(tower() for _ in range(n))
         self.reg_convs2 = nn.ModuleList(tower() for _ in range(n))
         self.edge_enhance_reg = nn.ModuleList(
-            nn.Sequential(WaveletsHFBlock(hidden)) for _ in range(n))
-        self.agg = MCAg2l(hidden, 4 * hidden, heads, reconf=False)
-        self.agg_iou = MCAg2l(hidden, 4 * hidden, heads, reconf=True)
+            nn.Sequential(WaveletsHFBlock(hidden, dtype)) for _ in range(n))
+        self.agg = MCAg2l(hidden, 4 * hidden, heads, reconf=False, dtype=dtype)
+        self.agg_iou = MCAg2l(hidden, 4 * hidden, heads, reconf=True,
+                              dtype=dtype)
         self.local_reg_matcher = RegMatcher(hidden, num_heads=8,
-                                            num_layers=decoder_layer_num)
-        self.fc_reg_matcher = nn.Linear(hidden, 4 * hidden)
-        self.task_aligned = TaskAligned(4 * hidden, num_heads=8, num_layers=1)
-        self.cls_pred = nn.Linear(4 * hidden, num_classes)
-        self.matcher_obj_pred = nn.Linear(4 * hidden, 1)
-        self.matcher_reg_pred = nn.Linear(4 * hidden, 4)
+                                            num_layers=decoder_layer_num,
+                                            dtype=dtype)
+        self.fc_reg_matcher = nn.Linear(hidden, 4 * hidden, dtype=dtype)
+        self.task_aligned = TaskAligned(4 * hidden, num_heads=8, num_layers=1,
+                                        dtype=dtype)
+        self.cls_pred = nn.Linear(4 * hidden, num_classes, dtype=dtype)
+        self.matcher_obj_pred = nn.Linear(4 * hidden, 1, dtype=dtype)
+        self.matcher_reg_pred = nn.Linear(4 * hidden, 4, dtype=dtype)
 
     def forward(self, xin: Sequence[torch.Tensor],
                 time_embedding: torch.Tensor, lframe: int,

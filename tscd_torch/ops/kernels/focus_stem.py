@@ -7,9 +7,13 @@ space-to-depth + 3x3 conv + BN + SiLU, is one 6x6 stride-2 conv over the
 raw (F, H, W, 3) image with the BN scale folded into the weights, then
 + shift and SiLU.
 
-Bound on an H100 at (32, 576, 576, 3) -> 64 channels: 127 MB read,
-679 MB written (0.24 ms) and 36.7 GFLOP of fp32 FMA (0.55 ms at the
-67 TFLOP/s non-tensor peak), so operations bound it.
+Bound on an H100 at (32, 576, 576, 3) -> 64 channels: fp32 frames in
+and fp32 out move 127 MB read and 679 MB written (0.24 ms) against
+36.7 GFLOP of fp32 FMA (0.55 ms at the 67 TFLOP/s non-tensor peak), so
+operations bound it. The bf16 variant (`out_dtype=torch.bfloat16`,
+uint8 frames in) moves 31.85 MB in and 340 MB out (0.111 ms); its
+products of bf16 values could run at the bf16 tensor-core rate
+(0.037 ms), so bytes bound it.
 """
 
 import torch
@@ -37,27 +41,47 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
 
 
 def focus_stem_plain(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
-                     shift: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version in the Focus module's own terms: s2d, the
-    3x3 conv, folded BN, SiLU. x (F, H, W, 3) NHWC fp32; w3 (O, 12, 3, 3);
-    scale/shift (O,). Returns (F, O, H/2, W/2), contiguous (NCHW) like
-    the kernel's output."""
-    xs = space_to_depth(x.permute(0, 3, 1, 2).to(torch.float32).contiguous())
-    y = F.conv2d(xs, w3.to(torch.float32), padding=w3.shape[-1] // 2)
-    y = y * scale[None, :, None, None] + shift[None, :, None, None]
-    return F.silu(y)
+                     shift: torch.Tensor, out_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
+    """Plain PyTorch version. x (F, H, W, 3) NHWC (fp32 or uint8); w3
+    (O, 12, 3, 3); scale/shift (O,). Returns (F, O, H/2, W/2) in
+    `out_dtype`, contiguous (NCHW) like the kernel's output.
+
+    fp32: in the Focus module's own terms, s2d, the 3x3 conv, folded BN,
+    SiLU. bf16: what the Pallas kernel computes (focus_stem.py:144-148,
+    161, 195), the image and the BN-folded 6x6 weights rounded to bf16,
+    the 6x6 stride-2 conv summed in fp32, + shift and SiLU in fp32, the
+    result rounded to bf16."""
+    f32 = torch.float32
+    if out_dtype == f32:
+        xs = space_to_depth(x.permute(0, 3, 1, 2).to(f32).contiguous())
+        y = F.conv2d(xs, w3.to(f32), padding=w3.shape[-1] // 2)
+        y = y * scale[None, :, None, None] + shift[None, :, None, None]
+        return F.silu(y)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"focus_stem writes fp32 or bf16, not {out_dtype}")
+    bf = lambda t: t.to(torch.bfloat16).to(f32)
+    xn = bf(x.permute(0, 3, 1, 2)).contiguous()
+    w6 = bf(rearrange_weight(w3.to(f32), scale.to(f32)))
+    y = F.conv2d(xn, w6, stride=2, padding=2) + shift.to(f32)[None, :, None, None]
+    return F.silu(y).to(out_dtype)
 
 
 def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
-               shift: torch.Tensor) -> torch.Tensor:
+               shift: torch.Tensor, out_dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
     """Fused eval stem. Arguments as in `focus_stem_plain`. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel, which
-    writes the (F, O, H/2, W/2) result contiguous (NCHW), the memory
-    format of the plain version and of every conv after the stem."""
+    writes the (F, O, H/2, W/2) result contiguous (NCHW) in `out_dtype`
+    (fp32 or bf16), the memory format of the plain version and of every
+    conv after the stem. The bf16 variant reads uint8 frames as they are;
+    other frames are read as fp32."""
     if x.device.type == "cpu":
-        return focus_stem_plain(x, w3, scale, shift)
+        return focus_stem_plain(x, w3, scale, shift, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"focus_stem: unsupported device {x.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"focus_stem writes fp32 or bf16, not {out_dtype}")
     Fr, H, W, C = x.shape
     O = w3.shape[0]
     if C != 3 or w3.shape != (O, 4 * C, 3, 3):
@@ -65,17 +89,20 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                          f"got {tuple(x.shape)} and {tuple(w3.shape)}")
     if H % 2 or W % 2 or O % 8:
         raise ValueError("focus_stem needs even H, W and O a multiple of 8")
-    xin = x.to(torch.float32).contiguous()
+    u8 = x.dtype == torch.uint8 and out_dtype == torch.bfloat16
+    xin = x.contiguous() if u8 else x.to(torch.float32).contiguous()
     w6 = rearrange_weight(w3.to(torch.float32), scale.to(torch.float32))
+    if out_dtype == torch.bfloat16:
+        w6 = w6.to(torch.bfloat16).to(torch.float32)
     wk = w6.permute(2, 3, 1, 0).contiguous()           # (ky, kx, c, o)
     sh = shift.to(torch.float32).contiguous()
-    out = torch.empty(Fr, O, H // 2, W // 2, device=x.device,
-                      dtype=torch.float32)
+    out = torch.empty(Fr, O, H // 2, W // 2, device=x.device, dtype=out_dtype)
     lib = library.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tscd_focus_stem(xin.data_ptr(), wk.data_ptr(), sh.data_ptr(),
-                                 out.data_ptr(), Fr, H, W, C, O, stream)
+                                 out.data_ptr(), Fr, H, W, C, O, int(u8),
+                                 int(out_dtype == torch.bfloat16), stream)
     library.check(lib, rc, "focus_stem")
     focus_stem.launches += 1
     return out

@@ -14,7 +14,10 @@ keys over blocks of KEY_CHUNK keys and combines the chunks' softmax
 statistics in a second launch (design in the CUDA source's header).
 
 q, k and v may be strided views, as the aggregation's heads are: the
-kernel reads any layout whose last dimension is contiguous.
+kernel reads any layout whose last dimension is contiguous, in fp32 or
+bf16 (the bf16 model's Linear outputs), and computes in fp32 either way,
+as the Pallas kernel upcasts in its body. At bf16 q/k/v move half the
+bytes (5.4 MB at the main path), and operations still bound it.
 """
 
 import ctypes
@@ -38,12 +41,12 @@ def scratch_floats(B: int, h: int, q: int, k: int, d: int) -> int:
     return B * h * q * (4 * nch + 4 * nch * dp + 2 * k)
 
 
-def _f32_rows(t: torch.Tensor) -> torch.Tensor:
-    """t as fp32 with a contiguous last dimension; a view that already is
-    one passes as it is."""
-    if t.dtype == torch.float32 and t.stride(-1) == 1:
+def _rows(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype` with a contiguous last dimension; a view that already
+    is one passes as it is."""
+    if t.dtype == dtype and t.stride(-1) == 1:
         return t
-    return t.to(torch.float32).contiguous()
+    return t.to(dtype).contiguous()
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -72,8 +75,10 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
                          scale: float = 25.0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shapes as in `fused_dual_attention_plain`. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (fp32, d <= 128).
-    One call counts one launch, though the kernel runs as two."""
+    plain version; a CUDA tensor launches the kernel (d <= 128), which
+    reads q/k/v as they are when all six are fp32 or all six bf16 (any
+    other mix is copied to fp32 first). Outputs are fp32. One call counts
+    one launch, though the kernel runs as two."""
     if qc.device.type == "cpu":
         return fused_dual_attention_plain(qc, kc, vc, qr, kr, vr, cls_score,
                                           key_valid, scale)
@@ -93,7 +98,9 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
         raise TypeError("key_valid must be bool")
     if not 1 <= d <= 128:
         raise ValueError(f"head dim {d} outside 1..128")
-    qkv = [_f32_rows(t) for t in (qc, kc, vc, qr, kr, vr)]
+    qkv = (qc, kc, vc, qr, kr, vr)
+    bf16 = all(t.dtype == torch.bfloat16 for t in qkv)
+    qkv = [_rows(t, torch.bfloat16 if bf16 else torch.float32) for t in qkv]
     score = cls_score.to(torch.float32).contiguous()
     valid = key_valid.contiguous()
     if any(t.device != qc.device for t in qkv + [score, valid]):
@@ -111,7 +118,7 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
             *(t.data_ptr() for t in qkv), score.data_ptr(), valid.data_ptr(),
             out_c.data_ptr(), out_r.data_ptr(), attn.data_ptr(),
             scratch.data_ptr(), 4 * scratch.numel(), strides,
-            B, h, q, k, d, float(scale), stream)
+            B, h, q, k, d, float(scale), int(bf16), stream)
     library.check(lib, rc, "fused_dual_attention")
     fused_dual_attention.launches += 1
     return out_c, out_r, attn

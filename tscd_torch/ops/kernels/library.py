@@ -29,11 +29,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tscd_fused_dual_attention":
         [_P] * 8 + [_P] * 3 + [_P, ctypes.c_size_t, ctypes.POINTER(ctypes.c_longlong)]
-        + [_I] * 5 + [_F, _P],
+        + [_I] * 5 + [_F, _I, _P],
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_linear_sum_assignment_block": [_P, _P, _I, _I, _P],
     "tscd_nms_walk": [_P] * 4 + [_I, _I, _P],
-    "tscd_focus_stem": [_P] * 4 + [_I] * 5 + [_P],
+    "tscd_focus_stem": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

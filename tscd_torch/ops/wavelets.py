@@ -5,6 +5,8 @@ With a=TL, b=TR, c=BL, d=BR of each 2x2 block:
   LL = (a + b + c + d) / 2     LH = (a + b - c - d) / 2
   HL = (a - b + c - d) / 2     HH = (a - b - c + d) / 2
 The band SIGNS matter: filter1 acts on the raw HF bands before a ReLU.
+The edge block runs in its compute dtype (`dtype`), as the JAX block's
+convs do.
 """
 
 from typing import Tuple
@@ -44,12 +46,12 @@ class WaveletsHFBlock(nn.Module):
     surrounding_extraction.py:215): zero the LF band, 1x1 conv + ReLU on
     the HF bands, inverse transform, gate a 3x3-conv'd content map."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.filter1 = nn.Sequential(
-            nn.Conv2d(3 * channels, 3 * channels, 1), nn.ReLU())
+            nn.Conv2d(3 * channels, 3 * channels, 1, dtype=dtype), nn.ReLU())
         self.filter2 = nn.Sequential(
-            nn.Conv2d(channels, channels, 3, padding=1), nn.ReLU())
+            nn.Conv2d(channels, channels, 3, padding=1, dtype=dtype), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[-2:]
