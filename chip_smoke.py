@@ -26,9 +26,13 @@ Phases, each of which raises on failure (so the run exits non-zero):
              Hungarian solver past n = 128 (the block kernel) on random and
              constant costs at n = 129, 200 and 500 and through
              masked_linear_sum_assignment, exactly; both timed. The bf16
-             variants: the stem reading uint8 frames and writing bf16
-             (within one bf16 ulp, at the window's 32 frames too) and the
-             attention reading bf16 q/k/v (1e-5), checked and timed alike.
+             variants: the stem reading uint8 frames and writing bf16 on
+             the tensor cores (focus_stem_mma; within BF16_TOL, at the
+             window's 32 frames too, with the ulps from the plain
+             version counted, and the kernel's registers, spills, shared
+             memory, blocks per SM and HMMA instructions printed) and the
+             attention
+             reading bf16 q/k/v (1e-5), checked and timed alike.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -56,7 +60,8 @@ Phases, each of which raises on failure (so the run exits non-zero):
              windows / s and as evaluated local frames / s, device busy
              share, host ms a dispatch); the graph's window equal to the
              eager one; a sync-free dispatch; one window profiled eagerly
-             by kernel class.
+             by kernel class; the small kernels the stem's weight
+             preparation adds to each window's graph, and their time.
   6. eval    the streaming evaluator on an in-memory dataset with
              VIDDataset's interface (seeded uint8 frames at the size
              load_frame gives a 720 x 1280 source, seeded ground truth):
@@ -105,13 +110,13 @@ KERNELS = {
                                   "tscd_tpu/ops/pallas/fused_attention.py:109"),
 }
 # each row's kernel as a device trace names its launches: substrings
-# that must all be in the name (the bf16 variants are template instances)
+# that must all be in the name (the bf16 attention is a template instance)
 TRACE_NAMES = {
-    "focus_stem": ("focus_stem_kernel<", ", false>("),
+    "focus_stem": ("focus_stem_kernel<",),
     "fused_dual_attention": ("fused_dual_attention_split<float>",),
     "hungarian": ("linear_sum_assignment_",),
     "nms": ("nms_walk<",),
-    "focus_stem_bf16": ("focus_stem_kernel<", ", true>("),
+    "focus_stem_bf16": ("focus_stem_mma<",),
     "fused_dual_attention_bf16": ("fused_dual_attention_split<__nv_bfloat16>",),
 }
 # the second kernel of a call, launched once with each first one
@@ -442,6 +447,56 @@ def hungarian_cost_row(torch, cost, lat, clock_mhz):
                 bound_ms=steps * chain_cycles(lat, n) / (clock_mhz * 1e3))
 
 
+def ulp_histogram(torch, got, want):
+    """How many bf16 outputs sit 0, 1, 2 and more ulps from the plain
+    version's (bit patterns in their order along the line; -0 as +0)."""
+    def key(v):
+        b = v.contiguous().view(torch.int16).int()
+        return torch.where(b < 0, -(b + 32768), b)
+    d = (key(got) - key(want)).abs()
+    return {"0": int((d == 0).sum()), "1": int((d == 1).sum()), "2": int((d == 2).sum()),
+            "more": int((d > 2).sum()), "max_ulps": int(d.max()),
+            "max_abs_err_beyond_2": float((got.double() - want.double()).abs()[d > 2].max())
+            if bool((d > 2).any()) else 0.0}
+
+
+def stem_build_record(torch, lib, H, W, O):
+    """The bf16 stem kernel as built and launched at (H, W) -> O: ptxas's
+    registers and spills of each instance (build/kernels/build.log), the
+    runtime's registers, local memory, dynamic shared memory and blocks per
+    SM, and its HMMA (tensor-core) instructions in the SASS (cuobjdump)."""
+    import ctypes
+    import shutil
+
+    from tscd_torch.ops.kernels import library
+    log = os.path.join(HERE, "build", "kernels", "build.log")
+    ptxas, keep = [], False
+    for line in open(log).read().splitlines():
+        if "Compiling entry function" in line:
+            keep = "focus_stem_mma" in line
+        if keep and ("Compiling entry function" in line or "spill" in line or "Used" in line):
+            ptxas.append(line.strip())
+    cfg = (ctypes.c_int * 4)()
+    library.check(lib, lib.tscd_focus_stem_bf16_config(H, W, O, 1, cfg), "focus_stem config")
+    rec = {"ptxas": ptxas, "smem_bytes": cfg[0], "blocks_per_sm": cfg[1],
+           "registers": cfg[2], "local_bytes": cfg[3]}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise AssertionError("cuobjdump not found: the stem's SASS cannot be checked")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    hmma, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "focus_stem_mma" in line
+        elif inside and "HMMA" in line:
+            hmma += 1
+    rec["sass_hmma_in_focus_stem_mma"] = hmma
+    if hmma == 0:
+        raise AssertionError("focus_stem_mma has no HMMA instruction in its SASS")
+    return rec
+
+
 def kernel_phase(torch, dev):
     """Each kernel against its plain version at main-path shapes, then
     the timings. Returns {name: row of the kernels line}."""
@@ -672,23 +727,30 @@ def kernel_phase(torch, dev):
 def kernel_phase_bf16(torch, dev, rng):
     """The bf16 variants against their plain versions at main-path
     shapes: the stem reading uint8 frames (or fp32 ones, rounded as read)
-    and writing bf16, within one bf16 ulp (at the window's 32 frames too); the attention reading bf16
-    q/k/v, 1e-5 as at fp32 (both compute in fp32 from the same values).
-    Then their times, bounds and the nearest library call's time."""
+    and writing bf16, within BF16_TOL (at the window's 32 frames too, where
+    the ulps from the plain version are counted: the outputs more than 2
+    ulps off are sums near 0 that cancel in another order and SiLU's
+    underflows below y = -87, which the kernel flushes to 0); the
+    attention reading bf16 q/k/v, 1e-5 as at fp32 (both compute in fp32
+    from the same values). Then their times, bounds and the nearest
+    library call's time."""
     import numpy as np
     import torch.nn.functional as F
 
     from tscd_torch.models.aggregation import DualBranchAttention, _split_heads
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.ops.kernels import library
     bf = torch.bfloat16
     t = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)
     rows = {}
 
-    # -- stem: uint8 in, bf16 out ------------------------------------------
+    # -- stem: uint8 in, bf16 out (focus_stem_mma, the tensor cores) ------
     serr = 0.0
     for (Fr, H, W), O, kind in (((4, 576, 576), 64, "uint8"), ((4, 128, 128), 8, "uint8"),
-                                ((1, 70, 34), 16, "fp32"), ((2, 70, 66), 64, "uint8 border")):
+                                ((1, 70, 34), 16, "fp32"), ((2, 70, 66), 64, "uint8 border"),
+                                ((3, 2, 64), 64, "uint8 border"), ((2, 40, 70), 24, "uint8"),
+                                ((2, 8, 1200), 16, "uint8")):
         w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
         scale = t(rng.uniform(0.5, 1.5, O))
         shift = t(rng.normal(0, 0.5, O))
@@ -711,16 +773,19 @@ def kernel_phase_bf16(torch, dev, rng):
     scale = t(rng.uniform(0.5, 1.5, O))
     shift = t(rng.normal(0, 0.5, O))
     x8 = t(rng.integers(0, 256, (Fr, H, W, 3), dtype=np.uint8), torch.uint8)
+    got = fs.focus_stem(x8, w3, scale, shift, out_dtype=bf)
+    want = fs.focus_stem_plain(x8, w3, scale, shift, bf)
     serr = max(serr, check_close(f"focus_stem bf16 ({Fr}, {H}, {W}, 3) uint8 -> {O}",
-                                 fs.focus_stem(x8, w3, scale, shift, out_dtype=bf),
-                                 fs.focus_stem_plain(x8, w3, scale, shift, bf), **BF16_TOL))
+                                 got, want, **BF16_TOL))
+    ulps = ulp_histogram(torch, got, want)
+    del got, want
     xb = x8.to(bf).permute(0, 3, 1, 2)             # channels_last view
     w6 = fs.rearrange_weight(w3, scale).to(bf)
     nbytes = Fr * H * W * 3 + 2 * Fr * (H // 2) * (W // 2) * O + 4 * (w3.numel() + 2 * O)
     flops = 2 * Fr * (H // 2) * (W // 2) * O * 108
     b_ms, b_by = bound(nbytes, (flops, H100_BF16_FLOPS))
     rows["focus_stem_bf16"] = dict(
-        max_abs_err=serr, tolerance=BF16_TOL,
+        max_abs_err=serr, tolerance=BF16_TOL, ulps_vs_plain=ulps,
         **timed(torch, lambda: fs.focus_stem(x8, w3, scale, shift, out_dtype=bf), 20,
                 "focus_stem"),
         plain_ms=cuda_ms(torch, lambda: fs.focus_stem_plain(x8, w3, scale, shift, bf), 10),
@@ -728,6 +793,10 @@ def kernel_phase_bf16(torch, dev, rng):
         output_mb=2 * Fr * (H // 2) * (W // 2) * O / 1e6,
         library_ms=cuda_ms(torch, lambda: F.conv2d(xb, w6, shift.to(bf), stride=2,
                                                    padding=2), 20))
+    emit({"phase": "kernels", "check": "focus_stem bf16 (32, 576, 576, 3) uint8 -> 64: "
+          "ulps from the plain version, and the kernel as built",
+          "ulps": ulps, "ms": rows["focus_stem_bf16"]["ms"], "bound_ms": b_ms,
+          **stem_build_record(torch, library.load(), H, W, O)})
     del x8, xb
 
     # -- attention: bf16 q/k/v ---------------------------------------------
@@ -1323,10 +1392,59 @@ def bf16_phase(torch, counters):
     cpu_reference(torch, exp, sd32, x, te, b16, f32r)
     profile_window(torch, pred, exp, state, dtype="bf16")
     replay_breakdown(prof, 3)
+    stem_graph_prep(torch, model, x)
     return launches
 
 
-HAND_KERNELS = ("focus_stem_kernel", "fused_dual_attention", "linear_sum_assignment",
+def stem_graph_prep(torch, model, x):
+    """The small kernels the bf16 stem's call adds to a window's CUDA
+    graph (Focus.forward's scale of ones, the wrapper's weight fragments
+    and split shift) and their device time a window: the model's stem
+    alone, captured as a graph on the window's uint8 frames and replayed
+    4 times under torch.profiler. A replay runs its preparation, then
+    focus_stem_mma, so the kernels the trace records after one stem
+    kernel up to the next are one whole replay: each such replay's count
+    and preparation time is printed (the first replay, whose first
+    records may come before the trace is taken, is left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.models.blocks import Focus
+    stem = next(m for m in model.modules() if isinstance(m, Focus))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        stem(x)                                    # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        stem(x)
+    reps = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                      and e.name != "Activity Buffer Request"),
+                     key=lambda e: e.time_range.start)
+    stems = [i for i, e in enumerate(kernels) if "focus_stem_mma" in e.name]
+    if len(stems) != reps:
+        raise AssertionError(f"{len(stems)} focus_stem_mma launches in {reps} replays "
+                             "of the stem's graph")
+    replays = [kernels[a + 1:b] for a, b in zip(stems, stems[1:])]
+    prep = replays[-1]
+    emit({"phase": "bf16", "check": "the stem's weight preparation in a window's graph",
+          "prep_kernels_a_replay": [len(r) for r in replays],
+          "prep_ms_a_replay": [sum(e.time_range.elapsed_us() for e in r) / 1e3
+                               for r in replays],
+          "stem_kernel_ms": [kernels[i].time_range.elapsed_us() / 1e3 for i in stems],
+          "prep_of_the_last": [{"name": e.name[:90],
+                                "ms": e.time_range.elapsed_us() / 1e3} for e in prep]})
+
+
+HAND_KERNELS = ("focus_stem_kernel", "focus_stem_mma", "fused_dual_attention",
+                "linear_sum_assignment",
                 "nms_pack_rows", "nms_walk")
 KERNEL_CLASSES = (   # first match wins
     ("cuDNN implicit-GEMM convs", ("fprop", "implicit_convolve", "convolve_common")),

@@ -139,6 +139,195 @@ def test_stem_bf16_plain_matches_pallas_kernel():
     assert torch.equal(got, again)
 
 
+# -- the bf16 stem kernel's index maps, on the CPU -------------------------
+# focus_stem_mma (tscd_torch/csrc/focus_stem.cu) computes D = W . X on the
+# tensor cores: W the (channel, k) matrix of `weight_fragments`, X the
+# taps of each output pixel read straight from the staged halo, and 1 at
+# k = 108..110, where W holds the shift's three bf16 parts. A CUDA kernel
+# cannot run here, so its index maps are held to the plain version and to
+# JAX in numpy: the K order (tap k = (6 ky + kx) 3 + c is element
+# 6j + k mod 18 of padded row 2i + ky), the fragment layout of the weights
+# (decoded with mma.sync.m16n8k16's register map) and, lane by lane, the
+# kernel's halo offsets and pixel order.
+
+STEM_SHAPES = [  # F, H, W, O, border
+    (2, 32, 64, 64, True),     # W/2 = 32: the Pallas kernel's strips
+    (1, 18, 70, 8, True),      # W/2 = 35 odd, O = 8 (the selftest's width)
+    (2, 20, 38, 64, False),    # W/2 = 19 odd
+    (1, 2, 34, 24, False),     # H/2 = 1, O = 24
+]
+
+
+def _stem_case(F, H, W, O, border, seed=21):
+    rng = np.random.default_rng(seed)
+    x, w3, scale, shift = _stem_inputs(rng, F, H, W, O)
+    if border:
+        for edge in (np.s_[:, :2], np.s_[:, -2:], np.s_[:, :, :2], np.s_[:, :, -2:]):
+            x[edge] = 255
+    return x, w3, scale, shift
+
+
+def _decode_weights(frags: np.ndarray) -> np.ndarray:
+    """(O_pad, 112) from the A fragments, by mma.sync.m16n8k16's map:
+    lane 4 gid + tid, register r = rh + 2 kh holds row gid + 8 rh at
+    columns 2 tid + 8 kh (low half) and + 1 (high half)."""
+    chunks = frags.shape[0]
+    wm = np.zeros((chunks * pfs.CHUNK, pfs.MMA_K), np.float32)
+    for c, s, mt, lane, r, half in np.ndindex(*frags.shape):
+        gid, tid, rh, kh = lane // 4, lane % 4, r % 2, r // 2
+        wm[32 * c + 16 * mt + gid + 8 * rh, 16 * s + 8 * kh + 2 * tid + half] = \
+            frags[c, s, mt, lane, r, half]
+    return wm
+
+
+def _padded_frames(x: np.ndarray) -> np.ndarray:
+    """(F, H + 4, 3 (W + 4)) bf16 values: rows and columns -2, -1, H, H+1 zero."""
+    F, H, W, _ = x.shape
+    xp = np.zeros((F, H + 4, W + 4, 3), np.float32)
+    xp[:, 2:-2, 2:-2] = bf16_values(x.astype(np.float32))
+    return xp.reshape(F, H + 4, 3 * (W + 4))
+
+
+def _silu_bf16(y: np.ndarray) -> torch.Tensor:
+    return torch.nn.functional.silu(T(y)).to(BF)
+
+
+def _stem_im2col(x, w3, scale, shift):
+    """The plain im2col GEMM of the bf16 kernel: X[f, i, j, k] is element
+    6j + k mod 18 of padded row 2i + k // 18 for k < 108, then 1, 1, 1, 0;
+    W from `weight_fragments`, K = 112. (F, O, H/2, W/2) bf16."""
+    F, H, W, _ = x.shape
+    O = w3.shape[0]
+    xp = _padded_frames(x)
+    i = np.arange(H // 2)[:, None, None]
+    j = np.arange(W // 2)[None, :, None]
+    k = np.arange(pfs.TAPS)[None, None, :]
+    X = np.zeros((F, H // 2, W // 2, pfs.MMA_K), np.float32)
+    X[..., :pfs.TAPS] = xp[:, 2 * i + k // 18, 6 * j + k % 18]
+    X[..., pfs.TAPS:pfs.TAPS + 3] = 1.0
+    wm = _decode_weights(pfs.weight_fragments(T(w3), T(scale), T(shift)).float().numpy())
+    y = np.einsum("fijk,ok->foij", X, wm[:O])
+    return _silu_bf16(y.astype(np.float32))
+
+
+def _stem_lane_mirror(x, w3, scale, shift):
+    """focus_stem_mma's data movement, lane by lane: tiles of 4 output rows
+    x up to 288 pixels, the halo of 12 rows of 6 cw + 18 elements, items of
+    32 channels x 32 pixels; each lane's X registers loaded at the kernel's
+    offsets, the fragments multiplied as mma.sync multiplies them, and each
+    accumulator stored to the pixel the kernel stores it to."""
+    F, H, W, _ = x.shape
+    O, H2, W2 = w3.shape[0], H // 2, W // 2
+    frags = pfs.weight_fragments(T(w3), T(scale), T(shift)).float().numpy()
+    chunks = frags.shape[0]
+    groups = min(-(-W2 // 32), 9)
+    cw = 32 * groups
+    rs = 6 * cw + 18
+    assert rs % 64 == 18
+    rows = bf16_values(x.astype(np.float32)).reshape(F, H, 3 * W)
+    lane = np.arange(32)
+    gid, tid = lane // 4, lane % 4
+    lane_px = 8 * (gid // 2) + gid % 2
+    # element offsets of each lane's registers (s, h): ky * rs + t; at
+    # k = 108..111 the registers hold 1, 1, 1, 0 (the shift's taps)
+    k = 16 * np.arange(7)[:, None, None] + 8 * np.arange(2)[None, :, None] + 2 * tid
+    offs = np.where(k < pfs.TAPS, (k // 18) * rs + k % 18, 0)            # (7, 2, 32)
+    pad = k >= pfs.TAPS
+    ones = np.stack([np.ones(32), (tid == 2).astype(float)])              # (half, lane)
+    y = np.full((F, chunks * pfs.CHUNK, H2, W2), np.nan, np.float32)
+    for f, i0, j0 in np.ndindex(F, -(-H2 // 4), -(-W2 // cw)):
+        i0, j0 = 4 * i0, j0 * cw
+        halo = np.zeros((12, rs), np.float32)
+        for r in range(12):
+            iy = 2 * i0 - 2 + r
+            if 0 <= iy < H:
+                e = 6 * j0 - 6 + np.arange(rs)
+                ok = (e >= 0) & (e < 3 * W)
+                halo[r, ok] = rows[f, iy, e[ok]]
+        flat = halo.reshape(-1)
+        for lr, grp, chunk in np.ndindex(4, groups, chunks):
+            i, jg = i0 + lr, j0 + 32 * grp
+            if i >= H2 or jg >= W2:
+                continue
+            acc = np.zeros((2, 4, 16, 8), np.float32)      # [mt][q] D, 16 x 8
+            for s, q in np.ndindex(7, 4):
+                base = 2 * lr * rs + 6 * (32 * grp + lane_px + 2 * q)
+                B = np.zeros((16, 8), np.float32)
+                for h in range(2):
+                    at = base + offs[s, h]
+                    for e in range(2):
+                        val = np.where(pad[s, h], ones[e], flat[np.minimum(at + e, flat.size - 1)])
+                        B[2 * tid + 8 * h + e, gid] = val
+                for mt in range(2):
+                    A = np.zeros((16, 16), np.float32)
+                    for r, e in np.ndindex(4, 2):
+                        A[gid + 8 * (r % 2), 2 * tid + 8 * (r // 2) + e] = \
+                            frags[chunk, s, mt, :, r, e]
+                    acc[mt, q] += A @ B
+            for mt, q, n in np.ndindex(2, 4, 8):
+                px = jg + 8 * (n // 2) + 2 * q + n % 2
+                if px < W2:
+                    o = chunk * 32 + 16 * mt + np.arange(16)
+                    y[f, o, i, px] = acc[mt, q, :, n]
+    y = y[:, :O]
+    assert not np.isnan(y).any(), "an output the kernel never writes"
+    return _silu_bf16(y)
+
+
+def _stem_want(x, w3, scale, shift):
+    return pfs.focus_stem_plain(T(x), T(w3), T(scale), T(shift), BF)
+
+
+def _stem_jax(x, w3, scale, shift):
+    """JAX's bf16 stem, NHWC: the Pallas kernel (interpret mode) where its
+    strips fit (W/2 % 16 == 0), else its oracle `_xla_reference`."""
+    args = (jnp.asarray(x, jnp.float32), jnp.asarray(w3.transpose(2, 3, 1, 0)),
+            jnp.asarray(scale), jnp.asarray(shift), jnp.bfloat16)
+    if (x.shape[2] // 2) % jfs.TJ == 0:
+        return jfs._focus_stem_impl(*args, interpret=True)
+    return jfs._xla_reference(*args, compute_dtype=jnp.bfloat16)
+
+
+def _bf16_close(got, want, n, msg):
+    within_ulps(_f32(got), _f32(want), n=n, msg=msg)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("F,H,W,O,border", STEM_SHAPES)
+def test_stem_im2col_k_order_matches_plain_and_jax(F, H, W, O, border):
+    x, w3, scale, shift = _stem_case(F, H, W, O, border)
+    got = _stem_im2col(x, w3, scale, shift)
+    _bf16_close(got, _stem_want(x, w3, scale, shift), 1, "im2col vs plain")
+    want = _stem_jax(x, w3, scale, shift)
+    within_ulps(_f32(got).transpose(0, 2, 3, 1), _f32(want), n=2, msg="im2col vs JAX")
+
+
+def test_weight_fragments_layout():
+    """The decoded matrix is the bf16-rounded folded kernel in (ky, kx, c)
+    order, then the shift's three bf16 parts, which sum to it exactly in
+    fp32, and zeros: at k = 111 and in the channels padded to 32."""
+    x, w3, scale, shift = _stem_case(1, 4, 4, 24, False)
+    shift = shift * np.float32(np.pi)          # more significant bits than bf16 holds
+    frags = pfs.weight_fragments(T(w3), T(scale), T(shift))
+    assert frags.dtype == BF and frags.shape == (1, 7, 2, 32, 4, 2) and frags.is_contiguous()
+    wm = _decode_weights(frags.float().numpy())
+    w6 = pfs.rearrange_weight(T(w3), T(scale)).to(BF).float().numpy()
+    np.testing.assert_array_equal(wm[:24, :108], w6.transpose(0, 2, 3, 1).reshape(24, 108))
+    parts = wm[:24, 108:111]
+    assert (parts[:, 0] != shift).any()
+    np.testing.assert_array_equal((parts[:, 0] + parts[:, 1]) + parts[:, 2], shift)
+    assert not wm[24:].any() and not wm[:, 111].any()
+
+
+@pytest.mark.parametrize("F,H,W,O,border", STEM_SHAPES + [
+    (1, 4, 600, 8, True)])         # W/2 = 300: two column tiles
+def test_stem_mma_lane_mirror_matches_plain(F, H, W, O, border):
+    x, w3, scale, shift = _stem_case(F, H, W, O, border)
+    got = _stem_lane_mirror(x, w3, scale, shift)
+    assert got.shape == (F, O, H // 2, W // 2)
+    _bf16_close(got, _stem_want(x, w3, scale, shift), 1, "lane mirror vs plain")
+
+
 def test_focus_module_at_bf16_reads_uint8_frames():
     """The bf16 backbone hands the stem its uint8 frames (no cast), and
     the Focus module's fp32 weights fold as the kernel expects."""

@@ -182,7 +182,13 @@ def test_cuda_focus_stem_matches_plain(card, F, H, W, O, border):
     (1, 70, 34, 16, "uint8"),     # single frame, ragged last tiles
     (4, 128, 128, 8, "uint8"),    # the selftest's width
     (2, 70, 66, 64, "border"),    # 255 at the border: padding must be zeros
-    (2, 64, 64, 64, "fp32")])     # fp32 frames, rounded to bf16 as read
+    (2, 64, 64, 64, "fp32"),      # fp32 frames, rounded to bf16 as read
+    (3, 2, 64, 64, "border"),     # H/2 = 1: one output row, every input row padded
+    (2, 40, 70, 64, "uint8"),     # W/2 = 35: neither a multiple of 16 nor of 32
+    (2, 48, 96, 24, "uint8"),     # O = 24: the second m16 tile partly written
+    (1, 576, 576, 64, "border"),  # F = 1 at the window's size
+    (2, 8, 1200, 16, "uint8"),    # W/2 = 600: three column tiles, halo from global
+    (32, 576, 576, 64, "uint8")])  # the window: 32 frames of uint8 -> 64 channels
 def test_cuda_focus_stem_bf16_matches_plain(card, F, H, W, O, kind):
     import chip_smoke
     rng = np.random.default_rng(18)

@@ -10,10 +10,12 @@ raw (F, H, W, 3) image with the BN scale folded into the weights, then
 Bound on an H100 at (32, 576, 576, 3) -> 64 channels: fp32 frames in
 and fp32 out move 127 MB read and 679 MB written (0.24 ms) against
 36.7 GFLOP of fp32 FMA (0.55 ms at the 67 TFLOP/s non-tensor peak), so
-operations bound it. The bf16 variant (`out_dtype=torch.bfloat16`,
-uint8 frames in) moves 31.85 MB in and 340 MB out (0.111 ms); its
-products of bf16 values could run at the bf16 tensor-core rate
-(0.037 ms), so bytes bound it.
+operations bound the fp32 kernel (`focus_stem_kernel`). The bf16 variant
+(`out_dtype=torch.bfloat16`, uint8 frames in) moves 31.85 MB in and
+340 MB out (0.111 ms); its products of bf16 values run on the tensor
+cores (`focus_stem_mma`, 0.037 ms at the bf16 rate), so bytes bound it.
+The bf16 kernel takes its weights as mma.sync fragments
+(`weight_fragments`).
 """
 
 import torch
@@ -31,6 +33,45 @@ def rearrange_weight(w3: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     w6 = w3.reshape(O, 2, 2, C, k, k)                  # (o, dx, dy, c, u, v)
     w6 = w6.permute(0, 3, 4, 2, 5, 1).reshape(O, C, 2 * k, 2 * k)
     return w6 * scale[:, None, None, None]
+
+
+TAPS = 108       # the 6x6 kernel's taps, (ky, kx, c) order: k = (6 ky + kx) 3 + c
+MMA_K = 112      # 7 k-steps of 16: the taps, then 3 that carry the shift and a zero
+CHUNK = 32       # output channels of one warp of the bf16 kernel: two m16 tiles
+
+
+def shift_parts(shift: torch.Tensor) -> torch.Tensor:
+    """(O,) -> (O, 3) fp32 values, each exact in bf16, whose fp32 sum is the
+    shift exactly: the shift cut to bf16's 8 significant bits, the
+    remainder cut likewise, and the rest (8 + 8 + 8 bits cover fp32's 24)."""
+    s = shift.to(torch.float32)
+    hi = (s.view(torch.int32) & -65536).view(torch.float32)
+    rest = s - hi
+    mid = (rest.view(torch.int32) & -65536).view(torch.float32)
+    return torch.stack([hi, mid, rest - mid], -1)
+
+
+def weight_fragments(w3: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor
+                     ) -> torch.Tensor:
+    """The bf16 kernel's weights: the (channel, k) matrix of the BN-folded
+    6x6 kernel (`rearrange_weight`) rounded to bf16 at k < 108, in
+    (ky, kx, c) tap order, and `shift_parts(shift)` at k = 108..110 (the
+    kernel's X is 1 there, so the products add the shift in fp32), zero at
+    k = 111 and in the channels padded to a multiple of CHUNK; cut into the
+    A fragments of mma.sync.m16n8k16 (row-major A) in the order the
+    kernel's lanes load them.
+
+    Returns (O_pad / 32, 7, 2, 32, 4, 2) bf16: (channel chunk, k-step s,
+    m16 tile mt, lane, register r, half). Lane 4 gid + tid holds in
+    register r = rh + 2 kh channel 32 chunk + 16 mt + gid + 8 rh at k =
+    16 s + 8 kh + 2 tid (low half) and that + 1 (high half)."""
+    O = w3.shape[0]
+    w6 = rearrange_weight(w3.to(torch.float32), scale.to(torch.float32))
+    wm = torch.cat([w6.permute(0, 2, 3, 1).reshape(O, TAPS), shift_parts(shift)], 1)
+    wm = F.pad(wm, (0, MMA_K - TAPS - 3, 0, -O % CHUNK)).to(torch.bfloat16)
+    # (chunk, mt, rh, gid, s, kh, tid, half) -> (chunk, s, mt, gid, tid, kh, rh, half)
+    wm = wm.reshape(-1, 2, 2, 8, MMA_K // 16, 2, 4, 2).permute(0, 4, 1, 3, 6, 5, 2, 7)
+    return wm.reshape(-1, MMA_K // 16, 2, 32, 4, 2).contiguous()
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -71,11 +112,12 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor, out_dtype: torch.dtype = torch.float32
                ) -> torch.Tensor:
     """Fused eval stem. Arguments as in `focus_stem_plain`. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel, which
-    writes the (F, O, H/2, W/2) result contiguous (NCHW) in `out_dtype`
-    (fp32 or bf16), the memory format of the plain version and of every
-    conv after the stem. The bf16 variant reads uint8 frames as they are;
-    other frames are read as fp32."""
+    takes the plain version; a CUDA tensor launches the kernel of
+    `out_dtype` (fp32: `focus_stem_kernel`, bf16: `focus_stem_mma`), which
+    writes the (F, O, H/2, W/2) result contiguous (NCHW), the memory
+    format of the plain version and of every conv after the stem. The
+    bf16 kernel reads uint8 frames as they are; other frames are read as
+    fp32."""
     if x.device.type == "cpu":
         return focus_stem_plain(x, w3, scale, shift, out_dtype)
     if x.device.type != "cuda":
@@ -89,20 +131,23 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                          f"got {tuple(x.shape)} and {tuple(w3.shape)}")
     if H % 2 or W % 2 or O % 8:
         raise ValueError("focus_stem needs even H, W and O a multiple of 8")
-    u8 = x.dtype == torch.uint8 and out_dtype == torch.bfloat16
-    xin = x.contiguous() if u8 else x.to(torch.float32).contiguous()
-    w6 = rearrange_weight(w3.to(torch.float32), scale.to(torch.float32))
-    if out_dtype == torch.bfloat16:
-        w6 = w6.to(torch.bfloat16).to(torch.float32)
-    wk = w6.permute(2, 3, 1, 0).contiguous()           # (ky, kx, c, o)
-    sh = shift.to(torch.float32).contiguous()
     out = torch.empty(Fr, O, H // 2, W // 2, device=x.device, dtype=out_dtype)
     lib = library.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tscd_focus_stem(xin.data_ptr(), wk.data_ptr(), sh.data_ptr(),
-                                 out.data_ptr(), Fr, H, W, C, O, int(u8),
-                                 int(out_dtype == torch.bfloat16), stream)
+        if out_dtype == torch.bfloat16:
+            u8 = x.dtype == torch.uint8
+            xin = x.contiguous() if u8 else x.to(torch.float32).contiguous()
+            wf = weight_fragments(w3, scale, shift)
+            rc = lib.tscd_focus_stem_bf16(xin.data_ptr(), wf.data_ptr(), out.data_ptr(), Fr, H,
+                                          W, C, O, int(u8), stream)
+        else:
+            xin = x.to(torch.float32).contiguous()
+            wk = rearrange_weight(w3.to(torch.float32), scale.to(torch.float32))
+            wk = wk.permute(2, 3, 1, 0).contiguous()           # (ky, kx, c, o)
+            sh = shift.to(torch.float32).contiguous()
+            rc = lib.tscd_focus_stem(xin.data_ptr(), wk.data_ptr(), sh.data_ptr(),
+                                     out.data_ptr(), Fr, H, W, C, O, stream)
     library.check(lib, rc, "focus_stem")
     focus_stem.launches += 1
     return out

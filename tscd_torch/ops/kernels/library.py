@@ -33,7 +33,9 @@ _SIGNATURES = {
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_linear_sum_assignment_block": [_P, _P, _I, _I, _P],
     "tscd_nms_walk": [_P] * 4 + [_I, _I, _P],
-    "tscd_focus_stem": [_P] * 4 + [_I] * 7 + [_P],
+    "tscd_focus_stem": [_P] * 4 + [_I] * 5 + [_P],
+    "tscd_focus_stem_bf16": [_P] * 3 + [_I] * 6 + [_P],
+    "tscd_focus_stem_bf16_config": [_I] * 4 + [ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()
