@@ -20,9 +20,13 @@ Phases, each of which raises on failure (so the run exits non-zero):
              The solver's bound is a latency bound: Dijkstra steps on the
              cost times the cycles of one step's dependent chain (each
              instruction's latency measured here by latency_probe.cu) over
-             the card's maximum SM clock. The NMS walk on random boxes at
-             K = 1500 and 50, a chain that needs K steps, all-invalid,
-             identical boxes and tied scores, B = 1 and 3, exactly; the
+             the card's maximum SM clock. The NMS kernels (the fused IoU
+             pack and the 32-box walk) on random boxes at K = 1500 and 50,
+             a chain that needs K steps, all-invalid, identical boxes, tied
+             scores, B = 1 and 3, IoUs within a few ulps of the threshold
+             and postprocess_refined's class-shifted pairs: the keep mask
+             exactly and the pack's bits bit for bit against the torch
+             IoU's; the
              Hungarian solver past n = 128 (the block kernel) on random and
              constant costs at n = 129, 200 and 500 and through
              masked_linear_sum_assignment, exactly; both timed. The bf16
@@ -45,9 +49,13 @@ Phases, each of which raises on failure (so the run exits non-zero):
              per-window latency from CUDA events and the launches of every
              kernel in those 3 windows, traced; then one more streamed window,
              dispatched eagerly, whose Hungarian costs are kept (the
-             carried-state cost, checked and timed like the others), and
+             carried-state cost, checked and timed like the others) and
+             whose NMS inputs are kept (the kernels checked on them, and
+             the whole NMS stage timed alone on them: every launch of a
+             batched_class_aware_nms call, inside a profiler range), and
              one more, eagerly, under torch.profiler for the device time by
-             kernel, and the copies made inside the attention's calls.
+             kernel, the copies made inside the attention's calls and the
+             NMS stage's launches and device time (`nms_stage_ms`).
   5. bf16    TSCD-Large computing in bf16 with BN folded, on the full
              phase's weights: the max and 99.9th percentile of |raw
              outputs - fp32 raw outputs| on one window (by part, beside
@@ -81,6 +89,12 @@ kernel wrapper's `.launches` set to 0 before and required to stay 0 (no
 eager fallback).
 Prints one JSON line per phase, the card's name and power limit, the
 `kernels` line, and last `{"ok": true, "device": {...}}`.
+
+    python3 chip_smoke.py --nms-stage
+
+times the NMS stage alone on one TSCD-Large window's inputs and nothing
+else, through entry points older commits have too: a copy of this script
+in another commit's checkout times that commit's stage the same way.
 """
 
 import json
@@ -103,7 +117,8 @@ KERNELS = {
                              "tscd_tpu/ops/pallas/fused_attention.py:109"),
     "hungarian": ("tscd_torch/csrc/hungarian.cu",
                   "tscd_tpu/ops/pallas/hungarian.py:111"),
-    "nms": ("tscd_torch/csrc/nms.cu", "tscd_tpu/ops/nms.py:55 (XLA scan)"),
+    "nms": ("tscd_torch/csrc/nms.cu",
+            "tscd_tpu/ops/nms.py:43-53 (IoU matrix and XLA scan, no Pallas kernel)"),
     "focus_stem_bf16": ("tscd_torch/csrc/focus_stem.cu",
                         "tscd_tpu/ops/pallas/focus_stem.py:138"),
     "fused_dual_attention_bf16": ("tscd_torch/csrc/fused_attention.cu",
@@ -115,14 +130,14 @@ TRACE_NAMES = {
     "focus_stem": ("focus_stem_kernel<",),
     "fused_dual_attention": ("fused_dual_attention_split<float>",),
     "hungarian": ("linear_sum_assignment_",),
-    "nms": ("nms_walk<",),
+    "nms": ("nms_walk_rows",),
     "focus_stem_bf16": ("focus_stem_mma<",),
     "fused_dual_attention_bf16": ("fused_dual_attention_split<__nv_bfloat16>",),
 }
 # the second kernel of a call, launched once with each first one
 PAIRED = {"fused_dual_attention_combine": ("fused_dual_attention",
                                            "fused_dual_attention_bf16"),
-          "nms_pack_rows": ("nms",)}
+          "nms_pack_iou": ("nms",)}
 # Two bf16 models of one fp32 model are two draws of rounding noise: at
 # the selftest width on the CPU the port's distance from fp32 is 0.82x
 # and 1.09x JAX's (max, p99.9 of |raw outputs|; BN folded: 0.95x, 0.96x),
@@ -365,9 +380,14 @@ def check_hungarian(name, cost):
 HUNGARIAN_BLOCK_BOUND = ("latency: Dijkstra steps x cycles of a block-wide step's least "
                          "dependent chain (2 shared loads, 3 fp32 adds, 2 warp minima, "
                          "2 integer operations; measured latencies) / max SM clock")
-NMS_BOUND = ("latency: K walk steps x cycles of one step's dependent chain (a warp vote, "
-             "a word AND and a select; measured latencies) / max SM clock; beside it "
-             "the bytes bound of reading the K x K bools")
+NMS_BOUND = ("latency: K dependent decisions x one integer operation (the measured imad "
+             "latency) / max SM clock; beside it the bytes (boxes and valid in, keep out) "
+             "and the IoUs' fp32 operations, both far below")
+# fp32 operations of one IoU and its threshold in nms.cu: 2 max, 2 min, 2
+# subtractions, 2 clamps, the product, 2 adds and a subtraction, the
+# division and the compare (each box's area is computed once a tile)
+NMS_IOU_OPS = 14
+NMS_STAGE = "nms stage"
 
 
 def block_chain_cycles(lat):
@@ -379,21 +399,71 @@ def block_chain_cycles(lat):
 
 
 def nms_chain_cycles(lat):
-    """One NMS walk step's dependent chain in nms.cu: the AND of the
-    row's words with the keep words, __any_sync of it, the select that
-    sets the box's bit."""
+    """One step's dependent chain of the earlier NMS walk design (one
+    warp vote a box): the AND of the row's words with the keep words,
+    __any_sync of it, the select that sets the box's bit. The bound of
+    that design, kept beside the design-free one."""
     return lat["vote"] + 2 * lat["imad"]
 
 
+def nms_bounds(B, K, lat, clock_mhz):
+    """The least time of one NMS call on B frames of K boxes, in ms: the
+    larger of its latency (K dependent decisions, one integer operation
+    each; the frames run side by side), its bytes (boxes and valid flags
+    read once, keep flags written once) and its operations (K (K - 1) / 2
+    IoUs of NMS_IOU_OPS fp32 operations each); and the earlier vote-a-box
+    design's bound."""
+    lat_ms = K * lat["imad"] / (clock_mhz * 1e3)
+    bytes_ms = B * (16 * K + 2 * K) / H100_BYTES_PER_S * 1e3
+    ops = B * K * (K - 1) // 2 * NMS_IOU_OPS
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(lat_ms, bytes_ms, ops_ms), bound_latency_ms=lat_ms,
+                bound_bytes_ms=bytes_ms, bound_operations_ms=ops_ms, iou_operations=ops,
+                bound_old_design_ms=K * nms_chain_cycles(lat) / (clock_mhz * 1e3))
+
+
+def near_threshold_boxes(rng, n, thr, span=500.0):
+    """n pairs of boxes (2 n, 4) fp32 whose IoU sits within a few fp32
+    ulps of `thr`: the second box of a pair is the first shifted along x
+    by w (1 - thr) / (1 + thr), then its x coordinates moved by up to 2
+    ulps either way."""
+    import numpy as np
+    xy = rng.uniform(0, span, (n, 2))
+    wh = rng.uniform(10, 120, (n, 2))
+    a = np.concatenate([xy, xy + wh], -1)
+    b = a.copy()
+    b[:, [0, 2]] += (wh[:, 0] * (1 - thr) / (1 + thr))[:, None]
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    b[:, [0, 2]] += rng.integers(-2, 3, (n, 2)).astype(np.float32) * np.spacing(b[:, [0, 2]])
+    return np.stack([a, b], 1).reshape(2 * n, 4)
+
+
+def class_pairs(rng, P=50, C=30, conf=0.001):
+    """(boxes, scores, class ids, valid) (P C,) as postprocess_refined
+    hands them to batched_class_aware_nms at TSCD-Large's P and C: P
+    proposals at 576 px (near-threshold pairs), each with every class;
+    key obj x prob, valid where prob and key reach `conf`."""
+    import numpy as np
+    boxes = near_threshold_boxes(rng, P // 2, 0.5, span=440.0)
+    obj = rng.uniform(size=P).astype(np.float32)
+    prob = (rng.uniform(size=(P, C)) ** 4).astype(np.float32)
+    key = np.repeat(obj, C) * prob.reshape(-1)
+    valid = (prob.reshape(-1) >= conf) & (key >= conf)
+    return np.repeat(boxes, C, 0), key, np.tile(np.arange(C), P), valid
+
+
 def nms_inputs(torch, rng, dev):
-    """(name, sup, valid in score order) on the card, built as nms_fixed
-    builds them: random boxes at the main path's K = 1500 and 50 and a
-    ragged K, B = 1 and 3, all-invalid, identical boxes, tied scores, and a
-    chain where box i overlaps box i + 1 only, so that the fixed point
-    needs K steps."""
+    """(name, boxes, valid in score order, threshold) on the card, in the
+    score order nms_fixed gives them: random boxes at the main path's
+    K = 1500 and 50 and a ragged K, B = 1 and 3, all-invalid, identical
+    boxes, tied scores; a chain where box i overlaps box i + 1 only, so
+    that the walk needs K steps; pairs of boxes whose IoU sits within a
+    few ulps of the threshold (0.5 and 0.45, which fp32 rounds); and
+    postprocess_refined's (proposal, class) pairs at P = 50, C = 30,
+    shifted by class as batched_class_aware_nms shifts them."""
     import numpy as np
 
-    from tscd_torch.ops.nms import suppression_matrix
+    from tscd_torch.ops.nms import class_shift, score_order
     t = lambda a: torch.as_tensor(a, device=dev)
 
     def rand(B, K):
@@ -406,33 +476,88 @@ def nms_inputs(torch, rng, dev):
     cases = []
     for B, K in ((1, 1500), (1, 50), (3, 1500), (3, 50), (2, 7)):
         b, sc, v = rand(B, K)
-        cases += [(f"random {B}x{K}", b, sc, v),
-                  (f"all invalid {B}x{K}", b, sc, np.zeros_like(v)),
-                  (f"identical boxes {B}x{K}", np.repeat(b[:, :1], K, 1), sc, v),
-                  (f"tied scores {B}x{K}", b, np.full_like(sc, 0.5), v)]
+        cases += [(f"random {B}x{K}", b, sc, v, 0.5),
+                  (f"all invalid {B}x{K}", b, sc, np.zeros_like(v), 0.5),
+                  (f"identical boxes {B}x{K}", np.repeat(b[:, :1], K, 1), sc, v, 0.5),
+                  (f"tied scores {B}x{K}", b, np.full_like(sc, 0.5), v, 0.5)]
     K = 1500
     x = np.arange(K, dtype=np.float32) * 0.3
     cases.append(("chain 1x1500", np.stack([x, 0 * x, x + 1, 0 * x + 1], -1)[None],
-                  np.linspace(1, 0, K, dtype=np.float32)[None], np.ones((1, K), bool)))
+                  np.linspace(1, 0, K, dtype=np.float32)[None], np.ones((1, K), bool), 0.5))
+    for thr in (0.5, 0.45):
+        b = np.stack([near_threshold_boxes(rng, K // 2, thr) for _ in range(2)])
+        cases.append((f"near threshold {thr} 2x1500", b,
+                      rng.uniform(size=(2, K)).astype(np.float32), np.ones((2, K), bool), thr))
     out = []
-    for name, b, sc, v in cases:
-        _, sup, vs = suppression_matrix(t(b), t(sc), t(v), 0.5)
-        out.append((name, sup, vs))
+    for name, b, sc, v, thr in cases:
+        _, bs, vs = score_order(t(b), t(sc), t(v))
+        out.append((name, bs, vs, thr))
+    pairs = [class_pairs(rng) for _ in range(2)]
+    b, sc, c, v = (t(np.stack(a)) for a in zip(*pairs))
+    _, bs, vs = score_order(class_shift(b, c, v), sc, v)
+    out.append(("class-shifted pairs 2x1500", bs, vs, 0.5))
     return out
 
 
-def check_nms(torch, name, sup, valid):
-    """The kernel's keep mask against the plain version's (on a host copy
-    of the same inputs): equal element for element."""
+def check_nms(torch, name, boxes_s, valid_s, thr):
+    """The kernels' keep mask against the plain version's, and the pack
+    kernel's bit tiles against the plain pack's (the torch IoU's
+    decisions), each on a host copy of the same inputs: equal element
+    for element and bit for bit."""
     from tscd_torch.ops.kernels import nms as kn
-    got = kn.nms_walk(sup, valid).cpu()
-    want = kn.nms_walk_plain(sup.cpu(), valid.cpu())
+    got = kn.nms_sorted(boxes_s, valid_s, thr).cpu()
+    tiles = kn.pack(boxes_s, thr).cpu()
+    want = kn.nms_sorted_plain(boxes_s.cpu(), valid_s.cpu(), thr)
     diff = int((got != want).sum())
+    bits = int((tiles != kn.pack_plain(boxes_s.cpu(), thr)).sum())
     emit({"phase": "kernels", "check": f"nms {name}", "max_abs_err": diff,
-          "kept": int(want.sum()), "tolerance": "elementwise equal", "pass": diff == 0})
-    if diff:
-        raise AssertionError(f"nms {name}: {diff} boxes differ")
+          "pack_words_differing": bits, "kept": int(want.sum()),
+          "tolerance": "elementwise equal, pack bit-equal", "pass": diff == 0 and bits == 0})
+    if diff or bits:
+        raise AssertionError(f"nms {name}: {diff} boxes and {bits} pack words differ")
     return diff, want
+
+
+def stage_kernels(prof, name):
+    """The device activities inside each device-side span of the profiler
+    range `name`, one list a span, in time order (one stream: all that
+    the range launched, and nothing else)."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e for e in dev if e.is_user_annotation and e.name == name),
+                   key=lambda e: e.time_range.start)
+    work = sorted((e for e in dev if not e.is_user_annotation
+                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
+    return [[k for k in work if k.time_range.start >= s.time_range.start
+             and k.time_range.end <= s.time_range.end] for s in spans]
+
+
+def nms_stage_rows(torch, calls, reps=20):
+    """The NMS stage alone on `calls`, the arguments batched_class_aware_nms
+    got in one window: for each, everything one call launches (the device
+    activities inside a profiler range around it, over `reps` calls): the
+    device ms summed, their count, their names; and `call_ms` (CUDA
+    events, host work included)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tscd_torch.ops import nms
+    rows = {}
+    for args in calls:
+        fn = lambda: nms.batched_class_aware_nms(*args)
+        call_ms = cuda_ms(torch, fn, reps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                with record_function(NMS_STAGE):
+                    fn()
+            torch.cuda.synchronize()
+        spans = stage_kernels(prof, NMS_STAGE)
+        if len(spans) != reps or not all(spans):
+            raise AssertionError(f"{len(spans)} device spans of the NMS stage for {reps} calls")
+        ms = [sum(k.time_range.elapsed_us() for k in s) / 1e3 for s in spans]
+        rows[f"K={args[0].shape[1]}"] = {
+            "ms": sum(ms) / reps, "ms_min": min(ms), "launches": len(spans[-1]),
+            "kernels": [k.name[:80] for k in spans[-1]], "call_ms": call_ms}
+    return rows
 
 
 def hungarian_cost_row(torch, cost, lat, clock_mhz):
@@ -662,27 +787,24 @@ def kernel_phase(torch, dev):
         plain_ms_200x200_random=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(c200t), 1, 0),
         bound_by="operations", bound_model=HUNGARIAN_BLOCK_BOUND)
 
-    # -- NMS walk: refined (K = P * C = 1500) and best class (K = 50); exact
+    # -- NMS: refined (K = P * C = 1500) and best class (K = 50); exact ----
     nerr = 0
     timing = {}
-    for name, sup, vs in nms_inputs(torch, rng, dev):
-        err, want = check_nms(torch, name, sup, vs)
+    for name, bs, vs, thr in nms_inputs(torch, rng, dev):
+        err, want = check_nms(torch, name, bs, vs, thr)
         nerr = max(nerr, err)
         if name == "chain 1x1500" and not torch.equal(want[0], torch.arange(1500) % 2 == 0):
             raise AssertionError("nms chain: every other box should survive")
-        if name in ("random 1x1500", "random 1x50"):
-            timing[vs.shape[1]] = (sup, vs)
+        if name in ("random 1x1500", "random 1x50", "chain 1x1500"):
+            timing[name] = (bs, vs)
     nms_rows = {}
-    for K, (sup, vs) in sorted(timing.items(), reverse=True):
-        lat_ms = K * nms_chain_cycles(lat) / (clock * 1e3)
-        bytes_ms = (K * K + 2 * K) / H100_BYTES_PER_S * 1e3
-        nms_rows[K] = dict(**timed(torch, lambda: kn.nms_walk(sup, vs), 100, "nms_"),
-                           plain_ms=cuda_ms(torch, lambda: kn.nms_walk_plain(sup, vs), 5, 1),
-                           bound_ms=max(lat_ms, bytes_ms), bound_latency_ms=lat_ms,
-                           bound_bytes_ms=bytes_ms)
-    rows["nms"] = dict(max_abs_err=nerr, **nms_rows[1500], bound_by="operations",
-                       bound_model=NMS_BOUND, library_ms=None,
-                       sizes={f"K={K}": r for K, r in nms_rows.items()})
+    for name, (bs, vs) in timing.items():
+        nms_rows[name] = dict(
+            **timed(torch, lambda: kn.nms_sorted(bs, vs, 0.5), 100, "nms_"),
+            plain_ms=cuda_ms(torch, lambda: kn.nms_sorted_plain(bs, vs, 0.5), 5, 1),
+            **nms_bounds(*vs.shape, lat, clock))
+    rows["nms"] = dict(max_abs_err=nerr, **nms_rows["random 1x1500"], bound_by="operations",
+                       bound_model=NMS_BOUND, library_ms=None, sizes=nms_rows)
     rng = rng_main
 
     # -- Focus stem: 4 frames for the check, 32 (the window) for time ----
@@ -975,9 +1097,9 @@ def full_phase(torch, counters):
           "setup_s": setup_s, "window_ms": lat, "traced": True, "detections": n_det,
           "launches": launches, "dispatch_host_syncs": 0,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    state, carried = capture_costs(torch, pred, exp, state)
+    state, carried, sorted_in, stage = capture_costs(torch, pred, exp, state)
     profile_window(torch, pred, exp, state)
-    return launches, carried
+    return launches, carried, sorted_in, stage
 
 
 def sync_free_dispatch(torch, pred, exp, state):
@@ -1017,26 +1139,58 @@ def carried_phase(torch, row, carried):
     emit({"phase": "carried", "hungarian": row["costs"]["carried_state"]})
 
 
-def capture_costs(torch, pred, exp, state):
-    """Streams window 3, resumed from `state`, keeping a copy of every
-    cost the matcher hands the solver (one a local frame); returns the
-    new state and the costs. Its launches are not counted."""
-    from tscd_torch.ops import hungarian
-    solve, kept = hungarian.linear_sum_assignment, []
+def capture_window(torch, pred, exp, state, targets):
+    """Streams window 3, resumed from `state`, eagerly, keeping a copy of
+    the arguments of every call of each `targets` entry, (module,
+    function name) -> list; returns the new state. Its launches are not
+    counted."""
+    import contextlib
 
-    def keep(cost):
-        kept.append(cost.detach().clone())
-        return solve(cost)
+    def keeping(fn, kept):
+        def call(*args):
+            kept.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                              for a in args))
+            return fn(*args)
+        return call
 
-    hungarian.linear_sum_assignment = keep
-    try:
+    with contextlib.ExitStack() as undo:
+        for (module, name), kept in targets.items():
+            fn = getattr(module, name)
+            setattr(module, name, keeping(fn, kept))
+            undo.callback(setattr, module, name, fn)
         _, _, state = run_windows(torch, pred, exp, 1, 3, True, state, 3, eager=True)
-    finally:
-        hungarian.linear_sum_assignment = solve
-    if len(kept) != exp.lframe_val:
-        raise AssertionError(f"{len(kept)} solver calls in a window, "
-                             f"{exp.lframe_val} expected")
-    return state, kept
+    return state
+
+
+def capture_costs(torch, pred, exp, state):
+    """Window 3 (`capture_window`) with a copy of every cost the matcher
+    hands the solver (one a local frame), of the NMS kernels' inputs (the
+    sorted, shifted boxes and valid flags of the refined and best-class
+    calls) and of batched_class_aware_nms's arguments; returns the new
+    state, the costs and the two NMS lists."""
+    from tscd_torch.ops import hungarian
+    from tscd_torch.ops import nms
+    from tscd_torch.ops import postprocess
+    costs, sorted_in, stage = [], [], []
+    state = capture_window(torch, pred, exp, state, {
+        (hungarian, "linear_sum_assignment"): costs, (nms, "nms_sorted"): sorted_in,
+        (postprocess, "batched_class_aware_nms"): stage})
+    if len(costs) != exp.lframe_val or len(sorted_in) != 2 or len(stage) != 2:
+        raise AssertionError(f"{len(costs)} solver and {len(sorted_in)}, {len(stage)} NMS "
+                             f"calls in a window; {exp.lframe_val} and 2 expected")
+    return state, [c[0] for c in costs], sorted_in, stage
+
+
+def nms_window_phase(torch, row, sorted_in, stage):
+    """The NMS kernels on a streamed window's own inputs (its refined and
+    best-class calls: sorted, class-shifted boxes): checked against the
+    plain version, element for element and bit for bit; then the whole
+    stage alone on that window's batched_class_aware_nms arguments, into
+    row["stage_alone"]."""
+    for boxes_s, valid_s, thr in sorted_in:
+        check_nms(torch, f"traced window's call, K = {boxes_s.shape[1]}", boxes_s, valid_s, thr)
+    row["stage_alone"] = nms_stage_rows(torch, stage)
+    emit({"phase": "carried", "nms_stage_alone": row["stage_alone"]})
 
 
 class SyntheticVID:
@@ -1445,7 +1599,7 @@ def stem_graph_prep(torch, model, x):
 
 HAND_KERNELS = ("focus_stem_kernel", "focus_stem_mma", "fused_dual_attention",
                 "linear_sum_assignment",
-                "nms_pack_rows", "nms_walk")
+                "nms_pack_iou", "nms_walk_rows")
 KERNEL_CLASSES = (   # first match wins
     ("cuDNN implicit-GEMM convs", ("fprop", "implicit_convolve", "convolve_common")),
     ("cuDNN FFT convs", ("fft", "pointwise_mult_and_sum_complex")),
@@ -1496,19 +1650,25 @@ def profile_window(torch, pred, exp, state, dtype="fp32"):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from tscd_torch.models import aggregation
+    from tscd_torch.ops import postprocess
     attend = aggregation.fused_dual_attention
+    suppress = postprocess.batched_class_aware_nms
 
-    def ranged(*a, **kw):
-        with record_function("aggregation attention call"):
-            return attend(*a, **kw)
+    def ranged(fn, name):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
 
-    aggregation.fused_dual_attention = ranged
+    aggregation.fused_dual_attention = ranged(attend, "aggregation attention call")
+    postprocess.batched_class_aware_nms = ranged(suppress, NMS_STAGE)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, lat, _ = run_windows(torch, pred, exp, 1, 7, True, state, 4, eager=True,
                                     uint8=dtype == "bf16")
     finally:
         aggregation.fused_dual_attention = attend
+        postprocess.batched_class_aware_nms = suppress
     # device-side events only (kernels, copies): a host op's entry sums the
     # kernels it launched; "Activity Buffer Request" is the profiler's own,
     # and the device side of a profiler range is no work of its own
@@ -1529,10 +1689,20 @@ def profile_window(torch, pred, exp, state, dtype="fp32"):
                                         if "fused_dual_attention" in r["name"]),
                  "input_copies": sum(n for n, _ in feed),
                  "input_copy_ms": sum(ms for _, ms in feed)}
+    # both NMS calls: everything batched_class_aware_nms launched
+    spans = stage_kernels(prof, NMS_STAGE)
+    names = [k.name for s in spans for k in s]
+    if len(spans) != 2 or not all(any(h in n for n in names) for h in HAND_KERNELS[-2:]):
+        raise AssertionError(f"{len(spans)} NMS stage spans in the window, or no hand "
+                             f"NMS kernel in them: {names}")
+    stage = {"calls": len(spans), "launches": [len(s) for s in spans],
+             "ms": [sum(k.time_range.elapsed_us() for k in s) / 1e3 for s in spans],
+             "kernels": [[k.name[:80] for k in s] for s in spans]}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     name = "profile_window.json" if dtype == "fp32" else f"profile_window_{dtype}.json"
     with open(os.path.join(HERE, "build", name), "w") as f:
-        json.dump({"by_class": by_class, "attention": attention, "kernels": table}, f)
+        json.dump({"by_class": by_class, "attention": attention, "nms_stage": stage,
+                   "kernels": table}, f)
     # cuDNN's layout transposes, paid where a conv's input and its chosen
     # algorithm disagree on the memory format
     emit({"phase": "profile", "dtype": dtype, "sequence_start": False, "window_ms": lat[0],
@@ -1542,6 +1712,7 @@ def profile_window(torch, pred, exp, state, dtype="fp32"):
           "attention": attention,
           "hungarian_ms": sum(r["ms"] for r in table if "linear_sum_assignment" in r["name"]),
           "nms_ms": sum(r["ms"] for r in table if "nms_" in r["name"]),
+          "nms_stage_ms": sum(stage["ms"]), "nms_stage": stage,
           "top": [{"name": k[:90], "ms": ms, "calls": n} for k, ms, n in rows[:15]]})
 
 
@@ -1566,6 +1737,29 @@ def replay_breakdown(prof, windows):
           "hand_kernels": [r for r in table if any(k in r["name"] for k in HAND_KERNELS)]})
 
 
+def nms_stage_main(torch):
+    """`--nms-stage`: the NMS stage alone (`nms_stage_rows`) on the
+    batched_class_aware_nms arguments of one streamed window of
+    TSCD-Large at fp32 (seeded weights and frames, after a warm-up
+    window), and nothing else. It reaches the port only through entry
+    points older trees have too, so that a copy of this script times
+    another commit's stage the same way."""
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp.tscd_large import Exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops import postprocess
+    exp = Exp()
+    model = random_init_(exp.get_model(), exp.seed)
+    pred = make_predict_fn(model, exp.lframe_val, exp.gframe_val, exp.nmsthre, exp.test_conf)
+    _, _, state = run_windows(torch, pred, exp, 1, 100, True)
+    stage = []
+    capture_window(torch, pred, exp, state, {(postprocess, "batched_class_aware_nms"): stage})
+    if len(stage) != 2:
+        raise AssertionError(f"{len(stage)} NMS calls in a window, 2 expected")
+    emit({"phase": "nms_stage", "tree": HERE, "stage_alone": nms_stage_rows(torch, stage, 50),
+          "valid": [int(a[3].sum()) for a in stage]})
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "tscd_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1578,6 +1772,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    if sys.argv[1:] == ["--nms-stage"]:
+        from tscd_torch.ops.kernels import library
+        library.load()
+        nms_stage_main(torch)
+        return 0
+    if sys.argv[1:]:
+        print(f"unknown arguments {sys.argv[1:]}: none, or --nms-stage", file=sys.stderr)
+        return 2
+
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
@@ -1586,7 +1789,7 @@ def main() -> int:
     counters = {"focus_stem": fs.focus_stem,
                 "fused_dual_attention": fa.fused_dual_attention,
                 "hungarian": hu.linear_sum_assignment,
-                "nms": kn.nms_walk}
+                "nms": kn.nms_sorted}
 
     t0 = time.time()
     library.load()
@@ -1599,8 +1802,9 @@ def main() -> int:
     rows = kernel_phase(torch, dev)
     small_phase(torch)
     # each row's launches in the 3 traced windows of its model's phase
-    launches, carried = full_phase(torch, counters)
+    launches, carried, sorted_in, stage = full_phase(torch, counters)
     carried_phase(torch, rows["hungarian"], carried)
+    nms_window_phase(torch, rows["nms"], sorted_in, stage)
     launches_bf16 = bf16_phase(torch, counters)
     for name in ("focus_stem_bf16", "fused_dual_attention_bf16"):
         launches[name] = launches_bf16[name]

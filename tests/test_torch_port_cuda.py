@@ -10,9 +10,10 @@ Tolerances: fp32 with another summation order, 1e-5 absolute on the
 attention's unit-scale values and 1e-4 relative on the stem's pixel-scale
 sums (TF32 off); the bf16 stem one bf16 ulp (2^-7 relative) over the
 same 1e-3 floor, the attention on bf16 q/k/v as at fp32 (it computes in
-fp32); col4row and the NMS keep mask are exact; the selftest evaluator
-on the card against the CPU, detections 1e-4 (matched as sets per frame)
-and stats 1e-4; a window's CUDA graph replay equals its eager dispatch.
+fp32); col4row, the NMS keep mask and the NMS pack's bits are exact;
+the selftest evaluator on the card against the CPU, detections 1e-4
+(matched as sets per frame) and stats 1e-4; a window's CUDA graph replay
+equals its eager dispatch.
 """
 
 import numpy as np
@@ -263,7 +264,7 @@ def test_cuda_graph_replay_equals_eager_dispatch(card, dtype):
     from torch.profiler import ProfilerActivity, profile
     predict, windows = _selftest_predict(card, dtype)
     _, state = predict.dispatch(*windows[0], False, None)        # captures
-    counters = (pkn.nms_walk, pfs.focus_stem, pfa.fused_dual_attention,
+    counters = (pkn.nms_sorted, pfs.focus_stem, pfa.fused_dual_attention,
                 pkh.linear_sum_assignment)
     n0 = [c.launches for c in counters]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -311,15 +312,39 @@ def test_cuda_bf16_dispatch_waits_on_nothing(card):
 @pytest.mark.cuda
 def test_cuda_nms_walk_equals_plain(card):
     """chip_smoke.py's cases: random boxes at K = 1500, 50 and 7, B = 1, 3
-    and 2, all invalid, identical boxes, tied scores, the K-step chain."""
+    and 2, all invalid, identical boxes, tied scores, the K-step chain,
+    IoUs within a few ulps of the threshold (0.5 and 0.45) and
+    postprocess_refined's class-shifted pairs. The keep mask equals the
+    plain version's, and the pack kernel's bits the torch IoU's."""
     import chip_smoke
-    for name, sup, vs in chip_smoke.nms_inputs(torch, np.random.default_rng(14), card):
-        n0 = pkn.nms_walk.launches
-        got = pkn.nms_walk(sup, vs)
-        assert pkn.nms_walk.launches == n0 + 1
-        want = pkn.nms_walk_plain(sup.cpu(), vs.cpu())
+    for name, bs, vs, thr in chip_smoke.nms_inputs(torch, np.random.default_rng(14), card):
+        n0 = pkn.nms_sorted.launches
+        got = pkn.nms_sorted(bs, vs, thr)
+        assert pkn.nms_sorted.launches == n0 + 1
+        want = pkn.nms_sorted_plain(bs.cpu(), vs.cpu(), thr)
         assert torch.equal(got.cpu(), want), name
-    assert torch.equal(got.cpu()[0], torch.arange(1500) % 2 == 0)
+        assert torch.equal(pkn.pack(bs, thr).cpu(), pkn.pack_plain(bs.cpu(), thr)), name
+        if name == "chain 1x1500":
+            assert torch.equal(got.cpu()[0], torch.arange(1500) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_stage_writes_no_k_by_k_tensor(card):
+    """batched_class_aware_nms at K = 1500 on the card allocates less, in
+    all, than one (K, K) bool would take (the pack's bit tiles are 144 KB)."""
+    import chip_smoke
+    from tscd_torch.ops import nms as pnms
+    frames = [chip_smoke.class_pairs(np.random.default_rng(18))]
+    args = [torch.from_numpy(np.stack(a)).to(card) for a in zip(*frames)]
+    pnms.batched_class_aware_nms(*args, 0.5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    keep = pnms.batched_class_aware_nms(*args, 0.5)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1500 * 1500
+    want = pnms.batched_class_aware_nms(*(a.cpu() for a in args), 0.5)
+    assert torch.equal(keep.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -6,8 +6,11 @@ and the JAX references, hold a numpy mirror of the CUDA attention's
 split-over-keys arithmetic against the JAX reference and one of the CUDA
 Hungarian solver's warp design (lane-owned columns, order-preserving
 keys, two-stage warp minimum) against both JAX solvers, hold the NMS
-walk's plain version (through `nms_fixed`) against the JAX scan, and
-check that CPU calls never count a launch.
+kernels' plain version (through `nms_fixed` and
+`batched_class_aware_nms`) against the JAX package's, also where IoUs sit
+within an ulp of the threshold and at the class shift's coordinates, and
+the pack's bit layout and arithmetic against the torch IoU's decisions,
+and check that CPU calls never count a launch.
 tests/test_torch_port_cuda.py holds each CUDA kernel against its plain
 version on a card.
 
@@ -24,6 +27,7 @@ import torch
 from tscd_tpu.models.blocks import _FocusConv
 from tscd_tpu.ops import hungarian as jhu
 from tscd_tpu.ops import nms as jnms
+from tscd_tpu.ops.boxes import pairwise_iou_xyxy as jiou
 from tscd_tpu.ops.pallas import focus_stem as jfs
 from tscd_tpu.ops.pallas.fused_attention import (dual_attention_reference,
                                                  fused_dual_attention as jfused)
@@ -33,6 +37,7 @@ from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.ops import nms as pnms
+from tscd_torch.ops.boxes import pairwise_iou_xyxy
 from tscd_torch.ops.kernels import hungarian as pkh
 from tscd_torch.ops.kernels import nms as pkn
 
@@ -347,18 +352,123 @@ def nms_ties(K, seed=13):
     return boxes, scores, rng.uniform(size=K) > 0.2
 
 
-@pytest.mark.parametrize("case", ["chain", "ties"])
+def nms_near_threshold(K, thr, seed=14):
+    """K / 2 pairs of boxes whose IoU sits within a few fp32 ulps of the
+    threshold (chip_smoke.near_threshold_boxes), random scores."""
+    import chip_smoke
+    rng = np.random.default_rng(seed)
+    boxes = chip_smoke.near_threshold_boxes(rng, K // 2, thr)
+    return boxes, rng.uniform(size=K).astype(np.float32), np.ones(K, bool)
+
+
+def near_threshold_pairs(boxes, thr):
+    """How many (i, j) pairs have an fp32 IoU (torch's) one ulp above,
+    at, or one ulp below the threshold."""
+    iou = pairwise_iou_xyxy(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    t = np.float32(thr)
+    return [int((iou == v).sum()) for v in (np.nextafter(t, np.float32(1)), t,
+                                            np.nextafter(t, np.float32(0)))]
+
+
+@pytest.mark.parametrize("case", ["chain", "ties", "near_threshold_0.5",
+                                  "near_threshold_0.45"])
 def test_nms_plain_walk_matches_jax_scan(case):
+    """nms_fixed (the plain version on the CPU) against JAX's nms_fixed,
+    elementwise equal: a chain that needs K steps, ties, and IoUs within
+    an ulp of the threshold (0.5, and 0.45, which fp32 rounds)."""
     K = 1500
-    boxes, scores, valid = nms_chain(K) if case == "chain" else nms_ties(K)
+    thr = float(case.split("_")[-1]) if case.startswith("near") else 0.5
+    boxes, scores, valid = {"chain": nms_chain, "ties": nms_ties}.get(
+        case, lambda K: nms_near_threshold(K, thr))(K)
+    if case.startswith("near"):
+        assert min(near_threshold_pairs(boxes, thr)) >= 10
     got = pnms.nms_fixed(*(torch.from_numpy(a[None]) for a in (boxes, scores, valid)),
-                         0.5)[0].numpy()
+                         thr)[0].numpy()
     want = np.asarray(jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores),
-                                     jnp.asarray(valid), 0.5))
+                                     jnp.asarray(valid), thr))
     assert np.array_equal(got, want)
     if case == "chain":
         assert np.array_equal(got, np.arange(K) % 2 == 0)
     assert 0 < got.sum() < valid.sum()
+
+
+def test_nms_class_shifted_matches_jax():
+    """batched_class_aware_nms on postprocess_refined's (proposal, class)
+    pairs at P = 50, C = 30 (near-threshold proposal pairs, so that the
+    rounding at the shifted coordinates decides) against JAX's, per
+    frame, elementwise equal."""
+    import chip_smoke
+    rng = np.random.default_rng(15)
+    frames = [chip_smoke.class_pairs(rng) for _ in range(2)]
+    boxes, scores, cls, valid = (np.stack(a) for a in zip(*frames))
+    shifted = pnms.class_shift(*map(torch.from_numpy, (boxes, cls, valid)))
+    assert float(shifted.max()) > 10000          # coordinates of the shift's size
+    assert sum(near_threshold_pairs(shifted[0].numpy(), 0.5)) > 0
+    got = pnms.batched_class_aware_nms(*map(torch.from_numpy, (boxes, scores, cls, valid)),
+                                       0.5).numpy()
+    for b in range(2):
+        want = np.asarray(jnms.batched_class_aware_nms(
+            *(jnp.asarray(a[b]) for a in (boxes, scores, cls, valid)), 0.5))
+        assert np.array_equal(got[b], want)
+        assert 0 < got[b].sum() < valid[b].sum()
+
+
+def _iou_decisions_as_nms_cu(boxes, thr):
+    """numpy mirror of nms.cu's arithmetic (fp32, one rounding an
+    operation, in its order: each box's area once, then for row i and
+    column j the clamped overlap, (area_i + area_j) - inter, + eps, the
+    division, `>` the fp32 threshold), for every (i, j)."""
+    f = np.float32
+    a, b = boxes[:, None, :], boxes[None, :, :]
+    area = (np.maximum(boxes[:, 2] - boxes[:, 0], f(0))
+            * np.maximum(boxes[:, 3] - boxes[:, 1], f(0)))
+    w = np.maximum(np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]), f(0))
+    h = np.maximum(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]), f(0))
+    inter = w * h
+    union = (area[:, None] + area[None, :]) - inter
+    return inter / (union + f(1e-16)) > f(thr)
+
+
+@pytest.mark.parametrize("case", ["near_threshold", "class_shifted", "ragged"])
+def test_nms_pack_bits_equal_torch_iou(case):
+    """The plain pack's tiles, unpacked, are `pairwise_iou_xyxy(...) > thr`
+    below the diagonal bit for bit, and nms.cu's arithmetic, mirrored in
+    numpy, makes the same decisions as the torch IoU (and JAX's eager
+    IoU): near the threshold, at the class shift's coordinates, and at a
+    K that leaves a ragged row block."""
+    import chip_smoke
+    rng = np.random.default_rng(16)
+    if case == "near_threshold":
+        boxes = np.stack([chip_smoke.near_threshold_boxes(rng, 400, 0.5) for _ in range(2)])
+    elif case == "class_shifted":
+        frames = [chip_smoke.class_pairs(rng) for _ in range(2)]
+        b, _, cls, valid = (torch.from_numpy(np.stack(a)) for a in zip(*frames))
+        boxes = pnms.class_shift(b, cls, valid).numpy()
+    else:
+        boxes = chip_smoke.near_threshold_boxes(rng, 35, 0.5)[None, :69]
+    B, K = boxes.shape[:2]
+    tb = torch.from_numpy(np.ascontiguousarray(boxes))
+    tiles = pkn.pack(tb, 0.5)
+    nb = (K + 31) // 32
+    assert tiles.shape == (B, nb * (nb + 1) // 2, 32) and tiles.dtype == torch.int32
+    iou = pairwise_iou_xyxy(tb, tb)
+    want = (iou > 0.5) & torch.ones(K, K, dtype=torch.bool).tril(-1)
+    assert torch.equal(pkn.unpack(tiles, K), want)
+    for b in range(B):
+        assert np.array_equal(_iou_decisions_as_nms_cu(boxes[b], 0.5), (iou[b] > 0.5).numpy())
+        jax_iou = np.asarray(jiou(jnp.asarray(boxes[b]), jnp.asarray(boxes[b])))
+        assert np.array_equal(jax_iou > np.float32(0.5), (iou[b] > 0.5).numpy())
+
+
+def test_nms_sorted_rejects_what_the_kernels_do_not_take():
+    boxes = torch.rand(1, 8, 4)
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    for bad in ((boxes.double(), valid), (boxes[..., :3], valid),
+                (boxes, valid[:, :7]), (boxes, valid.int())):
+        with pytest.raises(ValueError):
+            pkn.nms_sorted(*bad, 0.5)
+    with pytest.raises(ValueError):
+        pkn.pack(boxes.half(), 0.5)
 
 
 def test_hungarian_batch_and_masked():
@@ -442,12 +552,14 @@ def test_focus_cpu_output_is_nchw_like_the_card():
 def test_cpu_tensors_never_count_a_launch():
     rng = np.random.default_rng(5)
     counters = (pfa.fused_dual_attention, pkh.linear_sum_assignment,
-                pfs.focus_stem, pkn.nms_walk)
+                pfs.focus_stem, pkn.nms_sorted, pkn.pack)
     before = [c.launches for c in counters]
     pfa.fused_dual_attention(*map(torch.from_numpy,
                                   _attn_inputs(rng, 1, 2, 4, 8, 8)))
     pkh.linear_sum_assignment(torch.rand(1, 4, 4))
     pfs.focus_stem(*map(torch.from_numpy, _stem_inputs(rng, 1, 32, 32, 8)))
-    pkn.nms_walk(torch.ones(1, 4, 4, dtype=torch.bool).tril(-1),
-                 torch.ones(1, 4, dtype=torch.bool))
-    assert [c.launches for c in counters] == before == [0, 0, 0, 0]
+    boxes = torch.tensor([[[0., 0., 2., 2.], [0., 0., 2., 2.1], [5., 5., 6., 6.]]])
+    keep = pkn.nms_sorted(boxes, torch.ones(1, 3, dtype=torch.bool), 0.5)
+    assert keep.tolist() == [[True, False, True]]
+    pkn.pack(boxes, 0.5)
+    assert [c.launches for c in counters] == before == [0, 0, 0, 0, 0]

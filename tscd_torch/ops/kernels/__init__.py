@@ -5,7 +5,8 @@ the JAX package:
   fused_attention  <- tscd_tpu/ops/pallas/fused_attention.py
   hungarian        <- tscd_tpu/ops/pallas/hungarian.py (n <= 128) and
                       the XLA lowering of tscd_tpu/ops/hungarian.py (n > 128)
-  nms              <- the XLA scan of tscd_tpu/ops/nms.py (no Pallas kernel)
+  nms              <- the IoU matrix and XLA scan of tscd_tpu/ops/nms.py
+                      (no Pallas kernel)
 
 Each module holds the wrapper (launches the kernel on a CUDA tensor and
 counts the launch in `<wrapper>.launches`), the plain PyTorch version of

@@ -32,7 +32,8 @@ _SIGNATURES = {
         + [_I] * 5 + [_F, _I, _P],
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_linear_sum_assignment_block": [_P, _P, _I, _I, _P],
-    "tscd_nms_walk": [_P] * 4 + [_I, _I, _P],
+    "tscd_nms_pack": [_P, _P, _P, _I, _I, _F, _P],
+    "tscd_nms_sorted": [_P] * 4 + [_I, _I, _F, _P],
     "tscd_focus_stem": [_P] * 4 + [_I] * 5 + [_P],
     "tscd_focus_stem_bf16": [_P] * 3 + [_I] * 6 + [_P],
     "tscd_focus_stem_bf16_config": [_I] * 4 + [ctypes.POINTER(_I)],

@@ -2,15 +2,16 @@
 leading frame axis.
 
 Greedy NMS keeps box i (in score order) when it is valid and no earlier
-KEPT box overlaps it. The JAX package runs that as a K-step scan; here
-the overlap matrix is torch and the K-step walk is the hand kernel
-`ops.kernels.nms.nms_walk`, which on the card waits on nothing.
+KEPT box overlaps it. The JAX package builds the IoU matrix and runs a
+K-step scan; here the score order, the gathers and the scatter are
+torch, and the IoU, its threshold and the K-step walk are the hand
+kernels behind `ops.kernels.nms.nms_sorted`, which on the card write no
+(K, K) tensor and wait on nothing.
 """
 
 import torch
 
-from .boxes import pairwise_iou_xyxy
-from .kernels.nms import nms_walk
+from .kernels.nms import nms_sorted
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -20,30 +21,33 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def suppression_matrix(boxes: torch.Tensor, scores: torch.Tensor,
-                       valid: torch.Tensor, iou_threshold: float):
-    """The walk's inputs: the stable score order (B, K), sup (B, K, K)
-    bool in that order with sup[b, i, j] = box j comes before box i and
-    overlaps it above the threshold, and valid (B, K) in that order."""
+def score_order(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor):
+    """The stable descending score order (B, K) (invalid slots last, ties
+    to the lower slot, as JAX's argsort), and the boxes and valid flags
+    in that order: the hand kernels' inputs."""
     B, K = scores.shape
     key = torch.where(valid, scores, torch.full_like(scores, -float("inf")))
     order = torch.sort(key, dim=-1, descending=True, stable=True).indices
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(B, K, 4))
-    valid_s = torch.gather(valid, 1, order)
-    overlap = pairwise_iou_xyxy(boxes_s, boxes_s) > iou_threshold
-    earlier = torch.ones(K, K, dtype=torch.bool, device=boxes.device).tril(-1)
-    return order, overlap & earlier, valid_s
+    return order, boxes_s, torch.gather(valid, 1, order)
 
 
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
               iou_threshold: float) -> torch.Tensor:
-    """boxes (B, K, 4) xyxy, scores (B, K), valid (B, K) bool ->
-    keep (B, K) bool. Score order is stable (ties go to the lower slot);
-    invalid slots neither keep nor suppress."""
-    order, sup, valid_s = suppression_matrix(boxes, scores, valid,
-                                             iou_threshold)
-    keep = nms_walk(sup, valid_s)
+    """boxes (B, K, 4) xyxy fp32, scores (B, K), valid (B, K) bool ->
+    keep (B, K) bool. Invalid slots neither keep nor suppress."""
+    order, boxes_s, valid_s = score_order(boxes, scores, valid)
+    keep = nms_sorted(boxes_s, valid_s, iou_threshold)
     return torch.zeros_like(valid).scatter(1, order, keep)
+
+
+def class_shift(boxes: torch.Tensor, class_ids: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Each class's boxes moved to a region of its own: + class id x
+    (the frame's largest valid coordinate + 1)."""
+    masked = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    span = masked.amax(dim=(-2, -1), keepdim=True) + 1.0       # (B, 1, 1)
+    return boxes + class_ids.to(boxes.dtype)[..., None] * span
 
 
 def batched_class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor,
@@ -51,7 +55,5 @@ def batched_class_aware_nms(boxes: torch.Tensor, scores: torch.Tensor,
                             iou_threshold: float) -> torch.Tensor:
     """Class-aware NMS via per-class coordinate offsets (one pass);
     shapes as in `nms_fixed`, class_ids (B, K)."""
-    masked = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
-    span = masked.amax(dim=(-2, -1), keepdim=True) + 1.0       # (B, 1, 1)
-    shifted = boxes + class_ids.to(boxes.dtype)[..., None] * span
-    return nms_fixed(shifted, scores, valid, iou_threshold)
+    return nms_fixed(class_shift(boxes, class_ids, valid), scores, valid,
+                     iou_threshold)
