@@ -36,7 +36,13 @@ Phases, each of which raises on failure (so the run exits non-zero):
              version counted, and the kernel's registers, spills, shared
              memory, blocks per SM and HMMA instructions printed) and the
              attention
-             reading bf16 q/k/v (1e-5), checked and timed alike.
+             reading bf16 q/k/v (1e-5), checked and timed alike. The
+             attention's backward at the training shape (B 4, h 4, q 50,
+             k 650, d 64): the six q/k/v gradients through the wrapper's
+             autograd path (kernel forward, plain recompute) against
+             autograd of the plain version, 1e-5 of each gradient's max;
+             forward + backward, backward alone (device time) and the
+             plain forward + backward, timed.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -82,6 +88,24 @@ Phases, each of which raises on failure (so the run exits non-zero):
              uint8 window, the device's busy share of the evaluate loop
              and the host time a window outside dispatch/materialize;
              then the same evaluation again, traced, for the launches.
+  7. train_small  the selftest config: one stage-2 step (fix_bn, frozen
+             backbone, SimOTA, TSCD losses, grouped SGD, EMA) from the same
+             seeded weights and window, past warm-up, on the card machine's
+             CPU and on the card: losses 1e-4 relative, parameter updates
+             and EMA 1e-3 of the largest update beyond the fp32 spacing,
+             the backbone bit-unchanged.
+  8. train   TSCD-Large stage 2 through TSCDTrainer (4 + 12 frames at
+             576 px, fp32, TF32 off) on an in-memory dataset (2 videos x
+             24 seeded uint8 frames, 1-5 seeded boxes a frame: 12 windows)
+             in the recipe's no-aug tail: each step's losses and CUDA-event
+             time, frames/s, peak memory, the wrappers' launches over the
+             run, a checkpoint saved and loaded back; one more step under
+             torch.profiler (the stem, attention forward and backward and
+             solver launches in the device trace, the backward's
+             recompute ms, the device busy share, the step's time by
+             kernel class into build/profile_train_step.json) whose EMA is
+             checked against the formula; the backbone bit-unchanged; the
+             EMA weights evaluated on 8 in-memory val windows.
 On a card, `make_predict_fn(...).dispatch` runs each window as one
 replayed CUDA graph, which runs no Python: the launches of a path are
 counted in the device trace of torch.profiler (`traced_path`), with every
@@ -1198,17 +1222,19 @@ class SyntheticVID:
     WindowLoader (`res`, `img_size`, `load_frame`, `frame_index`): seeded
     uint8 frames at the size load_frame returns for a 720 x 1280 source
     (324 x 576 at 576 px, so the letterbox pads and the evaluator rescales),
-    seeded ground truth, and the windows VIDDataset builds (val, formal)
-    from `videos` videos of `frames` frames."""
+    seeded ground truth (1 to `max_boxes` boxes a frame), and the windows
+    VIDDataset builds from `videos` videos of `frames` frames: the val
+    windows (formal), or with `train` the training windows (exp.lframe +
+    exp.gframe, shuffled, at exp.input_size)."""
 
     SOURCE = (720, 1280)
 
-    def __init__(self, exp, videos, frames, seed):
+    def __init__(self, exp, videos, frames, seed, train=False, max_boxes=3):
         import numpy as np
 
         from tscd_torch.data.vid import build_sequences
         rng = np.random.default_rng(seed)
-        self.img_size = tuple(exp.test_size)
+        self.img_size = tuple(exp.input_size if train else exp.test_size)
         r = min(self.img_size[0] / self.SOURCE[0], self.img_size[1] / self.SOURCE[1])
         h, w = int(self.SOURCE[0] * r), int(self.SOURCE[1] * r)
         names = [[f"Data/VID/val/vid{v}/{i:06d}.JPEG" for i in range(frames)]
@@ -1216,15 +1242,20 @@ class SyntheticVID:
         self.frames, self.annos = {}, {}
         for p in (p for video in names for p in video):
             self.frames[p] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-            n = int(rng.integers(1, 4))
+            n = int(rng.integers(1, max_boxes + 1))
             xy = rng.uniform(0, (w - 40, h - 40), (n, 2))
             wh = rng.uniform(16, 160, (n, 2))
             x2y2 = np.minimum(xy + wh, (w, h))
             cls = rng.integers(0, exp.num_classes, (n, 1))
             self.annos[p] = np.concatenate([xy, x2y2, cls], 1).astype(np.float32)
-        self.res = build_sequences(names, exp.lframe_val, exp.gframe_val,
-                                   mode=exp.mode, formal=True, val=True,
-                                   rng=random.Random(seed))
+        if train:
+            self.res = build_sequences(names, exp.lframe, exp.gframe, mode=exp.mode,
+                                       training=True, rng=random.Random(seed),
+                                       label_counts={p: len(a) for p, a in self.annos.items()})
+        else:
+            self.res = build_sequences(names, exp.lframe_val, exp.gframe_val,
+                                       mode=exp.mode, formal=True, val=True,
+                                       rng=random.Random(seed))
 
     def load_frame(self, path):
         return self.frames[path], self.annos[path].copy(), self.SOURCE
@@ -1596,6 +1627,359 @@ def stem_graph_prep(torch, model, x):
           "prep_of_the_last": [{"name": e.name[:90],
                                 "ms": e.time_range.elapsed_us() / 1e3} for e in prep]})
 
+# -- stage-2 training ---------------------------------------------------------
+
+TRAIN_CONFIG = "TSCD-Large 4+12 frames 576px P=50, fp32, fix_bn, stop_backbone_grad"
+# the attention's gradients through the kernel's forward against autograd
+# of the plain version: the same recompute in both, so fp32 roundings of
+# another order at most
+ATTN_BWD_TOL = 1e-5          # of each gradient's largest value
+# one step on the card against the same step on the CPU: fp32 with other
+# convolution and matmul algorithms (TF32 off) on both sides
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_UPDATE_TOL = 1e-3      # of the largest update, plus the parameter's fp32 spacing
+
+
+def range_kernels(event):
+    """The device kernels launched below a profiled host event (a
+    profiler range): their count and device ms."""
+    n = len(event.kernels)
+    ms = sum(k.duration for k in event.kernels) / 1e3
+    for child in event.cpu_children:
+        cn, cms = range_kernels(child)
+        n, ms = n + cn, ms + cms
+    return n, ms
+
+
+def attention_backward_phase(torch, dev):
+    """Kernel check `fused_dual_attention backward`: at the training shape
+    (B = L = 4 local frames, h 4, q = P = 50, k = P + G P = 650, d 64,
+    fp32) the gradients of all six q/k/v inputs through the wrapper's
+    autograd path (kernel forward, plain recompute backward) against
+    autograd of the plain version on the card, under a random upstream
+    gradient on all three outputs; then the forward + backward call, the
+    backward alone (its device time in torch.profiler) and the plain
+    version's forward + backward, timed. Returns the row's `backward`."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.ops.kernels import fused_attention as fa
+    rng = np.random.default_rng(50)
+    B, h, q, k, d = 4, 4, 50, 650, 64
+    mk = lambda *sh: torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+    qkv = [mk(B, h, q, d), mk(B, h, k, d), mk(B, h, k, d), mk(B, h, q, d),
+           mk(B, h, k, d), mk(B, h, k, d)]
+    score = torch.as_tensor(rng.uniform(0, 1, (B, k)).astype(np.float32), device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(B, k)) > 0.2, device=dev)
+    cot = [mk(B, h, q, d), mk(B, h, q, d), mk(B, h, q, k)]
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    ref = [t.clone().requires_grad_(True) for t in qkv]
+    n0, b0 = fa.fused_dual_attention.launches, fa.fused_dual_attention.backward_calls
+    got = torch.autograd.grad(fa.fused_dual_attention(*ins, score, valid), ins, cot)
+    if (fa.fused_dual_attention.launches - n0, fa.fused_dual_attention.backward_calls - b0) != (1, 1):
+        raise AssertionError("the autograd path did not launch the kernel once and "
+                             "run its backward once")
+    want = torch.autograd.grad(fa.fused_dual_attention_plain(*ref, score, valid), ref, cot)
+    errs = {}
+    for name, g, w in zip(("qc", "kc", "vc", "qr", "kr", "vr"), got, want):
+        errs[name] = float((g - w).abs().max() / w.abs().max())
+    ok = all(np.isfinite(v) and v <= ATTN_BWD_TOL for v in errs.values())
+    emit({"phase": "kernels", "check": "fused_dual_attention backward (B 4, h 4, q 50, k 650, d 64)",
+          "max_rel_err": errs, "tolerance": f"{ATTN_BWD_TOL} of each gradient's max",
+          "pass": ok})
+    if not ok:
+        raise AssertionError(f"attention backward differs from autograd of the plain version: {errs}")
+
+    outs = fa.fused_dual_attention(*ins, score, valid)
+    bwd = lambda: torch.autograd.grad(outs, ins, cot, retain_graph=True)
+    reps = 50
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bwd()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and e.key != "Activity Buffer Request") / 1e3 / reps
+    # recompute (q.k of both branches, attn @ V of both: 8 q k d) and the
+    # VJP (dattn from both outputs, dV, dq and dk of both branches: 16 q k
+    # d) per (batch, head); each input, upstream gradient and output
+    # gradient moved once
+    nbytes = 4 * (2 * 2 * B * h * q * d + 4 * B * h * k * d + B * k + B * h * q * k) + B * k
+    flops = B * h * 24 * q * k * d
+    b_ms, b_by = bound(nbytes, (flops, H100_FP32_FLOPS))
+    return dict(
+        route="plain PyTorch recompute: autograd of fused_dual_attention_plain",
+        replaces="tscd_tpu/ops/pallas/fused_attention.py:95-106 (_fused_bwd_rule: "
+                 "XLA's VJP of dual_attention_reference, no Pallas kernel)",
+        shape={"B": B, "h": h, "q": q, "k": k, "d": d}, max_rel_err=max(errs.values()),
+        ms=dev_ms, call_ms=cuda_ms(torch, bwd, reps),
+        fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            fa.fused_dual_attention(*ins, score, valid), ins, cot), reps),
+        plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            fa.fused_dual_attention_plain(*ref, score, valid), ref, cot), reps),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def train_window(torch, exp, seed):
+    """One seeded training window of `exp`: uint8 frames (F, H, W, 3) at
+    exp.input_size, 1-5 seeded boxes a frame as (F, 120, 5) [cls, cx, cy,
+    w, h] labels, the time embedding of frames 0..F-1."""
+    import numpy as np
+
+    from tscd_torch.ops.position import get_timing_signal_1d
+    rng = np.random.default_rng(seed)
+    F = exp.lframe + exp.gframe
+    H, W = exp.input_size
+    x = rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)
+    lab = np.zeros((F, 120, 5), np.float32)
+    for f in range(F):
+        n = int(rng.integers(1, 6))
+        wh = rng.uniform(0.05, 0.5, (n, 2)) * (W, H)
+        cxy = rng.uniform(wh / 2, (W, H) - wh / 2)
+        lab[f, :n] = np.concatenate([rng.integers(0, exp.num_classes, (n, 1)), cxy, wh], 1)
+    te = get_timing_signal_1d(np.arange(F, dtype=np.float32), 256)
+    return torch.from_numpy(x), torch.from_numpy(lab), torch.from_numpy(te)
+
+
+def boxes_near_proposals(torch, exp, window, seed):
+    """`window` with each local frame's first 3 gts moved near the boxes of
+    the seeded model's first 3 proposals there (centres a pixel or two
+    off, sizes 10-40% larger), so that the refined losses see fg."""
+    import numpy as np
+
+    from tscd_torch.models.tscd import random_init_
+    x, lab, te = window
+    model = random_init_(exp.get_model(device="cpu"), exp.seed)
+    b = model(x, te, exp.lframe, exp.gframe)["proposals"].boxes[:exp.lframe, :3].numpy()
+    rng = np.random.default_rng(seed)
+    cxcywh = np.concatenate([(b[..., :2] + b[..., 2:]) / 2, b[..., 2:] - b[..., :2]], -1)
+    cxcywh[..., :2] += rng.uniform(-2, 2, cxcywh[..., :2].shape)
+    cxcywh[..., 2:] *= rng.uniform(1.1, 1.4, cxcywh[..., 2:].shape)
+    lab = lab.clone()
+    lab[:exp.lframe, :3, 1:] = torch.from_numpy(cxcywh.astype(np.float32))
+    lab[:exp.lframe, :3, 0] = torch.from_numpy(
+        rng.integers(0, exp.num_classes, (exp.lframe, 3)).astype(np.float32))
+    return x, lab, te
+
+
+def one_train_step(torch, exp, dev, window, iters, step0):
+    """A stage-2 step of `exp`'s model, seeded weights, on `dev`, from
+    update count `step0` (past warm-up); returns the host copies of the
+    losses, the state before and after, the EMA and the step's LR."""
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.step import init_train_state, train_step
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    opt = exp.get_optimizer(model, iters)
+    opt.count = step0
+    st = init_train_state(model, opt, exp.ema_decay)
+    host = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}
+    before = host(model.state_dict())
+    lr = opt.lr()
+    losses = train_step(st, *(t.to(dev) for t in window), exp.lframe, exp.gframe,
+                        ota_mode=exp.ota_mode)
+    return ({k: float(v) for k, v in losses.items()}, before, host(model.state_dict()),
+            host(st.ema.state_dict()), lr)
+
+
+def train_small_phase(torch):
+    """The selftest config (depth 0.33, width 0.125, P = 6, 2 + 2 frames,
+    128 px): one stage-2 step from the same seeded weights, window and
+    boxes, past warm-up, on the card machine's CPU (plain versions) and on
+    the card (kernels): losses, parameter updates and EMA must agree, the
+    backbone stay bit-unchanged. The local frames hold gts near the
+    model's own proposals, so that every loss term is driven."""
+    import numpy as np
+
+    from tscd_torch.exp.tscd_large import selftest_exp
+    exp = selftest_exp()
+    iters = 4
+    step0 = iters * exp.warmup_epochs + 1
+    window = boxes_near_proposals(torch, exp, train_window(torch, exp, 41), 42)
+    cpu = one_train_step(torch, exp, "cpu", window, iters, step0)
+    card = one_train_step(torch, exp, "cuda", window, iters, step0)
+    loss_err = max(abs(card[0][k] - v) / max(abs(v), 1e-6) for k, v in cpu[0].items())
+    before, trained = card[1], [k for k in card[1] if not k.startswith("backbone")]
+    frozen = all(torch.equal(before[k], card[2][k]) for k in before if k.startswith("backbone"))
+    upd = {k: (cpu[2][k].double() - cpu[1][k].double()) for k in trained}
+    dmax = max(float(u.abs().max()) for u in upd.values())
+
+    def worst(got, want):
+        return max(float(((g.double() - want[k].double()).abs()
+                          - torch.as_tensor(np.spacing(np.abs(want[k].numpy())))).max())
+                   for k, g in got.items() if g.is_floating_point())
+
+    upd_err = worst({k: card[2][k] for k in trained}, cpu[2])
+    ema_err = worst(card[3], cpu[3])
+    finite = all(np.isfinite(v) for v in card[0].values())
+    refined = cpu[0]["loss_refined_cls"] > 0 and cpu[0]["loss_matched_iou"] > 0
+    ok = (frozen and finite and refined and card[4] > 0 and loss_err <= TRAIN_LOSS_RTOL and dmax > 0
+          and upd_err <= TRAIN_UPDATE_TOL * dmax and ema_err <= TRAIN_UPDATE_TOL * dmax)
+    emit({"phase": "train_small", "config": "selftest 2+2 frames 128px P=6",
+          "step": step0, "lr": card[4], "losses_card": card[0], "losses_cpu": cpu[0],
+          "loss_max_rel_err": loss_err, "max_update": dmax,
+          "update_max_err_beyond_spacing": upd_err, "ema_max_err_beyond_spacing": ema_err,
+          "backbone_bit_unchanged": frozen,
+          "tolerance": {"losses": f"{TRAIN_LOSS_RTOL} relative",
+                        "updates and EMA": f"{TRAIN_UPDATE_TOL} of the largest update "
+                                           "beyond each parameter's fp32 spacing"},
+          "pass": ok})
+    if not ok:
+        raise AssertionError("train_small: the card's step departs from the CPU's")
+
+
+def train_phase(torch, counters, steps=12):
+    """TSCD-Large stage 2 through TSCDTrainer: an in-memory dataset with
+    VIDDataset's interface (2 videos x 24 seeded uint8 frames at 324 x
+    576, 1-5 seeded boxes a frame; 12 windows of 4 + 12 frames), the
+    recipe's LR schedule in its no-aug tail (the last epoch), pinned
+    uploads. Every step timed with CUDA events; the wrappers' launches
+    over the run; a checkpoint saved and loaded back; then one more step
+    under torch.profiler (launches in the device trace, the attention's
+    backward recompute, device busy ms) whose EMA is checked against the
+    formula; the backbone bit-unchanged; the EMA weights evaluated."""
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.data.vid import WindowLoader
+    from tscd_torch.exp.tscd_large import Exp
+    from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.train.checkpoint import load_checkpoint
+    from tscd_torch.train.ema import ema_decay
+
+    class InMemory(Exp):
+        def get_train_dataset(self):
+            return SyntheticVID(self, videos=2, frames=24, seed=23, train=True, max_boxes=5)
+
+    exp = InMemory()
+    exp.output_dir = os.path.join(HERE, "build", "train_phase")
+    exp.print_interval = steps
+    exp.eval_interval = exp.max_epoch + 1          # evaluated below, after the counts
+    args = type("Args", (), {"start_epoch": exp.max_epoch - 1})()
+    shutil.rmtree(exp.output_dir, ignore_errors=True)
+    trainer = exp.get_trainer(args)
+    step_fn, marks, records, frozen = trainer.step, [], [], {}
+
+    def timed_step(frames, labels, te):
+        if not records:
+            frozen.update({k: v.clone() for k, v in trainer.model.state_dict().items()
+                           if k.startswith("backbone")})
+        marks.append(time.perf_counter())
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = step_fn(frames, labels, te)
+        b.record()
+        records.append((a, b, losses))
+        return losses
+
+    trainer.step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    fa.fused_dual_attention.backward_calls = 0
+    t0 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    backward_calls = fa.fused_dual_attention.backward_calls
+    n = len(records)
+    opt = state.optimizer
+    lrs = [opt.lr(opt.count - n), opt.lr(opt.count - 1)]
+    want = {"focus_stem": n, "fused_dual_attention": 2 * n,
+            "hungarian": exp.lframe * n, "nms": 0}
+    if n != steps or launches != want or backward_calls != 2 * n:
+        raise AssertionError(f"{n} steps (of {steps}); wrapper launches {launches} != {want} "
+                             f"or {backward_calls} attention backwards")
+    losses = [{k: float(v) for k, v in r[2].items()} for r in records]
+    if not all(np.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    step_ms = [a.elapsed_time(b) for a, b, _ in records]
+    timed_ms = step_ms[2:]
+
+    # the final epoch's checkpoint loads back to the same state
+    ckpt = load_checkpoint(os.path.join(trainer.file_name, "latest_ckpt.pth"))
+    same_ckpt = (ckpt["start_epoch"] == exp.max_epoch and ckpt["step"] == state.step
+                 and all(torch.equal(ckpt["model"][k], v.cpu()) for k, v in state.ema.state.items())
+                 and all(torch.equal(ckpt["raw_model"][k], v.cpu())
+                         for k, v in state.model.state_dict().items())
+                 and all(torch.equal(ckpt["optimizer"]["trace"][k], v.cpu())
+                         for k, v in state.optimizer.trace.items()))
+    ckpt_mb = os.path.getsize(os.path.join(trainer.file_name, "latest_ckpt.pth")) / 2 ** 20
+    shutil.rmtree(exp.output_dir, ignore_errors=True)
+    if not same_ckpt:
+        raise AssertionError("the saved checkpoint does not load back to the trained state")
+
+    # one more step, traced: launches in the device trace, the backward's
+    # recompute, the device's busy time; its EMA against the formula
+    batch = next(iter(trainer._loader(exp.max_epoch - 1)))
+    frames, labels, te = trainer._upload(batch)
+    torch.cuda.synchronize()
+    ema_before = {k: v.clone() for k, v in state.ema.state.items() if v.is_floating_point()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step_fn(frames, labels, te)
+        b.record()
+        torch.cuda.synchronize()
+    traced_ms = a.elapsed_time(b)
+    d = float(ema_decay(state.step, exp.ema_decay))
+    keep = float(np.float32(1) - np.float32(d))
+    new = state.model.state_dict()
+    ema_err = max(float((state.ema.state[k] - (e * d + new[k] * keep)).abs().max())
+                  for k, e in ema_before.items())
+    trace = trace_launches(prof)
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.key != "Activity Buffer Request"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    bwd = [range_kernels(e) for e in prof.events()
+           if e.name == fa.BACKWARD_RANGE and e.device_type == DeviceType.CPU]
+    per_step = {"focus_stem": trace["focus_stem"],
+                "fused_dual_attention_forward": trace["fused_dual_attention"],
+                "fused_dual_attention_backward_calls": len(bwd),
+                "fused_dual_attention_backward_kernels": sum(k for k, _ in bwd),
+                "hungarian": trace["hungarian"], "nms": trace["nms"]}
+    if (per_step["focus_stem"], per_step["fused_dual_attention_forward"], len(bwd),
+            per_step["hungarian"]) != (1, 2, 2, exp.lframe) or not all(k for k, _ in bwd):
+        raise AssertionError(f"a traced training step's launches {per_step}")
+    after = state.model.state_dict()
+    bit_unchanged = all(torch.equal(after[k], v) for k, v in frozen.items())
+    if not bit_unchanged or ema_err > 1e-6:
+        raise AssertionError(f"backbone changed ({not bit_unchanged}) or the EMA departs "
+                             f"from the formula by {ema_err}")
+    table = sorted(({"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in kernels), key=lambda r: -r["ms"])
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "profile_train_step.json"), "w") as f:
+        json.dump({"by_class": breakdown(table, TRAIN_KERNEL_CLASSES), "kernels": table}, f)
+
+    val = SyntheticVID(exp, videos=1, frames=8, seed=24)
+    trainer.val_loader = WindowLoader(val, pin_memory=True)
+    ap50 = trainer.evaluate()
+    emit({"phase": "train", "config": TRAIN_CONFIG, "steps": n, "windows": len(trainer.dataset.res),
+          "epoch": exp.max_epoch, "lr_first_last": lrs,
+          "losses": losses, "step_ms": step_ms,
+          "median_step_ms_after_2": float(np.median(timed_ms)),
+          "frames_per_s": 16 * len(timed_ms) / (sum(timed_ms) / 1e3),
+          "loop_frames_per_s": 16 * (n - 1) / (marks[-1] - marks[0]),
+          "train_s": train_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "wrapper_launches": launches, "attention_backward_calls": backward_calls,
+          "traced_step": {"step_ms": traced_ms, "device_busy_ms": busy_ms,
+                          "device_busy_share": busy_ms / traced_ms,
+                          "launches": per_step,
+                          "attention_backward_ms": sum(ms for _, ms in bwd),
+                          "by_class": breakdown(table, TRAIN_KERNEL_CLASSES),
+                          "kernels": sum(r["calls"] for r in table), "top": table[:12]},
+          "ema_formula_max_err": ema_err, "backbone_bit_unchanged": bit_unchanged,
+          "checkpoint_round_trip": same_ckpt, "checkpoint_mb": ckpt_mb,
+          "eval_ap50_of_ema": ap50, "eval_windows": len(val.res)})
+    if not np.isfinite(ap50):
+        raise AssertionError("evaluate() gave no AP50")
+    return per_step
+
 
 HAND_KERNELS = ("focus_stem_kernel", "focus_stem_mma", "fused_dual_attention",
                 "linear_sum_assignment",
@@ -1614,12 +1998,27 @@ KERNEL_CLASSES = (   # first match wins
 )
 
 
-def breakdown(table):
+# a training step's kernels: the backward's convs and the optimizer too
+TRAIN_KERNEL_CLASSES = (   # first match wins
+    ("cuDNN FFT convs (FFTs, complex GEMMs, products)",
+     ("fft", "pointwise_mult_and_sum_complex", "cf32cf32")),
+    ("cuDNN convs, forward (implicit GEMM)", ("fprop", "implicit_convolve")),
+    ("cuDNN convs, backward (dgrad, wgrad, winograd)", ("dgrad", "wgrad", "winograd")),
+    ("GEMMs (Linear layers, einsums)", ("gemm",)),
+    ("BatchNorm forward and backward", ("bn_fw_inf", "batch_norm_backward")),
+    ("SiLU forward and backward", ("silu_",)),
+    ("hand kernels", HAND_KERNELS),
+    ("SGD and EMA (multi-tensor)", ("multi_tensor_apply",)),
+    ("sorts (SimOTA top-k, proposals)", ("RadixSort",)),
+)
+
+
+def breakdown(table, classes=KERNEL_CLASSES):
     """Device ms by kernel class over rows {"name", "ms"}."""
-    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out = {name: 0.0 for name, _ in classes}
     out["the rest"] = 0.0
     for row in table:
-        cls = next((name for name, keys in KERNEL_CLASSES
+        cls = next((name for name, keys in classes
                     if any(k in row["name"] for k in keys)), "the rest")
         out[cls] += row["ms"]
     return out
@@ -1800,6 +2199,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rows = kernel_phase(torch, dev)
+    rows["fused_dual_attention"]["backward"] = attention_backward_phase(torch, dev)
     small_phase(torch)
     # each row's launches in the 3 traced windows of its model's phase
     launches, carried, sorted_in, stage = full_phase(torch, counters)
@@ -1809,6 +2209,14 @@ def main() -> int:
     for name in ("focus_stem_bf16", "fused_dual_attention_bf16"):
         launches[name] = launches_bf16[name]
     eval_phase(torch, counters)
+    train_small_phase(torch)
+    per_step = train_phase(torch, counters)
+    rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
+        "calls": per_step["fused_dual_attention_backward_calls"],
+        "kernels": per_step["fused_dual_attention_backward_kernels"]}
+    for name in KERNELS:
+        rows[name]["launches_per_train_step"] = per_step.get(
+            "fused_dual_attention_forward" if name == "fused_dual_attention" else name, 0)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

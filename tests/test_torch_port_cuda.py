@@ -424,3 +424,47 @@ def test_cuda_selftest_evaluator_matches_cpu(card):
     (rc, wc), (rg, wg) = out["cpu"], out["cuda"]
     assert chip_smoke.match_rows(wc, wg, 1e-4, 1e-4)[1] > 0
     np.testing.assert_allclose(rg["stats"], rc["stats"], atol=1e-4)
+
+
+@pytest.fixture
+def fp32_card(card):
+    """The card with TF32 off for convs and matmuls, restored after."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,q,k,d", [(4, 4, 50, 650, 64), (2, 2, 13, 70, 24)])
+def test_cuda_attention_backward_matches_plain_autograd(fp32_card, B, h, q, k, d):
+    """The wrapper's autograd path (kernel forward, plain recompute
+    backward) against autograd of the plain version on the card: the six
+    q/k/v gradients within 1e-5 of each one's largest value, none for
+    cls_score; one launch and one backward counted."""
+    rng = np.random.default_rng(B * 100 + k)
+    ins = [torch.from_numpy(a).to(fp32_card) for a in _attn_inputs(rng, B, h, q, k, d)]
+    cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(fp32_card)
+           for s in ((B, h, q, d), (B, h, q, d), (B, h, q, k))]
+    got_in = [t.clone().requires_grad_(True) for t in ins[:7]]
+    want_in = [t.clone().requires_grad_(True) for t in ins[:7]]
+    n0, b0 = pfa.fused_dual_attention.launches, pfa.fused_dual_attention.backward_calls
+    got = torch.autograd.grad(pfa.fused_dual_attention(*got_in, ins[7]), got_in, cot,
+                              allow_unused=True)
+    assert (pfa.fused_dual_attention.launches - n0,
+            pfa.fused_dual_attention.backward_calls - b0) == (1, 1)
+    want = torch.autograd.grad(pfa.fused_dual_attention_plain(*want_in, ins[7]), want_in[:6], cot)
+    assert got[6] is None
+    for g, w in zip(got[:6], want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_train_small_step_matches_cpu(fp32_card):
+    """chip_smoke.py's `train_small` phase: one stage-2 step of the
+    selftest config from the same seeded weights and window, past
+    warm-up, on the card and on the CPU: losses 1e-4 relative, updates
+    and EMA 1e-3 of the largest update beyond the fp32 spacing, every loss
+    term driven, the backbone bit-unchanged (it raises otherwise)."""
+    import chip_smoke
+    chip_smoke.train_small_phase(torch)

@@ -93,6 +93,7 @@ def make_predict_fn(model: TSCD, lframe: int, gframe: int,
     C = model.num_classes
     graphs: Dict[tuple, _WindowGraph] = {}
 
+    @torch.no_grad()
     def run(x: torch.Tensor, t: torch.Tensor, st: MatcherState) -> Window:
         out = model(x, t, lframe, gframe, matcher_state=st)
         refined, _ = tscd_eval_postprocess(out, lframe, C,

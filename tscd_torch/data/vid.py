@@ -1,12 +1,15 @@
-"""ImageNet VID val windows (counterpart of tscd_tpu/data/vid.py, the
-val path): the class map, XML annotations, sequence construction, the
-dataset, the window collate and a background-thread window loader.
+"""ImageNet VID windows (counterpart of tscd_tpu/data/vid.py): the class
+map, XML annotations, sequence construction, the dataset, the window
+collate and a background-thread window loader, for eval and for
+stage-2 training (shuffled windows, cxcywh labels, the window's own
+frame index as time, the horizontal flip).
 
 Frames are decoded with OpenCV, imported only where a frame is read:
 another decoder or resize would change pixels against the JAX package,
-so nothing takes its place where `cv2` is missing. The train-time
-branches (augmentation, cxcywh labels, batched windows) and the OVIS and
-Argoverse datasets are not ported yet.
+so nothing takes its place where `cv2` is missing. Not ported yet: the
+HSV jitter (it needs cv2's uint8 BGR<->HSV, and raises), batched
+windows (`exp.check_train_knobs` raises), and the OVIS and Argoverse
+datasets.
 """
 
 import os
@@ -161,14 +164,16 @@ def frame_index(path: str) -> int:
 
 
 class VIDDataset:
-    """ImageNet VID sequence dataset, val side (reference VIDDataset,
-    vid.py:48). `file_path` is the val_seq.npy list of videos; XML
-    annotations load up front (into the pickle `cache_file` if given)."""
+    """ImageNet VID sequence dataset (reference VIDDataset, vid.py:48).
+    `file_path` is the train_seq.npy or val_seq.npy list of videos; XML
+    annotations load up front (into the pickle `cache_file` if given).
+    `training` caps the windows a video and skips windows without labels
+    (photo_to_sequence)."""
 
     def __init__(self, file_path: str, img_size=(576, 576), lframe=1,
                  gframe=31, val=True, mode="random", dataset_pth="",
                  tnum=-1, formal=False, traj_linking=False, local_stride=1,
-                 cache_file=""):
+                 cache_file="", training=False):
         self.img_size = tuple(img_size)
         self.dataset_pth = dataset_pth
         self.val = val
@@ -176,8 +181,8 @@ class VIDDataset:
         self.annotations = self._preload_annotations(cache_file)
         label_counts = {k: len(v) for k, v in self.annotations.items()}
         self.res = build_sequences(
-            self.videos, lframe, gframe, mode=mode, local_stride=local_stride,
-            traj_linking=traj_linking, formal=formal,
+            self.videos, lframe, gframe, mode=mode, training=training,
+            local_stride=local_stride, traj_linking=traj_linking, formal=formal,
             label_counts=label_counts, val=val, tnum=tnum)
         self.lframe, self.gframe = lframe, gframe
 
@@ -225,57 +230,108 @@ class VIDDataset:
         return frame_index(rel_path)
 
 
+HSV_NOT_PORTED = ("HSV jitter needs cv2's uint8 BGR<->HSV, which the card's "
+                  "machine lacks; set hsv_prob = 0 (ROADMAP queue 1 item 9, "
+                  "what it leaves, 2: a numpy port of it)")
+
+
 def collate_window(dataset, paths: Sequence[str], pool: ThreadPoolExecutor,
-                   max_labels: int = 120, img_dtype=np.uint8):
+                   max_labels: int = 120, img_dtype=np.uint8, *,
+                   train_time_index: bool = False, cxcywh: bool = False,
+                   augment: bool = False, hsv_prob: float = 1.0,
+                   flip_prob: float = 0.5,
+                   rng: Optional[np.random.Generator] = None):
     """Loads one (lframe + gframe) window -> numpy batch dict (reference
-    collate_fn, vid.py:817): imgs (F, H, W, 3) letterboxed (114 pad),
-    labels (F, max_labels, 5) [cls, x1, y1, x2, y2], time_embedding
-    (F, 256) from the frame numbers, infos [(h, w)], paths. Frames load
-    through `pool`, so `dataset.load_frame` must be thread-safe."""
+    collate_fn / collate_fn_train, vid.py:817,838): imgs (F, H, W, 3)
+    letterboxed (114 pad), labels (F, max_labels, 5) [cls, x1, y1, x2, y2]
+    (or [cls, cx, cy, w, h] with `cxcywh`), time_embedding (F, 256) from
+    the frame numbers (from 0..F-1 with `train_time_index`), infos
+    [(h, w)], paths. Frames load through `pool`, so `dataset.load_frame`
+    must be thread-safe.
+
+    `augment` flips the whole window horizontally with one draw from
+    `rng` (probability `flip_prob`), every frame alike, as JAX does; its
+    HSV jitter (`hsv_prob` > 0) is not ported and raises."""
+    if augment and hsv_prob > 0:
+        raise NotImplementedError(HSV_NOT_PORTED)
     H, W = dataset.img_size
     F = len(paths)
     imgs = np.full((F, H, W, 3), 114, img_dtype)
     labels = np.zeros((F, max_labels, 5), np.float32)
+    do_flip = augment and (rng or np.random.default_rng()).random() < flip_prob
     loaded = list(pool.map(dataset.load_frame, paths))
     infos, idxs = [], []
     for i, (p, (img, annos, info)) in enumerate(zip(paths, loaded)):
+        if do_flip:
+            w_img = img.shape[1]
+            img = np.ascontiguousarray(img[:, ::-1])
+            if len(annos):
+                annos = annos.copy()
+                x1 = annos[:, 0].copy()
+                annos[:, 0] = w_img - annos[:, 2]
+                annos[:, 2] = w_img - x1
         imgs[i, :img.shape[0], :img.shape[1]] = img
         n = min(len(annos), max_labels)
         if n:
-            labels[i, :n] = np.concatenate([annos[:n, 4:5], annos[:n, :4]], 1)
+            lab = np.concatenate([annos[:n, 4:5], annos[:n, :4]], 1)
+            if cxcywh:
+                xy = lab[:, 1:].copy()
+                lab[:, 1] = (xy[:, 0] + xy[:, 2]) / 2
+                lab[:, 2] = (xy[:, 1] + xy[:, 3]) / 2
+                lab[:, 3] = xy[:, 2] - xy[:, 0]
+                lab[:, 4] = xy[:, 3] - xy[:, 1]
+            labels[i, :n] = lab
         infos.append(info)
-        idxs.append(dataset.frame_index(p))
+        idxs.append(i if train_time_index else dataset.frame_index(p))
     te = get_timing_signal_1d(np.asarray(idxs, np.float32), 256)
     return {"imgs": imgs, "labels": labels, "time_embedding": te,
             "infos": infos, "paths": list(paths)}
 
 
 class WindowLoader:
-    """Iterates the dataset's windows in order, collated by a background
-    thread a few windows ahead (reference DataPrefetcher, vid.py:963),
-    frames decoded by a pool of threads.
+    """Iterates the dataset's windows, collated by a background thread a
+    few windows ahead (reference DataPrefetcher, vid.py:963), frames
+    decoded by a pool of threads. In order by default; the train loader
+    (`exp.get_data_loader`) shuffles them each pass and draws the flips
+    from the generator `rng`.
 
-    With `pin_memory` (a CUDA predict device) the worker turns `imgs` and
-    `time_embedding` into pinned CPU tensors, so the predict step uploads
-    them with non_blocking copies that do not wait on the card. An error
-    in the worker is raised in the consumer."""
+    With `pin_memory` (a CUDA device) the worker turns `imgs` and
+    `time_embedding` into pinned CPU tensors, so the step uploads them
+    with non_blocking copies that do not wait on the card.
+    An error in the worker is raised in the consumer."""
 
-    def __init__(self, dataset, img_dtype=np.uint8, pin_memory: bool = False):
+    def __init__(self, dataset, img_dtype=np.uint8, pin_memory: bool = False,
+                 shuffle: bool = False, train_time_index: bool = False,
+                 cxcywh: bool = False, augment: bool = False,
+                 hsv_prob: float = 1.0, flip_prob: float = 0.5,
+                 rng: Optional[np.random.Generator] = None):
+        if augment and hsv_prob > 0:
+            raise NotImplementedError(HSV_NOT_PORTED)
         self.dataset = dataset
         self.img_dtype = img_dtype
         self.pin_memory = pin_memory
+        self.shuffle = shuffle
+        self.rng = rng if rng is not None else np.random.default_rng()
+        self.collate_kw = dict(img_dtype=img_dtype,
+                               train_time_index=train_time_index,
+                               cxcywh=cxcywh, augment=augment,
+                               hsv_prob=hsv_prob, flip_prob=flip_prob,
+                               rng=self.rng)
 
     def __len__(self):
         return len(self.dataset.res)
 
     def _collate(self, paths, pool):
-        batch = collate_window(self.dataset, paths, pool, img_dtype=self.img_dtype)
+        batch = collate_window(self.dataset, paths, pool, **self.collate_kw)
         if self.pin_memory:
             for k in ("imgs", "time_embedding"):
                 batch[k] = torch.from_numpy(batch[k]).pin_memory()
         return batch
 
     def __iter__(self):
+        windows = list(self.dataset.res)
+        if self.shuffle:
+            windows = [windows[i] for i in self.rng.permutation(len(windows))]
         q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         end = object()
@@ -292,7 +348,7 @@ class WindowLoader:
             try:
                 with ThreadPoolExecutor(_DECODE_WORKERS,
                                         thread_name_prefix="vid-decode") as pool:
-                    for paths in self.dataset.res:
+                    for paths in windows:
                         if stop.is_set():
                             return
                         put(self._collate(paths, pool))

@@ -214,8 +214,11 @@ class RegMatcher(nn.Module):
             edge, t, vl = edges[i], time_proj[i], valid[i]
             st = state
             first = ~st.has_state
+            # the solver reads a detached cost; the gathers by its
+            # assignment stay differentiable, and the bank carries the
+            # gradient from frame to frame, as JAX's scan does
             cost = dual_match_cost(st.cls_embeds, cls_e, st.reg_embeds, reg_e)
-            perm = masked_linear_sum_assignment(cost, st.valid, vl).long()
+            perm = masked_linear_sum_assignment(cost.detach(), st.valid, vl).long()
             # sequence start: identity assignment (reference :788)
             perm = torch.where(first, ar, perm)
             m_feat, m_edge = feat[perm], edge[perm]

@@ -1,6 +1,8 @@
 """TSCD top model (counterpart of tscd_tpu/models/tscd.py; reference
-yolox/models/tscd.py:11): YOLOPAFPN + TSCDHead over a frame window, eval
-forward only, plus the final eval postprocess."""
+yolox/models/tscd.py:11): YOLOPAFPN + TSCDHead over a frame window, plus
+the final eval postprocess. The forward is the eval forward; in train
+mode it is the stage-2 training forward (`fix_bn`, `stop_backbone_grad`),
+which autograd records."""
 
 import math
 from typing import Any, Dict, Optional, Tuple, Union
@@ -58,9 +60,11 @@ class TSCD(nn.Module):
         self.eval()
 
     def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError("the port runs the eval forward only")
-        return super().train(False)
+        """Train mode records the forward for autograd; every module stays
+        in eval mode, so BN keeps its running statistics (fix_bn)."""
+        super().train(False)
+        self.training = mode
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -74,11 +78,14 @@ class TSCD(nn.Module):
         lframe + gframe, H and W multiples of 32), fp32 or uint8;
         time_embedding: (F, 256). Returns the head's dict (raw outputs,
         refined logits and the matcher state in the compute dtype); thread
-        out["matcher_state"] into the next window."""
+        out["matcher_state"] into the next window. In train mode, where
+        autograd is on, the head's forward is recorded and the backbone's
+        is not (its outputs are detached: stop_backbone_grad)."""
         if x.shape[0] != lframe + gframe:
             raise ValueError(f"{x.shape[0]} frames != {lframe} + {gframe}")
         with torch.no_grad():
             fpn_outs = self.backbone(x)
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             return self.head(fpn_outs, time_embedding, lframe,
                              matcher_state=matcher_state)
 

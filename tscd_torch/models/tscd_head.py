@@ -67,6 +67,20 @@ def select_frame_proposals(decoded: torch.Tensor, num_classes: int, p: int,
                           _gather_rows(cls_scores, idx), idx, valid)
 
 
+def encode_reg_targets(gt_cxcywh: torch.Tensor, still_boxes: torch.Tensor,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """Inverse of decode_reg_offsets (encode_reg_preds, tscd_head.py:951):
+    cxcywh targets + still-detector xyxy boxes -> dx/dy/dw/dh."""
+    w = still_boxes[..., 2] - still_boxes[..., 0]
+    h = still_boxes[..., 3] - still_boxes[..., 1]
+    cx = still_boxes[..., 0] + 0.5 * w
+    cy = still_boxes[..., 1] + 0.5 * h
+    return torch.stack([(gt_cxcywh[..., 0] - cx) / w,
+                        (gt_cxcywh[..., 1] - cy) / h,
+                        torch.log(gt_cxcywh[..., 2] / w + eps),
+                        torch.log(gt_cxcywh[..., 3] / h + eps)], -1)
+
+
 def decode_reg_offsets(offsets: torch.Tensor, still_boxes: torch.Tensor,
                        clip: float = math.log(736.0 / 32)) -> torch.Tensor:
     """dx/dy/dw/dh offsets + still-detector xyxy boxes -> refined xyxy
@@ -170,7 +184,9 @@ class TSCDHead(nn.Module):
         raw_outputs = flatten_levels(level_outputs)          # (F, A, 5+C)
         dec = decode_outputs(raw_outputs.to(torch.float32), hw, self.strides)
         decoded = torch.cat([dec[..., :4], torch.sigmoid(dec[..., 4:])], -1)
-        props = select_frame_proposals(decoded, C, P, self.test_conf,
+        # proposals come from the detached decode (tscd_head.py:294): their
+        # scores, boxes and anchor indices carry no gradient
+        props = select_frame_proposals(decoded.detach(), C, P, self.test_conf,
                                        self.minimal_limit)
         out: Dict[str, Any] = {"raw_outputs": raw_outputs, "hw": hw,
                                "decoded": decoded, "proposals": props}

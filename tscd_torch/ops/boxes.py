@@ -22,3 +22,29 @@ def pairwise_iou_xyxy(a: torch.Tensor, b: torch.Tensor,
               * (b[..., 3] - b[..., 1]).clamp(min=0.0))
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / (union + eps)
+
+
+def bboxes_iou(a: torch.Tensor, b: torch.Tensor, xyxy: bool = True,
+               eps: float = 1e-16) -> torch.Tensor:
+    """Pairwise IoU as yolox/utils/boxes.py:131; `xyxy=False` reads cxcywh
+    boxes (the form SimOTA compares gt and predictions in)."""
+    if not xyxy:
+        a, b = box_cxcywh_to_xyxy(a), box_cxcywh_to_xyxy(b)
+    return pairwise_iou_xyxy(a, b, eps)
+
+
+def iou_loss_cxcywh(pred: torch.Tensor, target: torch.Tensor,
+                    eps: float = 1e-16) -> torch.Tensor:
+    """Elementwise 1 - IoU^2 of aligned cxcywh boxes (..., 4) -> (...),
+    the 'iou' loss of yolox/models/losses.py:9."""
+    tl = torch.maximum(pred[..., :2] - pred[..., 2:] / 2,
+                       target[..., :2] - target[..., 2:] / 2)
+    br = torch.minimum(pred[..., :2] + pred[..., 2:] / 2,
+                       target[..., :2] + target[..., 2:] / 2)
+    area_p = pred[..., 2] * pred[..., 3]
+    area_g = target[..., 2] * target[..., 3]
+    en = (tl < br).all(-1).to(pred.dtype)
+    wh = br - tl
+    area_i = wh[..., 0] * wh[..., 1] * en
+    iou = area_i / (area_p + area_g - area_i + eps)
+    return 1.0 - iou ** 2

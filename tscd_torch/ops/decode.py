@@ -42,3 +42,12 @@ def decode_outputs(outputs: torch.Tensor, hw: Sequence[Tuple[int, int]],
     xy = (outputs[..., :2] + grids) * strs
     wh = torch.exp(outputs[..., 2:4]) * strs
     return torch.cat([xy, wh, outputs[..., 4:]], -1)
+
+
+def anchor_centers(hw: Sequence[Tuple[int, int]], strides: Sequence[int],
+                   device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-anchor (x_shift, y_shift, stride), each (A,) fp32 on `device`
+    (the CPU unless given), uploaded once per shape and device."""
+    grids, strs = _grid_tensors(tuple(map(tuple, hw)), tuple(strides),
+                                torch.float32, torch.device(device or "cpu"))
+    return grids[:, 0], grids[:, 1], strs[:, 0]

@@ -29,6 +29,7 @@ from . import library
 
 NEG = -1e9
 KEY_CHUNK = 32      # keys a block of the split launch owns (KC in the source)
+BACKWARD_RANGE = "fused_dual_attention backward"
 
 
 def scratch_floats(B: int, h: int, q: int, k: int, d: int) -> int:
@@ -77,13 +78,60 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
     """Shapes as in `fused_dual_attention_plain`. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (d <= 128), which
     reads q/k/v as they are when all six are fp32 or all six bf16 (any
-    other mix is copied to fp32 first). Outputs are fp32. One call counts
-    one launch, though the kernel runs as two."""
+    other mix is copied to fp32 first). Outputs are fp32.
+
+    Differentiable in q/k/v, as JAX's `custom_vjp` (fused_attention.py:
+    71-106): where autograd records and a q/k/v input needs a gradient,
+    the call goes through `_Differentiable`, whose forward is the same
+    launch (or, on the CPU, the plain version) and whose backward
+    recomputes the plain math and returns its VJP, as `_fused_bwd_rule`
+    differentiates `dual_attention_reference`. `cls_score` and
+    `key_valid` get no gradient (JAX returns zeros for them)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qc, kc, vc, qr, kr, vr)):
+        return _Differentiable.apply(qc, kc, vc, qr, kr, vr, cls_score,
+                                     key_valid, scale)
+    return _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale)
+
+
+def _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale):
     if qc.device.type == "cpu":
         return fused_dual_attention_plain(qc, kc, vc, qr, kr, vr, cls_score,
                                           key_valid, scale)
     if qc.device.type != "cuda":
         raise ValueError(f"fused_dual_attention: unsupported device {qc.device}")
+    return _launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale)
+
+
+class _Differentiable(torch.autograd.Function):
+    """The attention with JAX's backward rule: the forward's q/k/v, score
+    and mask are kept, and the backward differentiates the plain version
+    on them (JAX runs the same VJP of its reference through XLA, outside
+    any Pallas kernel). Each backward adds one to
+    `fused_dual_attention.backward_calls`; its work runs in a profiler
+    range of that name."""
+
+    @staticmethod
+    def forward(ctx, qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale):
+        ctx.save_for_backward(qc, kc, vc, qr, kr, vr, cls_score, key_valid)
+        ctx.scale = scale
+        return _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale)
+
+    @staticmethod
+    def backward(ctx, g_cls, g_reg, g_attn):
+        fused_dual_attention.backward_calls += 1
+        *qkv, cls_score, key_valid = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in qkv]
+            outs = fused_dual_attention_plain(*qkv, cls_score, key_valid,
+                                              ctx.scale)
+            grads = torch.autograd.grad(outs, qkv, (g_cls, g_reg, g_attn))
+        return (*grads, None, None, None)
+
+
+def _launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale):
+    """One launch of the kernel on CUDA tensors. It counts one launch,
+    though the kernel runs as two."""
     B, h, q, d = qc.shape
     k = kc.shape[2]
     for t in (qc, qr):
@@ -125,3 +173,4 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
 
 
 fused_dual_attention.launches = 0
+fused_dual_attention.backward_calls = 0

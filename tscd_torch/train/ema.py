@@ -1,0 +1,44 @@
+"""Model EMA (counterpart of tscd_tpu/train/ema.py; reference
+yolox/utils/ema.py:22): decay(t) = d (1 - exp(-t / 2000)) with t the
+update count after the increment, over the parameters and floating
+buffers (JAX's params and batch_stats); an integer buffer takes the new
+value."""
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def ema_decay(step: int, decay: float = 0.9998) -> np.float32:
+    """The step's decay in fp32, as JAX computes it."""
+    f32 = np.float32
+    return f32(decay) * (f32(1) - np.exp(-f32(step) / f32(2000)))
+
+
+class ModelEMA:
+    """A copy of the model's state_dict, moved towards the model by
+    `update(model, step)`."""
+
+    def __init__(self, model: nn.Module, decay: float = 0.9998):
+        self.decay = decay
+        self.state: Dict[str, torch.Tensor] = {
+            k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    @torch.no_grad()
+    def update(self, model: nn.Module, step: int):
+        d = float(ema_decay(step, self.decay))
+        keep = float(np.float32(1) - np.float32(d))
+        new = model.state_dict()
+        floats = [k for k, e in self.state.items() if e.is_floating_point()]
+        ema = [self.state[k] for k in floats]
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [new[k].detach().to(self.state[k].dtype) for k in floats], keep))
+        for k, e in self.state.items():
+            if not e.is_floating_point():
+                e.copy_(new[k])
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return self.state

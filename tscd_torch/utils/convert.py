@@ -132,6 +132,20 @@ _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_var": ("batch_stats", "var")}
 
 
+def flax_param_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """A port parameter's flax `params` path, leaf included: the module
+    path of `flax_module_path` and the leaf flax names it by (`kernel` for
+    a conv or Linear weight of `ndim` 4 or 2, `scale` for a BatchNorm or
+    LayerNorm weight)."""
+    path = flax_module_path(name)
+    leaf = name.split(".")[-1]
+    if path and path[-1] == "bn":
+        return path + (_BN_LEAVES[leaf][1],)
+    if leaf == "weight":
+        return path + (("kernel",) if ndim in (2, 4) else ("scale",))
+    return path + (leaf,)
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
     flat = {}
     for k, v in tree.items():
