@@ -1654,11 +1654,19 @@ def range_kernels(event):
 def attention_backward_phase(torch, dev):
     """Kernel check `fused_dual_attention backward`: at the training shape
     (B = L = 4 local frames, h 4, q = P = 50, k = P + G P = 650, d 64,
-    fp32) the gradients of all six q/k/v inputs through the wrapper's
-    autograd path (kernel forward, plain recompute backward) against
-    autograd of the plain version on the card, under a random upstream
-    gradient on all three outputs; then the forward + backward call, the
-    backward alone (its device time in torch.profiler) and the plain
+    fp32; 650 keys end in a partial chunk of 10) the kernel's forward
+    outputs through the wrapper's autograd path against the plain
+    version, at `kernel_phase`'s tolerance, with 20% invalid keys and
+    with the valid keys in the partial last chunk only; then the
+    gradients of all six q/k/v inputs (kernel forward, plain recompute
+    backward) against autograd of the plain version on the card, under a
+    random upstream gradient on all three outputs. The backward
+    recomputes the plain version from the saved inputs, so its gradients
+    do not read the kernel's outputs: the gradient check holds how the
+    backward is wired up (inputs saved, upstream gradients routed, one
+    backward a call), and its math is held against JAX's VJP on the CPU
+    (tests/test_torch_port_train.py). Then the forward + backward call,
+    the backward alone (its device time in torch.profiler) and the plain
     version's forward + backward, timed. Returns the row's `backward`."""
     import numpy as np
     from torch.autograd import DeviceType
@@ -1675,6 +1683,18 @@ def attention_backward_phase(torch, dev):
     cot = [mk(B, h, q, d), mk(B, h, q, d), mk(B, h, q, k)]
     ins = [t.clone().requires_grad_(True) for t in qkv]
     ref = [t.clone().requires_grad_(True) for t in qkv]
+    # the last 10 keys, a partial chunk, hold every valid key
+    last = (torch.arange(k, device=dev) >= k - k % fa.KEY_CHUNK)[None].expand(B, k).contiguous()
+    for case, mask in (("20% invalid keys", valid), ("valid keys in the partial last chunk only", last)):
+        got_fwd = fa.fused_dual_attention(*ins, score, mask)
+        with torch.no_grad():
+            want_fwd = fa.fused_dual_attention_plain(*qkv, score, mask)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("out_cls", "out_reg", "attn"), got_fwd, want_fwd):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attention at the training shape ({case}): non-finite {part}")
+            check_close(f"fused_dual_attention training shape (B 4, k 650) {case} {part}",
+                        g.detach(), w, atol=1e-5, rtol=1e-4)
     n0, b0 = fa.fused_dual_attention.launches, fa.fused_dual_attention.backward_calls
     got = torch.autograd.grad(fa.fused_dual_attention(*ins, score, valid), ins, cot)
     if (fa.fused_dual_attention.launches - n0, fa.fused_dual_attention.backward_calls - b0) != (1, 1):
@@ -1937,14 +1957,16 @@ def train_phase(torch, counters, steps=12):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     bwd = [range_kernels(e) for e in prof.events()
            if e.name == fa.BACKWARD_RANGE and e.device_type == DeviceType.CPU]
-    per_step = {"focus_stem": trace["focus_stem"],
-                "fused_dual_attention_forward": trace["fused_dual_attention"],
-                "fused_dual_attention_backward_calls": len(bwd),
-                "fused_dual_attention_backward_kernels": sum(k for k, _ in bwd),
-                "hungarian": trace["hungarian"], "nms": trace["nms"]}
-    if (per_step["focus_stem"], per_step["fused_dual_attention_forward"], len(bwd),
-            per_step["hungarian"]) != (1, 2, 2, exp.lframe) or not all(k for k, _ in bwd):
-        raise AssertionError(f"a traced training step's launches {per_step}")
+    # every TRACE_NAMES row as the device trace counts it: a step runs the
+    # fp32 stem once, the fp32 attention twice, the solver a local frame,
+    # and no NMS walk and no bf16 kernel
+    want_trace = dict.fromkeys(TRACE_NAMES, 0)
+    want_trace.update({"focus_stem": 1, "fused_dual_attention": 2, "hungarian": exp.lframe})
+    per_step = {**trace, "fused_dual_attention_backward_calls": len(bwd),
+                "fused_dual_attention_backward_kernels": sum(k for k, _ in bwd)}
+    if trace != want_trace or len(bwd) != 2 or not all(k for k, _ in bwd):
+        raise AssertionError(f"a traced training step's launches {per_step}, "
+                             f"{want_trace} and 2 backward ranges expected")
     after = state.model.state_dict()
     bit_unchanged = all(torch.equal(after[k], v) for k, v in frozen.items())
     if not bit_unchanged or ema_err > 1e-6:
@@ -2215,8 +2237,7 @@ def main() -> int:
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}
     for name in KERNELS:
-        rows[name]["launches_per_train_step"] = per_step.get(
-            "fused_dual_attention_forward" if name == "fused_dual_attention" else name, 0)
+        rows[name]["launches_per_train_step"] = per_step[name]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -439,9 +439,13 @@ def fp32_card(card):
 @pytest.mark.parametrize("B,h,q,k,d", [(4, 4, 50, 650, 64), (2, 2, 13, 70, 24)])
 def test_cuda_attention_backward_matches_plain_autograd(fp32_card, B, h, q, k, d):
     """The wrapper's autograd path (kernel forward, plain recompute
-    backward) against autograd of the plain version on the card: the six
-    q/k/v gradients within 1e-5 of each one's largest value, none for
-    cls_score; one launch and one backward counted."""
+    backward) against the plain version on the card: the kernel's three
+    outputs at the forward's tolerance (k = 650 ends in a partial key
+    chunk), then the six q/k/v gradients against autograd of the plain
+    version within 1e-5 of each one's largest value, none for cls_score;
+    one launch and one backward counted. The backward recomputes the
+    plain version from the saved inputs, so the gradients hold how it is
+    wired up; its math is held against JAX's VJP on the CPU."""
     rng = np.random.default_rng(B * 100 + k)
     ins = [torch.from_numpy(a).to(fp32_card) for a in _attn_inputs(rng, B, h, q, k, d)]
     cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(fp32_card)
@@ -449,8 +453,13 @@ def test_cuda_attention_backward_matches_plain_autograd(fp32_card, B, h, q, k, d
     got_in = [t.clone().requires_grad_(True) for t in ins[:7]]
     want_in = [t.clone().requires_grad_(True) for t in ins[:7]]
     n0, b0 = pfa.fused_dual_attention.launches, pfa.fused_dual_attention.backward_calls
-    got = torch.autograd.grad(pfa.fused_dual_attention(*got_in, ins[7]), got_in, cot,
-                              allow_unused=True)
+    outs = pfa.fused_dual_attention(*got_in, ins[7])
+    with torch.no_grad():
+        want_fwd = pfa.fused_dual_attention_plain(*ins)
+    for g, w in zip(outs, want_fwd):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.detach(), w, atol=1e-5, rtol=1e-4)
+    got = torch.autograd.grad(outs, got_in, cot, allow_unused=True)
     assert (pfa.fused_dual_attention.launches - n0,
             pfa.fused_dual_attention.backward_calls - b0) == (1, 1)
     want = torch.autograd.grad(pfa.fused_dual_attention_plain(*want_in, ins[7]), want_in[:6], cot)

@@ -428,6 +428,13 @@ def test_one_stage2_step_matches_jax(jax_model, ota_mode):
     assert st.step == STEP
     assert opt.lr() == pytest.approx(float(jsched(STEP))) and opt.lr() > 0
     before = {k: v.clone() for k, v in pm.state_dict().items()}
+    raw = {}                    # the gradients as backward leaves them: the
+    sgd_step = opt.step         # step clips them in place
+
+    def step():
+        raw.update({n: p.grad.clone() for n, p in pm.named_parameters() if p.grad is not None})
+        sgd_step()
+    opt.step = step
     got = train_step(st, T(x), T(lab), T(te), L, G, ota_mode=ota_mode)
 
     for k, v in jlosses.items():
@@ -438,9 +445,9 @@ def test_one_stage2_step_matches_jax(jax_model, ota_mode):
     named = dict(pm.named_parameters())
     gmax = max(float(jg[n].abs().max()) for n in named)
     for n, p in named.items():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        g = raw.get(n, torch.zeros_like(p))
         if n.startswith("backbone"):
-            assert p.grad is None            # stop_backbone_grad
+            assert n not in raw              # stop_backbone_grad
             continue
         np.testing.assert_allclose(g.numpy(), jg[n].numpy(), rtol=0, atol=1e-4 * gmax,
                                    err_msg=n)
@@ -533,14 +540,12 @@ def _set(**kw):
     "int8_frozen_backbone", "int8_qat"])
 def test_knobs_the_port_does_not_run_raise(knob):
     exp = selftest_exp()
-    if knob == "stop_backbone_grad":
-        exp.stop_backbone_grad = False
-        with pytest.raises(NotImplementedError, match="stem"):
-            exp.get_model(device="cpu")
-    elif knob == "fix_bn":
-        exp.fix_bn = False
-        with pytest.raises(NotImplementedError, match="fix_bn"):
-            exp.get_model(device="cpu")
+    if knob in ("stop_backbone_grad", "fix_bn"):
+        setattr(exp, knob, False)
+        exp.get_model(device="cpu")          # eval never trains BN or the stem
+        with pytest.raises(NotImplementedError,
+                           match={"stop_backbone_grad": "stem", "fix_bn": "fix_bn"}[knob]):
+            exp.get_trainer(device="cpu")
     elif knob == "hsv":
         with pytest.raises(NotImplementedError, match="HSV"):
             pvid.WindowLoader(_Frames(), augment=True, hsv_prob=0.5)

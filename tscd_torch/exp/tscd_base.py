@@ -95,19 +95,7 @@ class TSCDExp(BaseExp):
                   ) -> TSCD:
         """The model on `device`, the card unless the caller asks for
         another. Its training forward is stage 2's (`fix_bn`,
-        `stop_backbone_grad`, which needs a frozen backbone,
-        tscd_base.py:143-152); the other values raise."""
-        if not self.fix_bn:
-            raise NotImplementedError(
-                "fix_bn=False (train-mode BatchNorm) is not ported yet "
-                "(ROADMAP queue 1 item 9, what it leaves, 1)")
-        if not self.stop_backbone_grad:
-            raise NotImplementedError(
-                "stop_backbone_grad=False needs the Focus stem's backward, "
-                "which is not ported (ROADMAP queue 2 item 2)")
-        if not any(p.startswith("backbone") for p in self.freeze_prefixes()):
-            raise ValueError("stop_backbone_grad=True but freeze_prefixes() "
-                             "does not freeze the backbone")
+        `stop_backbone_grad`)."""
         return TSCD(num_classes=self.num_classes, depth=self.depth,
                     width=self.width, act=self.act, depthwise=self.depthwise,
                     num_proposals=self.num_proposals,
@@ -130,7 +118,19 @@ class TSCDExp(BaseExp):
                 "head/cls_pred_", "head/reg_pred_", "head/obj_pred_")
 
     def check_train_knobs(self):
-        """Raises for a training knob the port does not run yet."""
+        """Raises for a training knob the port does not run yet, and where
+        `stop_backbone_grad` has no frozen backbone (tscd_base.py:143-152)."""
+        if not self.fix_bn:
+            raise NotImplementedError(
+                "fix_bn=False (train-mode BatchNorm) is not ported yet "
+                "(ROADMAP queue 1 item 9, what it leaves, 1)")
+        if not self.stop_backbone_grad:
+            raise NotImplementedError(
+                "stop_backbone_grad=False needs the Focus stem's backward, "
+                "which is not ported (ROADMAP queue 2 item 2)")
+        if not any(p.startswith("backbone") for p in self.freeze_prefixes()):
+            raise ValueError("stop_backbone_grad=True but freeze_prefixes() "
+                             "does not freeze the backbone")
         leftovers = {"enable_multiscale": ("multiscale", 4),
                      "int8_frozen_backbone": ("int8_frozen_backbone", 5),
                      "int8_qat": ("int8_qat", 5), "fsdp": ("a mesh", 3)}

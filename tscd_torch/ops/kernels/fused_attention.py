@@ -81,17 +81,14 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
     other mix is copied to fp32 first). Outputs are fp32.
 
     Differentiable in q/k/v, as JAX's `custom_vjp` (fused_attention.py:
-    71-106): where autograd records and a q/k/v input needs a gradient,
-    the call goes through `_Differentiable`, whose forward is the same
-    launch (or, on the CPU, the plain version) and whose backward
+    71-106): the call goes through `_Differentiable`, whose forward is
+    the launch (or, on the CPU, the plain version) and whose backward
     recomputes the plain math and returns its VJP, as `_fused_bwd_rule`
-    differentiates `dual_attention_reference`. `cls_score` and
-    `key_valid` get no gradient (JAX returns zeros for them)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qc, kc, vc, qr, kr, vr)):
-        return _Differentiable.apply(qc, kc, vc, qr, kr, vr, cls_score,
-                                     key_valid, scale)
-    return _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale)
+    differentiates `dual_attention_reference`. Where no input needs a
+    gradient or grad mode is off, autograd records nothing. `cls_score`
+    and `key_valid` get no gradient (JAX returns zeros for them)."""
+    return _Differentiable.apply(qc, kc, vc, qr, kr, vr, cls_score,
+                                 key_valid, scale)
 
 
 def _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale):

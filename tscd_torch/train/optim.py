@@ -8,7 +8,8 @@ stem_lr_ratio), and '*weight' (decayed) or '*no_decay' (every bias, BN
 parameter and LayerNorm scale). One update, in optax's order: frozen
 gradients zeroed (a parameter without a gradient counts as zero), all
 gradients clipped by their global norm (scaled by max/norm only where
-the norm reaches max, as `optax.clip_by_global_norm`, with no epsilon),
+the norm reaches max, as `optax.clip_by_global_norm`, with no epsilon:
+written out, as `clip_grad_norm_` adds one), then `torch.optim.SGD`:
 weight decay added on decayed groups, Nesterov momentum (trace = g +
 m trace; update = g + m trace), then -LR x ratio, the LR of update n
 being schedule(n).
@@ -47,7 +48,13 @@ def label_params(named_params: Iterable[Tuple[str, torch.Tensor]],
 class GroupedSGD:
     """SGD with JAX's parameter groups over `named_params` (the model's
     `named_parameters()`). `step()` reads each parameter's `.grad`;
-    `count` is the number of updates made (the schedule's argument)."""
+    `count` is the number of updates made (the schedule's argument).
+
+    After the clip, the update is `torch.optim.SGD(nesterov=True)` with
+    one param group a label: its weight decay, momentum and Nesterov step
+    are optax's, and its buffers start at zero, so the first trace is the
+    gradient, as optax's. Each group's LR is set to schedule(count) x
+    ratio before the step."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Callable[[int], float], momentum: float = 0.9,
@@ -59,11 +66,21 @@ class GroupedSGD:
         self.labels = label_params(self.params.items(), freeze_prefixes,
                                    stem_lr_prefixes)
         self.schedule = schedule
-        self.momentum = momentum
-        self.weight_decay = weight_decay
-        self.stem_lr_ratio = stem_lr_ratio
         self.trained = [n for n in self.params if self.labels[n] != FROZEN]
-        self.trace = {n: torch.zeros_like(self.params[n]) for n in self.trained}
+        groups = []
+        for label in ("weight", "no_decay", "stem_weight", "stem_no_decay"):
+            ps = [self.params[n] for n in self.trained if self.labels[n] == label]
+            if ps:
+                groups.append({"params": ps,
+                               "ratio": stem_lr_ratio if label.startswith("stem") else 1.0,
+                               "weight_decay": weight_decay if label.endswith("weight") else 0.0})
+        self.sgd = torch.optim.SGD(groups or [{"params": [], "ratio": 1.0}], lr=0.0,
+                                   momentum=momentum, nesterov=True)
+        # {name: momentum buffer}: the SGD's own state tensors
+        self.trace = {}
+        for n in self.trained:
+            p = self.params[n]
+            self.trace[n] = self.sgd.state[p]["momentum_buffer"] = torch.zeros_like(p)
         self.count = 0
 
     def lr(self, count: Optional[int] = None) -> float:
@@ -71,29 +88,19 @@ class GroupedSGD:
 
     @torch.no_grad()
     def step(self):
-        names = self.trained
-        params = [self.params[n] for n in names]
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
-                 for p in params]
+        params = [self.params[n] for n in self.trained]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         if grads:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             scale = torch.where(norm < CLIP_GRAD_NORM, 1.0, CLIP_GRAD_NORM / norm)
             torch._foreach_mul_(grads, scale)
         lr = self.lr()
-        for label in ("weight", "no_decay", "stem_weight", "stem_no_decay"):
-            idx = [i for i, n in enumerate(names) if self.labels[n] == label]
-            if not idx:
-                continue
-            p = [params[i] for i in idx]
-            g = [grads[i] for i in idx]
-            tr = [self.trace[names[i]] for i in idx]
-            if label.endswith("weight"):
-                torch._foreach_add_(g, p, alpha=self.weight_decay)
-            torch._foreach_mul_(tr, self.momentum)
-            torch._foreach_add_(tr, g)
-            upd = torch._foreach_add(g, tr, alpha=self.momentum)     # Nesterov
-            ratio = self.stem_lr_ratio if label.startswith("stem") else 1.0
-            torch._foreach_add_(p, upd, alpha=-lr * ratio)
+        for group in self.sgd.param_groups:
+            group["lr"] = lr * group["ratio"]
+        self.sgd.step()
         self.count += 1
 
     def state_dict(self) -> Dict:
