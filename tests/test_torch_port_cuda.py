@@ -12,8 +12,9 @@ sums (TF32 off); the bf16 stem one bf16 ulp (2^-7 relative) over the
 same 1e-3 floor, the attention on bf16 q/k/v as at fp32 (it computes in
 fp32); col4row, the NMS keep mask and the NMS pack's bits are exact;
 the selftest evaluator on the card against the CPU, detections 1e-4
-(matched as sets per frame) and stats 1e-4; a window's CUDA graph replay
-equals its eager dispatch.
+(matched as sets per frame) and stats 1e-4, also through the eval CLI on
+the fixture's files from a JAX msgpack checkpoint; a window's CUDA graph
+replay equals its eager dispatch.
 """
 
 import numpy as np
@@ -402,9 +403,11 @@ def test_cuda_dispatch_waits_on_nothing(card):
 
 
 @pytest.mark.cuda
-def test_cuda_selftest_evaluator_matches_cpu(card):
+def test_cuda_selftest_evaluator_matches_cpu(fp32_card):
     """The selftest evaluator over an in-memory dataset (chip_smoke.py's
-    `SyntheticVID`) on the card against the CPU."""
+    `SyntheticVID`) on the card against the CPU, TF32 off (with TF32 on the
+    card's detections leave 1e-4)."""
+    card = fp32_card
     import chip_smoke
     from tscd_torch.core.predict import make_predict_fn
     from tscd_torch.data.vid import WindowLoader
@@ -424,6 +427,31 @@ def test_cuda_selftest_evaluator_matches_cpu(card):
     (rc, wc), (rg, wg) = out["cpu"], out["cuda"]
     assert chip_smoke.match_rows(wc, wg, 1e-4, 1e-4)[1] > 0
     np.testing.assert_allclose(rg["stats"], rc["stats"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_eval_cli_reads_fixture_files_and_a_msgpack_checkpoint(fp32_card):
+    """The eval CLI on the committed fixture's JPEGs (the port's decoder)
+    from YOLOX_outputs/validate_ref/converted_ckpt.msgpack (the port's
+    reader), on the card and on the CPU: each window's detections matched
+    as sets per frame within 1e-4 (there are some), and the stats 1e-4."""
+    import os
+
+    import chip_smoke
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref = os.path.join(repo, "YOLOX_outputs", "validate_ref")
+    args = ["--exp", "selftest", "-c", os.path.join(ref, "converted_ckpt.msgpack")]
+    opts = ["data_dir", os.path.join(ref, "vid"),
+            "val_seq_path", os.path.join(ref, "vid", "val_seq.npy")]
+    res, rows = {}, {}
+    for d in ("cpu", "cuda"):
+        rows[d] = []
+        res[d] = chip_smoke.eval_cli([*args, "--device", d, *opts], rows[d])
+    assert len(rows["cuda"]) == len(rows["cpu"]) > 0
+    _, n = chip_smoke.match_rows(rows["cpu"], rows["cuda"], 1e-4, 1e-4)
+    assert n > 0
+    assert len(res["cuda"]["stats"]) == 12
+    np.testing.assert_allclose(res["cuda"]["stats"], res["cpu"]["stats"], atol=1e-4)
 
 
 @pytest.fixture

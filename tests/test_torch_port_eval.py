@@ -245,6 +245,22 @@ def test_eval_cli_writes_the_in_process_result(evaluated, tmp_path):
     assert _same(got, want) and len(got["stats"]) == 12
 
 
+def test_eval_cli_reads_a_jax_msgpack_checkpoint():
+    """The committed converted_ckpt.msgpack (JAX variables of the weights of
+    ref_random.pth), read without flax, evaluates to what ref_random.pth
+    does."""
+    from tscd_torch.tools import tscd_eval
+    ref = os.path.join(REPO, "YOLOX_outputs", "validate_ref")
+    opts = ["data_dir", FIXTURE, "val_seq_path", EXP.val_seq_path]
+    res = {c: tscd_eval.main(["--exp", "selftest", "-c", os.path.join(ref, c), "--device",
+                              "cpu", "--tnum", "6", *opts])
+           for c in ("converted_ckpt.msgpack", "ref_random.pth")}
+    for r in res.values():
+        r.pop("ms_per_frame")
+    assert _same(res["converted_ckpt.msgpack"], res["ref_random.pth"])
+    assert len(res["ref_random.pth"]["stats"]) == 12
+
+
 def test_get_exp_by_file_name_and_merge(tmp_path):
     """Port exp files subclass the port's TSCDExp; overrides keep each
     attribute's type (tscd_tpu/exp/base_exp.py:25)."""

@@ -20,7 +20,19 @@ made from numpy seeds:
   - the train collate against JAX's collate_window (hsv_prob 0, flip
     probability 0 and 1), exactly;
   - the knobs the port does not run raise, and the trainer runs an epoch
-    of the selftest exp on the committed fixture.
+    of the selftest exp on the committed fixture;
+  - the repairs of the port: an exp file that sets a model knob the port
+    does not run raises in get_model (each default JAX's); the trainer
+    augments every epoch, as JAX's one loader does, with the LR schedule's
+    no-aug tail kept;
+  - multiscale: random_input_size and the trainer's every-10-iterations
+    cadence give JAX's sizes; an augmented multiscale epoch from files;
+  - JAX's msgpack checkpoints without flax: the reader equals
+    flax.serialization on the committed converted_ckpt.msgpack and on
+    every kind of leaf, chunked arrays too; a step resumed by the port's
+    trainer from a checkpoint in the JAX trainer's format equals JAX's
+    resumed step (losses 1e-5 relative, updates and EMA as the gate's),
+    its momentum traces restored exactly.
 """
 
 import os
@@ -46,6 +58,7 @@ from tscd_tpu.train.ema import ema_update as jema
 from tscd_tpu.train.losses import tscd_loss as jloss
 from tscd_tpu.train.optim import _label_params, build_sgd
 from tscd_tpu.train.step import init_train_state as jinit_state
+from tscd_torch.core import tscd_trainer as trainer_mod
 from tscd_torch.data import vid as pvid
 from tscd_torch.exp.tscd_large import selftest_exp
 from tscd_torch.models.blocks import BaseConv
@@ -394,6 +407,22 @@ def _gate_labels(pm, x, te, rng):
                             for f in range(F)])
 
 
+_LOSS_AND_GRAD = {}
+
+
+def _jax_loss_and_grad(jm, ota_mode):
+    """jit(value_and_grad) of JAX's window loss (_build_train_step,
+    window_batch = 1, fix_bn), one compile for each ota_mode."""
+    if ota_mode not in _LOSS_AND_GRAD:
+        def loss_fn(params, bs, x, te, lab):
+            out = jm.apply({"params": params, "batch_stats": bs}, x, te, L, G, False,
+                           labels=lab)
+            losses = jloss(out, lab, STRIDES, L, ota_mode=ota_mode)
+            return losses["total_loss"], losses
+        _LOSS_AND_GRAD[ota_mode] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return _LOSS_AND_GRAD[ota_mode]
+
+
 @pytest.mark.parametrize("ota_mode", [True, False])
 def test_one_stage2_step_matches_jax(jax_model, ota_mode):
     jm, variables = jax_model
@@ -409,14 +438,7 @@ def test_one_stage2_step_matches_jax(jax_model, ota_mode):
                    stem_lr_prefixes=exp.stem_lr_prefixes(), stem_lr_ratio=exp.stem_lr_ratio)
     state = jinit_state(variables, tx)
     bs = variables["batch_stats"]
-
-    def loss_fn(params):     # _build_train_step, window_batch = 1, fix_bn
-        out = jm.apply({"params": params, "batch_stats": bs}, jnp.asarray(x), jnp.asarray(te),
-                       L, G, False, labels=jnp.asarray(lab))
-        losses = jloss(out, jnp.asarray(lab), STRIDES, L, ota_mode=ota_mode)
-        return losses["total_loss"], losses
-
-    (_, jlosses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(state.params)
+    (_, jlosses), grads = _jax_loss_and_grad(jm, ota_mode)(state.params, bs, x, te, lab)
     upd, _ = jax.jit(tx.update)(grads, state.opt_state, state.params)
     params = optax.apply_updates(state.params, upd)
     ema_p = jema(state.ema_params, params, jnp.asarray(STEP + 1, jnp.int32), exp.ema_decay)
@@ -536,7 +558,7 @@ def _set(**kw):
 
 
 @pytest.mark.parametrize("knob", [
-    "stop_backbone_grad", "fix_bn", "hsv", "window_batch", "grad_accum",
+    "stop_backbone_grad", "fix_bn", "agg_type", "window_batch", "grad_accum",
     "int8_frozen_backbone", "int8_qat"])
 def test_knobs_the_port_does_not_run_raise(knob):
     exp = selftest_exp()
@@ -546,11 +568,12 @@ def test_knobs_the_port_does_not_run_raise(knob):
         with pytest.raises(NotImplementedError,
                            match={"stop_backbone_grad": "stem", "fix_bn": "fix_bn"}[knob]):
             exp.get_trainer(device="cpu")
-    elif knob == "hsv":
-        with pytest.raises(NotImplementedError, match="HSV"):
-            pvid.WindowLoader(_Frames(), augment=True, hsv_prob=0.5)
-        with ThreadPoolExecutor(1) as pool, pytest.raises(NotImplementedError, match="HSV"):
-            pvid.collate_window(_Frames(), _Frames().paths, pool, augment=True, hsv_prob=1.0)
+    elif knob == "agg_type":
+        exp.agg_type = "mca_aware"
+        with pytest.raises(NotImplementedError, match="agg_type = 'mca_aware'.*queue 1 item 3"):
+            exp.get_model(device="cpu")
+        with pytest.raises(NotImplementedError, match="agg_type"):
+            exp.get_trainer(device="cpu")
     else:
         setattr(exp, knob, {"window_batch": 2, "grad_accum": 2}.get(knob, True))
         with pytest.raises(NotImplementedError, match=knob):
@@ -592,3 +615,258 @@ def test_trainer_runs_the_selftest_epoch(tmp_path):
     assert all(torch.equal(resumed.model.state_dict()[k], v) for k, v in ckpt["model"].items())
     assert all(torch.equal(resumed.state.optimizer.trace[k], v)
                for k, v in ckpt["optimizer"]["trace"].items())
+
+
+# -- the port's repairs: model knobs, augmentation, multiscale --------------
+
+_KNOB_VALUES = {"use_pre_nms": True, "cat_ota_fg": True, "agg_type": "mca_aware",
+                "decouple_reg": False, "reconf": False, "ave": False, "use_mask": True,
+                "vid_cls": False, "vid_reg": False, "sparse_vid_towers": True,
+                "pre_nms": 0.6, "defualt_pre": 500, "remat_backbone": True}
+
+
+@pytest.mark.parametrize("knob", [None] + sorted(_KNOB_VALUES))
+def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
+    """An exp file that sets a model knob in __init__ to a value the port
+    does not run raises in get_model; one that leaves the defaults builds.
+    remat_backbone changes only training memory, so that exp builds its
+    model and raises in the trainer. Each default is JAX's."""
+    from tscd_tpu.exp.tscd_base import Exp as JExp
+    from tscd_torch.exp import get_exp
+    from tscd_torch.exp.tscd_base import MODEL_KNOBS
+    jexp = JExp()
+    assert {k: getattr(jexp, k) for k in MODEL_KNOBS} == {k: d for k, (d, _) in MODEL_KNOBS.items()}
+    assert set(MODEL_KNOBS) == set(_KNOB_VALUES) - {"remat_backbone"}
+    assert selftest_exp().remat_backbone == jexp.remat_backbone is False
+    line = f"        self.{knob} = {_KNOB_VALUES[knob]!r}\n" if knob else ""
+    path = tmp_path / "exp_knob.py"
+    path.write_text("from tscd_torch.exp.tscd_large import SelftestExp\n\n\n"
+                    "class Exp(SelftestExp):\n    def __init__(self):\n"
+                    "        super().__init__()\n" + line)
+    exp = get_exp(str(path))
+    if knob is None:
+        assert exp.get_model(device="cpu") is not None
+    elif knob == "remat_backbone":
+        assert exp.get_model(device="cpu") is not None
+        with pytest.raises(NotImplementedError, match="remat_backbone: .*ROADMAP queue 1 item 2.9"):
+            exp.get_trainer(device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match=f"{knob} = .*ROADMAP queue 1 item"):
+            exp.get_model(device="cpu")
+
+
+def test_the_trainer_augments_every_epoch_as_jax(tmp_path):
+    """JAX builds one loader with no_aug left False, so the port's trainer
+    augments every epoch; no_aug_epochs still shapes the LR schedule."""
+    exp = selftest_exp()
+    exp.max_epoch, exp.no_aug_epochs, exp.hsv_prob = 4, 2, 1.0
+    exp.output_dir = str(tmp_path)
+    trainer = exp.get_trainer(device="cpu")
+    trainer.dataset = exp.get_train_dataset()
+    for epoch in range(exp.max_epoch):
+        kw = trainer._loader(epoch).collate_kw
+        assert kw["augment"] and kw["hsv_prob"] == 1.0 and kw["flip_prob"] == 0.5
+        assert kw["rng"] is trainer.rng
+    iters = len(trainer.dataset.res)
+    got = exp.get_lr_schedule(iters)
+    want = jlr.yolox_warm_cos_lr(exp.basic_lr_per_img * exp.batch_size, exp.min_lr_ratio,
+                                 iters * exp.max_epoch, iters * exp.warmup_epochs,
+                                 exp.warmup_lr, iters * exp.no_aug_epochs)
+    for it in range(iters * exp.max_epoch):
+        assert got(it) == pytest.approx(float(want(it)), abs=1e-9)
+    tail = [got(it) for it in range(iters * (exp.max_epoch - exp.no_aug_epochs),
+                                    iters * exp.max_epoch)]
+    assert tail == [tail[0]] * len(tail) and tail[0] > 0
+
+
+@pytest.mark.parametrize("input_size", [(576, 576), (128, 128), (576, 1024)])
+def test_multiscale_sizes_match_jax(input_size):
+    """random_input_size under the same Random(step) and the trainer's
+    cadence (a new size when n % 10 == 0, from the updates made) give
+    JAX's sizes."""
+    from tscd_tpu.exp.tscd_base import Exp as JExp
+    jexp, exp = JExp(), selftest_exp()
+    jexp.input_size = exp.input_size = input_size
+    for step in range(300):
+        assert exp.random_input_size(random.Random(step)) == \
+            jexp.random_input_size(random.Random(step)), step
+    trainer = exp.get_trainer(device="cpu")
+    trainer.state = type("State", (), {"step": 0})()
+    want, size = [], None
+    for epoch_start in (0, 37):
+        for n in range(25):
+            trainer.state.step = epoch_start + n
+            if n % 10 == 0 or size is None:
+                size = jexp.random_input_size(random.Random(epoch_start + n))
+            want.append(size)
+            assert trainer.multiscale_size(n) == size
+    assert len(set(want)) > 1
+
+
+def test_a_multiscale_epoch_trains_at_jax_sizes(tmp_path, monkeypatch):
+    """One augmented epoch of the selftest exp from the fixture's files with
+    multiscale on: each step's frames come at the size of JAX's rule, with
+    the pixels of JAX's resize of the same window."""
+    from tscd_tpu.exp.tscd_base import Exp as JExp
+    exp = selftest_exp()
+    exp.output_dir, exp.enable_multiscale, exp.multiscale_step = str(tmp_path), True, 32
+    exp.max_epoch, exp.eval_interval, exp.hsv_prob = 1, 5, 1.0
+    jexp = JExp()
+    jexp.input_size, jexp.multiscale_step = exp.input_size, 32
+    trainer = exp.get_trainer(device="cpu")
+    sizes, resized, step_fn = [], [], trainer.step
+
+    def step(frames, labels, te):
+        sizes.append((trainer.state.step, tuple(frames.shape[1:3])))
+        return step_fn(frames, labels, te)
+
+    def resize(imgs, labels, target):
+        """The port's resize of the window, held to JAX's of the same window
+        as JAX's trainer holds it (float32)."""
+        got = pvid.multiscale_resize(imgs, labels, target)
+        want = jvid.multiscale_resize(imgs.astype(np.float32), labels, target)
+        assert np.array_equal(np.asarray(got[0], np.float32), want[0])
+        assert np.array_equal(got[1], want[1])
+        resized.append(got[0].dtype)
+        return got
+
+    monkeypatch.setattr(trainer_mod, "multiscale_resize", resize)
+    trainer.step = step
+    trainer.train()
+    assert len(sizes) == len(resized) == len(trainer.dataset.res) > 1
+    assert np.dtype(np.float32) in resized
+    for n, (s, hw) in enumerate(sizes):
+        assert hw == jexp.random_input_size(random.Random(s - n % 10)), (n, hw)
+
+
+# -- JAX's msgpack checkpoints ----------------------------------------------
+
+def test_the_msgpack_reader_equals_flax(monkeypatch):
+    from flax import serialization
+
+    from tscd_torch.utils.flax_msgpack import msgpack_restore
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "YOLOX_outputs", "validate_ref", "converted_ckpt.msgpack")
+    data = open(path, "rb").read()
+    got, want = msgpack_restore(data), serialization.msgpack_restore(data)
+    flat_g, flat_w = traverse_util.flatten_dict(got), traverse_util.flatten_dict(want)
+    assert flat_g.keys() == flat_w.keys() and len(flat_w) > 500
+    for k, w in flat_w.items():
+        assert flat_g[k].dtype == w.dtype and np.array_equal(flat_g[k], w), k
+    m = EXP.get_model(device="cpu")
+    sd_g = load_checkpoint(path, m)["model"]
+    sd_w = state_dict_from_flax(want, m.state_dict())
+    assert sd_g.keys() == sd_w.keys() == m.state_dict().keys()
+    assert all(torch.equal(sd_g[k], sd_w[k]) for k in sd_w)
+    # every kind of leaf flax writes, and an array split into chunks
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    tree = {"a": np.arange(50, dtype=np.float32).reshape(5, 10), "s": np.float32(2.5),
+            "i": np.int32(-7), "c": 1 - 2j, "n": None, "b": True, "x": -3, "big": 2 ** 40,
+            "f": 0.25, "t": "text" * 10, "e": {}, "u": {"v": np.zeros((0, 3), np.uint8)}}
+    back = msgpack_restore(serialization.msgpack_serialize(dict(tree)))
+    ref = serialization.msgpack_restore(serialization.msgpack_serialize(dict(tree)))
+    assert back.keys() == ref.keys()
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
+        elif isinstance(v, dict):
+            assert str(back[k]) == str(v)
+        else:
+            assert type(back[k]) is type(v) and back[k] == v, k
+
+
+def test_a_step_resumed_from_a_jax_checkpoint_matches_jax(jax_model, tmp_path):
+    """JAX's trainer saves a checkpoint (EMA params, raw params, batch
+    stats, opt_state with non-zero traces, start_epoch 2) in its msgpack
+    format; JAX's resume (load_tolerant, restore_opt_state, step =
+    start_epoch x iters) takes one step, and the port's trainer resumes
+    from the same file and takes the same step: losses 1e-5 relative,
+    updates and EMA 1e-4 of the largest update plus the fp32 spacing."""
+    from flax import serialization
+
+    from tscd_tpu.train import checkpoint as jckpt
+    jm, variables = jax_model
+    rng, x, te = _window()
+    exp = selftest_exp()
+    exp.output_dir, exp.max_epoch, exp.no_aug_epochs = str(tmp_path), 7, 2   # the recipe's
+    epoch = 2
+    count = epoch * ITERS
+    jsched = jlr.yolox_warm_cos_lr(exp.basic_lr_per_img * exp.batch_size, exp.min_lr_ratio,
+                                   ITERS * exp.max_epoch, ITERS * exp.warmup_epochs,
+                                   exp.warmup_lr, ITERS * exp.no_aug_epochs)
+    tx = build_sgd(jsched, freeze_prefixes=exp.freeze_prefixes(),
+                   stem_lr_prefixes=exp.stem_lr_prefixes(), stem_lr_ratio=exp.stem_lr_ratio)
+    # the saved run: an update of random gradients (non-zero traces), the
+    # EMA moved off the raw weights, the schedules' counts at `count`
+    g0 = _grad_trees(variables, np.random.default_rng(3), 5.0)[0]
+    opt0 = tx.update(g0, tx.init(variables["params"]), variables["params"])[1]
+    raw = jax.tree_util.tree_map(lambda a: a + np.float32(1e-3), variables["params"])
+    opt_sd = serialization.to_state_dict(opt0)
+
+    def set_count(t):
+        return {k: (np.int32(count) if k == "count" else set_count(v)) for k, v in t.items()} \
+            if isinstance(t, dict) else t
+    jckpt.save_checkpoint({"start_epoch": np.int32(epoch), "params": variables["params"],
+                           "raw_params": raw, "batch_stats": variables["batch_stats"],
+                           "opt_state": set_count(opt_sd)}, str(tmp_path / "jax"))
+    path = str(tmp_path / "jax" / "latest_ckpt.msgpack")
+
+    # JAX's resume (tscd_tpu/core/tscd_trainer.py:_init_state) and step
+    restored = jckpt.load_checkpoint(path)
+    jvars = {"params": jckpt.load_tolerant(variables["params"], restored["params"]),
+             "batch_stats": jckpt.load_tolerant(variables["batch_stats"],
+                                                restored["batch_stats"])}
+    state = jinit_state(jvars, tx)
+    state = state._replace(opt_state=jckpt.restore_opt_state(state.opt_state,
+                                                             restored["opt_state"]),
+                           step=jnp.asarray(count, jnp.int32))
+    pm0 = _port_model(variables)
+    lab = _gate_labels(pm0, x, te, rng)
+    bs = jvars["batch_stats"]
+    (_, jlosses), grads = _jax_loss_and_grad(jm, True)(state.params, bs, x, te, lab)
+    upd, _ = jax.jit(tx.update)(grads, state.opt_state, state.params)
+    params = optax.apply_updates(state.params, upd)
+    new_step = state.step + 1
+    ema_p = jema(state.ema_params, params, new_step, exp.ema_decay)
+    ema_b = jema(state.ema_batch_stats, bs, new_step, exp.ema_decay)
+
+    # the port's trainer resumes from the same file
+    args = type("Args", (), {"resume": True, "ckpt": path})()
+    trainer = exp.get_trainer(args, device="cpu")
+    trainer._init_state(ITERS)
+    st, pm = trainer.state, trainer.model
+    assert trainer.start_epoch == epoch and st.step == count
+    named = dict(pm.named_parameters())
+    tmpl = pm.state_dict()
+    # the momentum: each group's trace tree of the JAX state, merged and
+    # carried over by name
+    traces = {}
+    for sub in state.opt_state[2].inner_states.values():
+        is_trace = lambda t: isinstance(t, optax.TraceState)   # noqa: E731
+        for leaf in jax.tree_util.tree_leaves(sub, is_leaf=is_trace):
+            if is_trace(leaf):
+                flat = traverse_util.flatten_dict(serialization.to_state_dict(leaf.trace))
+                traces.update({k: np.asarray(v) for k, v in flat.items() if not isinstance(v, dict)})
+    want_trace = state_dict_from_flax({"params": traverse_util.unflatten_dict(traces)}, named,
+                                      strict=False)
+    assert sorted(want_trace) == sorted(st.optimizer.trained)
+    for n in st.optimizer.trained:
+        assert torch.equal(st.optimizer.trace[n], want_trace[n]) and want_trace[n].abs().sum() > 0, n
+    ema0 = state_dict_from_flax({"params": restored["params"], "batch_stats": bs}, tmpl)
+    assert all(torch.equal(st.ema.state[k], ema0[k]) for k in ema0)
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    got = trainer.step(T(x), T(lab), T(te))
+    for k, v in jlosses.items():
+        np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5, atol=1e-7, err_msg=k)
+    want = state_dict_from_flax({"params": params, "batch_stats": bs}, tmpl)
+    d_want = {k: want[k].double() - before[k].double() for k in named}
+    dmax = max(float(d.abs().max()) for d in d_want.values())
+    assert dmax > 0
+    after = pm.state_dict()
+    jema_sd = state_dict_from_flax({"params": ema_p, "batch_stats": ema_b}, tmpl)
+    for k, v in list(after.items()) + [(f"ema:{k}", st.ema.state[k]) for k in named]:
+        ref = jema_sd[k[4:]] if k.startswith("ema:") else want.get(k)
+        if ref is None or not v.is_floating_point():
+            continue
+        bound = 1e-4 * dmax + np.spacing(np.abs(ref.numpy()))
+        assert np.all(np.abs(v.double().numpy() - ref.double().numpy()) <= bound), k

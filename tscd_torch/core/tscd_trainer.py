@@ -6,8 +6,13 @@ JAX runs a step as one jitted program; here a step is an eager forward,
 backward, grouped SGD and EMA (`train.step.train_step`). The loader's
 background thread collates the next window into pinned memory while the
 card runs this one; the step uploads it with non_blocking copies and
-reads back only the scalar losses. The last `no_aug_epochs` epochs load
-windows without augmentation, as the reference's trainer does.
+reads back only the scalar losses. Every epoch is augmented (HSV jitter
+and flip), as JAX's trainer builds its one loader with `no_aug` left
+False (tscd_tpu/core/tscd_trainer.py:288-299); `no_aug_epochs` shapes
+only the LR schedule, as there. With `enable_multiscale` the window is
+resized to a size re-drawn every 10 iterations from
+`random.Random(step)`, JAX's sizes (:337-360), into float32 frames with
+the values of JAX's cv2.resize of its float32 window.
 """
 
 import datetime
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.predict import make_predict_fn
+from ..data.vid import multiscale_resize
 from ..device import resolve_device
 from ..models.tscd import random_init_
 from ..train.checkpoint import load_checkpoint, load_tolerant, save_checkpoint
@@ -54,9 +60,12 @@ class TSCDTrainer:
         self.dataset = None
         self.meter: Dict[str, List[float]] = {}
         self._eval_model = None
+        self._ms_size = None
 
     # -- setup ---------------------------------------------------------
     def _init_state(self, iters: int):
+        """Seeded weights, then a resumed or fine-tune checkpoint (a port
+        `.pth` or a JAX `.msgpack`), the optimizer and the EMA."""
         exp, model = self.exp, self.model
         random_init_(model, exp.seed or 0)
         args = self.args
@@ -64,29 +73,33 @@ class TSCDTrainer:
         opt_ckpt = None
         if getattr(args, "resume", False):
             path = ckpt_path or os.path.join(self.file_name, "latest_ckpt.pth")
-            restored = load_checkpoint(path)
+            restored = load_checkpoint(path, model)
             self.start_epoch = int(restored.get("start_epoch", 0))
             model.load_state_dict(load_tolerant(model.state_dict(), restored["model"]))
             opt_ckpt = restored.get("optimizer")     # momentum survives a resume
             print(f"resumed from {path} at epoch {self.start_epoch}")
         elif ckpt_path:
             # fine-tune load: shape-tolerant (the 2-stage recipe)
-            restored = load_checkpoint(ckpt_path)
+            restored = load_checkpoint(ckpt_path, model)
             model.load_state_dict(load_tolerant(model.state_dict(),
                                                 restored.get("model", restored)))
             print(f"loaded fine-tune weights from {ckpt_path}")
         opt = exp.get_optimizer(model, iters)
-        if opt_ckpt is not None:
-            opt.load_state_dict(opt_ckpt)
-        else:
+        if opt_ckpt is None or not opt.load_state_dict(opt_ckpt):
             opt.count = self.start_epoch * iters
         self.state = init_train_state(model, opt, exp.ema_decay)
 
     def _loader(self, epoch: int):
-        no_aug = epoch >= self.max_epoch - self.exp.no_aug_epochs
-        return self.exp.get_data_loader(no_aug=no_aug,
-                                        pin_memory=self.device.type == "cuda",
+        """The epoch's loader: augmented at every epoch, as JAX's."""
+        return self.exp.get_data_loader(pin_memory=self.device.type == "cuda",
                                         rng=self.rng, dataset=self.dataset)
+
+    def multiscale_size(self, n: int):
+        """The size iteration `n` of an epoch trains at, re-drawn when n is
+        a multiple of 10 from random.Random(updates made so far)."""
+        if n % 10 == 0 or self._ms_size is None:
+            self._ms_size = self.exp.random_input_size(random.Random(self.state.step))
+        return self._ms_size
 
     # -- train ---------------------------------------------------------
     def train(self) -> TrainState:
@@ -130,6 +143,10 @@ class TSCDTrainer:
                           self.gframe, ota_mode=self.exp.ota_mode)
 
     def _one_iter(self, batch, epoch: int, n: int, iters: int, data_t0: float):
+        if self.exp.enable_multiscale:
+            imgs, labels = multiscale_resize(np.asarray(batch["imgs"]), batch["labels"],
+                                             self.multiscale_size(n))
+            batch = dict(batch, imgs=imgs, labels=labels)
         frames, labels, te = self._upload(batch)
         data_time = time.time() - data_t0
         t0 = time.time()

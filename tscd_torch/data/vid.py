@@ -2,13 +2,12 @@
 map, XML annotations, sequence construction, the dataset, the window
 collate and a background-thread window loader, for eval and for
 stage-2 training (shuffled windows, cxcywh labels, the window's own
-frame index as time, the horizontal flip).
+frame index as time, the HSV jitter and horizontal flip), and the
+multiscale resize.
 
-Frames are decoded with OpenCV, imported only where a frame is read:
-another decoder or resize would change pixels against the JAX package,
-so nothing takes its place where `cv2` is missing. Not ported yet: the
-HSV jitter (it needs cv2's uint8 BGR<->HSV, and raises), batched
-windows (`exp.check_train_knobs` raises), and the OVIS and Argoverse
+Frames are read, letterboxed and jittered by `data.image`, whose host C++
+gives cv2's pixels bit for bit without OpenCV. Not ported yet: batched
+windows (`exp.check_train_knobs` raises) and the OVIS and Argoverse
 datasets.
 """
 
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.position import get_timing_signal_1d
+from . import image
 
 # ILSVRC VID 30-class wnid -> index map (reference vid.py:28-33)
 VID_NAME_LIST = [
@@ -41,7 +41,7 @@ VID_CLASSES = [
     'red_panda', 'sheep', 'snake', 'squirrel', 'tiger', 'train', 'turtle',
     'watercraft', 'whale', 'zebra']
 NAME_NUM = {n: i for i, n in enumerate(VID_NAME_LIST)}
-_DECODE_WORKERS = 8      # frame-decode threads a loader (cv2 drops the GIL)
+_DECODE_WORKERS = 8      # frame-decode threads a loader (image.py drops the GIL)
 _PREFETCH = 2            # windows a loader collates ahead
 
 
@@ -207,32 +207,33 @@ class VIDDataset:
 
     def load_frame(self, rel_path: str):
         """-> (resized HWC uint8 BGR image, (N, 5) [x1, y1, x2, y2, cls]
-        scaled, (h, w) of the source). Thread-safe: collate calls it from
-        a pool."""
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(
-                "reading VID frames needs OpenCV (cv2), which is not "
-                "installed here; no other decoder is substituted, since its "
-                "pixels would differ from the JAX package's") from e
-        annos = self.annotations[rel_path]
-        img = cv2.imread(os.path.join(self.dataset_pth, rel_path))
-        if img is None:
-            raise FileNotFoundError(os.path.join(self.dataset_pth, rel_path))
+        scaled, (h, w) of the source): cv2.imread and cv2.resize's pixels.
+        Thread-safe: collate calls it from a pool."""
+        img = image.imread(os.path.join(self.dataset_pth, rel_path))
         h, w = img.shape[:2]
         r = min(self.img_size[0] / h, self.img_size[1] / w)
-        img = cv2.resize(img, (int(w * r), int(h * r)),
-                         interpolation=cv2.INTER_LINEAR).astype(np.uint8)
-        return img, annos.copy(), (h, w)
+        img = image.resize_linear(img, int(h * r), int(w * r))
+        return img, self.annotations[rel_path].copy(), (h, w)
 
     def frame_index(self, rel_path: str) -> int:
         return frame_index(rel_path)
 
 
-HSV_NOT_PORTED = ("HSV jitter needs cv2's uint8 BGR<->HSV, which the card's "
-                  "machine lacks; set hsv_prob = 0 (ROADMAP queue 1 item 9, "
-                  "what it leaves, 2: a numpy port of it)")
+def multiscale_resize(imgs: np.ndarray, labels: np.ndarray,
+                      target_hw: Tuple[int, int]):
+    """A (F, H, W, 3) uint8 window resized to target_hw, frame by frame, and
+    its [cls, x, y, ...] labels scaled (tscd_tpu/data/vid.py:239-254). JAX's
+    trainer resizes its float32 window, so the frames come out float32 with
+    cv2's float INTER_LINEAR values (`image.resize_linear_float`); at the
+    window's own size they stay as they are."""
+    F, H, W = imgs.shape[:3]
+    th, tw = target_hw
+    if (th, tw) == (H, W):
+        return imgs, labels
+    out = np.stack([image.resize_linear_float(imgs[f], th, tw) for f in range(F)])
+    lab = labels.copy()
+    lab[..., 1:5] *= np.array([tw / W, th / H, tw / W, th / H], np.float32)
+    return out, lab
 
 
 def collate_window(dataset, paths: Sequence[str], pool: ThreadPoolExecutor,
@@ -249,17 +250,29 @@ def collate_window(dataset, paths: Sequence[str], pool: ThreadPoolExecutor,
     [(h, w)], paths. Frames load through `pool`, so `dataset.load_frame`
     must be thread-safe.
 
-    `augment` flips the whole window horizontally with one draw from
-    `rng` (probability `flip_prob`), every frame alike, as JAX does; its
-    HSV jitter (`hsv_prob` > 0) is not ported and raises."""
-    if augment and hsv_prob > 0:
-        raise NotImplementedError(HSV_NOT_PORTED)
+    `augment` jitters the whole window in HSV (probability `hsv_prob`)
+    and flips it horizontally (probability `flip_prob`), every frame
+    alike, with JAX's draws in JAX's order from `rng`: the HSV coin, the
+    flip coin, then the int16 gains uniform(-1, 1, 3) x [5, 30, 30] x
+    randint(0, 2, 3)."""
     H, W = dataset.img_size
     F = len(paths)
     imgs = np.full((F, H, W, 3), 114, img_dtype)
     labels = np.zeros((F, max_labels, 5), np.float32)
-    do_flip = augment and (rng or np.random.default_rng()).random() < flip_prob
-    loaded = list(pool.map(dataset.load_frame, paths))
+    rng = rng or np.random.default_rng()
+    do_hsv = augment and rng.random() < hsv_prob
+    do_flip = augment and rng.random() < flip_prob
+    gains = ((rng.uniform(-1, 1, 3) * [5, 30, 30] * rng.integers(0, 2, 3)).astype(np.int16)
+             if do_hsv else None)
+
+    def load(path):               # in the pool: image.py drops the GIL
+        img, annos, info = dataset.load_frame(path)
+        if do_hsv:
+            img = np.array(img, np.uint8, order="C")
+            image.augment_hsv(img, gains)
+        return img, annos, info
+
+    loaded = list(pool.map(load, paths))
     infos, idxs = [], []
     for i, (p, (img, annos, info)) in enumerate(zip(paths, loaded)):
         if do_flip:
@@ -305,8 +318,6 @@ class WindowLoader:
                  cxcywh: bool = False, augment: bool = False,
                  hsv_prob: float = 1.0, flip_prob: float = 0.5,
                  rng: Optional[np.random.Generator] = None):
-        if augment and hsv_prob > 0:
-            raise NotImplementedError(HSV_NOT_PORTED)
         self.dataset = dataset
         self.img_dtype = img_dtype
         self.pin_memory = pin_memory

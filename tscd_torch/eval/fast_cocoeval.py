@@ -3,65 +3,29 @@ tscd_tpu/eval/fast_cocoeval.py; reference fast_coco_eval_api.py:17).
 
 The per-image greedy matching and the per-cell accumulate loop run in
 C++ (tscd_torch/csrc/host/cocoeval.cpp, host code), built with g++ at
-first use into `build/native/` and loaded with ctypes. Results equal the
-numpy `COCOeval`'s. A failed build raises: nothing falls back.
+first use into `build/native/` and loaded with ctypes (`utils.native`).
+Results equal the numpy `COCOeval`'s. A failed build raises: nothing
+falls back.
 """
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 
+from ..utils.native import BUILD_DIR, HostLibrary
 from .cocoeval import COCOeval
-
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "host" / "cocoeval.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _L = ctypes.c_int64
-_SIGNATURES = {
-    "cocoeval_evaluate_img": [_P, _P, _L, _P, _P, _P, _P, _L, _P, _L, _P, _L,
-                              _P, _P, _P, _P],
-    "cocoeval_accumulate_cell": [_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P],
-}
-
-_lock = threading.Lock()
-_lib = None
-
-
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + _SRC.read_bytes())
-    return BUILD_DIR / f"libcocoeval_{h.hexdigest()[:16]}.so"
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the native COCO evaluation library."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        target = library_path()
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".tmp{os.getpid()}")
-            r = subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"g++ failed to build {_SRC}:\n{r.stderr}")
-            os.replace(tmp, target)
-        lib = ctypes.CDLL(str(target))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = None
-        _lib = lib
-        return lib
+_NATIVE = HostLibrary("cocoeval.cpp", ["-O3", "-std=c++17", "-shared", "-fPIC"], {
+    "cocoeval_evaluate_img": ([_P, _P, _L, _P, _P, _P, _P, _L, _P, _L, _P, _L,
+                               _P, _P, _P, _P], None),
+    "cocoeval_accumulate_cell": ([_P, _P, _P, _L, _L, _L, _P, _L, _P, _P, _P], None),
+})
+_SRC = _NATIVE.src
+library_path = _NATIVE.path
+load_library = _NATIVE.load
+__all__ = ["BUILD_DIR", "COCOeval_opt", "library_path", "load_library"]
 
 
 def _cp(a, t):

@@ -6,13 +6,29 @@ stage-2 training paths read. The defaults are TSCD-Large on ImageNet VID
 the JAX package's base; port exp files subclass this one.
 """
 
-from typing import Optional, Sequence, Union
+import random
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..models.tscd import TSCD
 from .base_exp import BaseExp
+
+
+# {knob: (JAX's default, the ROADMAP item that ports the other values)}.
+# The port's TSCD runs the default of each; JAX's TSCD ignores ave,
+# use_mask, vid_cls, vid_reg, pre_nms and defualt_pre, which its exp does
+# not pass on.
+_HEAD = "queue 1 item 3"
+MODEL_KNOBS = {
+    "use_pre_nms": (False, _HEAD), "cat_ota_fg": (False, _HEAD),
+    "agg_type": ("mca", _HEAD), "decouple_reg": (True, _HEAD),
+    "reconf": (True, _HEAD), "ave": (True, _HEAD), "use_mask": (False, _HEAD),
+    "vid_cls": (True, _HEAD), "vid_reg": (True, _HEAD),
+    "sparse_vid_towers": (False, _HEAD), "pre_nms": (0.75, _HEAD),
+    "defualt_pre": (750, _HEAD),
+}
 
 
 class TSCDExp(BaseExp):
@@ -71,14 +87,23 @@ class TSCDExp(BaseExp):
         self.stop_backbone_grad = True
         self.hsv_prob = 1.0
         self.flip_prob = 0.5
+        # multiscale (yolox_base.py random_resize, the video rule of
+        # tscd_base.py:24-25): +-multiscale_range x 64 px, a new size every
+        # 10 iterations
+        self.enable_multiscale = False
+        self.multiscale_range = 3
+        self.multiscale_step = 64
         self.print_interval = 10
         self.eval_interval = 1
         self.ckpt_interval = 1
         self.output_dir = "./YOLOX_outputs"
         self.exp_name = "tscd_large"
+        # model knobs of the JAX exp (tscd_base.py:53-70,99-101) at its
+        # defaults; `get_model` raises for any other value (MODEL_KNOBS)
+        for knob, (default, _) in MODEL_KNOBS.items():
+            setattr(self, knob, default)
         # knobs of the JAX trainer the port does not run yet; each raises
         # unless at this default (`check_train_knobs`)
-        self.enable_multiscale = False
         self.window_batch = 0
         self.grad_accum = 1
         self.mesh_data = 1
@@ -86,6 +111,7 @@ class TSCDExp(BaseExp):
         self.fsdp = False
         self.int8_frozen_backbone = False
         self.int8_qat = False
+        self.remat_backbone = False     # jax.checkpoint over the backbone
 
     @property
     def num_proposals(self) -> int:
@@ -95,7 +121,13 @@ class TSCDExp(BaseExp):
                   ) -> TSCD:
         """The model on `device`, the card unless the caller asks for
         another. Its training forward is stage 2's (`fix_bn`,
-        `stop_backbone_grad`)."""
+        `stop_backbone_grad`). Raises for a model knob at a value the port
+        does not run."""
+        for knob, (default, item) in MODEL_KNOBS.items():
+            if getattr(self, knob) != default:
+                raise NotImplementedError(
+                    f"{knob} = {getattr(self, knob)!r}: the port's TSCD runs only "
+                    f"{default!r} (ROADMAP {item})")
         return TSCD(num_classes=self.num_classes, depth=self.depth,
                     width=self.width, act=self.act, depthwise=self.depthwise,
                     num_proposals=self.num_proposals,
@@ -123,27 +155,36 @@ class TSCDExp(BaseExp):
         if not self.fix_bn:
             raise NotImplementedError(
                 "fix_bn=False (train-mode BatchNorm) is not ported yet "
-                "(ROADMAP queue 1 item 9, what it leaves, 1)")
+                "(ROADMAP queue 1 item 2.6)")
         if not self.stop_backbone_grad:
             raise NotImplementedError(
                 "stop_backbone_grad=False needs the Focus stem's backward, "
-                "which is not ported (ROADMAP queue 2 item 2)")
+                "which is not ported (ROADMAP queue 1 item 2.7)")
         if not any(p.startswith("backbone") for p in self.freeze_prefixes()):
             raise ValueError("stop_backbone_grad=True but freeze_prefixes() "
                              "does not freeze the backbone")
-        leftovers = {"enable_multiscale": ("multiscale", 4),
-                     "int8_frozen_backbone": ("int8_frozen_backbone", 5),
-                     "int8_qat": ("int8_qat", 5), "fsdp": ("a mesh", 3)}
+        leftovers = {"int8_frozen_backbone": ("int8_frozen_backbone", "2.8"),
+                     "int8_qat": ("int8_qat", "2.8"), "fsdp": ("a mesh", "8"),
+                     "remat_backbone": ("recomputing the backbone in the backward", "2.9")}
         for knob, (what, item) in leftovers.items():
             if getattr(self, knob):
                 raise NotImplementedError(
-                    f"{knob}: {what} is not ported yet (ROADMAP queue 1 item 9, "
-                    f"what it leaves, {item})")
+                    f"{knob}: {what} is not ported yet (ROADMAP queue 1 item {item})")
         for knob in ("window_batch", "grad_accum", "mesh_data", "mesh_model"):
             if int(getattr(self, knob) or 1) != 1:
                 raise NotImplementedError(
                     f"{knob} = {getattr(self, knob)}: the port trains one window "
-                    "a step on one card (ROADMAP queue 1 item 9, what it leaves, 3)")
+                    "a step on one card (ROADMAP queue 1 items 2.4 and 8)")
+
+    def random_input_size(self, rng: random.Random) -> Tuple[int, int]:
+        """A multiscale size (yolox_base.py:171-182 with the video rule):
+        step x k for k drawn from `rng` within +-multiscale_range of
+        input_size / step, the width scaled by the input's aspect."""
+        step = self.multiscale_step
+        base = self.input_size[0] // step
+        k = rng.randint(base - self.multiscale_range, base + self.multiscale_range)
+        size_factor = self.input_size[1] / self.input_size[0]
+        return (step * k, step * int(k * size_factor))
 
     def get_lr_schedule(self, iters_per_epoch: int):
         from ..train.lr import cos_lr, multistep_lr, warm_cos_lr, yolox_warm_cos_lr
@@ -190,8 +231,8 @@ class TSCDExp(BaseExp):
         """Shuffled training windows of `dataset` (`get_train_dataset()`
         unless given; tscd_base.py get_data_loader): up to 120 cxcywh
         labels a frame, the window's own frame index as time, and unless
-        `no_aug` the window's flip (its HSV jitter raises for hsv_prob >
-        0). Uint8 frames, pinned for a CUDA device."""
+        `no_aug` the window's HSV jitter and flip, drawn from `rng`. Uint8
+        frames, pinned for a CUDA device."""
         from ..data.vid import WindowLoader
         ds = dataset if dataset is not None else self.get_train_dataset()
         return WindowLoader(ds, pin_memory=pin_memory, shuffle=True,

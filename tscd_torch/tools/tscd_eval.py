@@ -6,9 +6,10 @@ reference tools/tscd_eval.py:125).
 
 Runs the exp's val windows through the model on the card (or the device
 given) and prints mAP and AP50. `-c` takes the port's own state_dict
-`.pth` or a reference checkpoint (`{"model": state_dict, ...}`); keys of
-reference modules the port has no counterpart for are skipped, a missing
-key raises. `--tnum N` evaluates the first N val windows only; -1 all.
+`.pth`, a reference checkpoint (`{"model": state_dict, ...}`) or a JAX
+`.msgpack` (variables, or a JAX training checkpoint's EMA weights); keys
+of reference modules the port has no counterpart for are skipped, a
+missing key raises. `--tnum N` evaluates the first N val windows only; -1 all.
 Exp overrides (`key value` pairs) go after every flag.
 """
 
@@ -42,6 +43,7 @@ def main(argv=None):
     from tscd_torch.core.predict import make_predict_fn
     from tscd_torch.device import resolve_device
     from tscd_torch.exp import get_exp
+    from tscd_torch.train.checkpoint import load_checkpoint
     from tscd_torch.utils.convert import load_reference_pth
 
     args = make_parser().parse_args(argv)
@@ -60,7 +62,9 @@ def main(argv=None):
         np.random.seed(int(exp.seed) & 0xFFFFFFFF)
     device = resolve_device(args.device)
     model = exp.get_model(device=device)
-    res = model.load_state_dict(load_reference_pth(args.ckpt), strict=False)
+    sd = (load_checkpoint(args.ckpt, model)["model"] if args.ckpt.endswith(".msgpack")
+          else load_reference_pth(args.ckpt))
+    res = model.load_state_dict(sd, strict=False)
     if res.missing_keys:
         raise KeyError(f"{args.ckpt} lacks {len(res.missing_keys)} keys of the "
                        f"model, e.g. {res.missing_keys[:5]}")

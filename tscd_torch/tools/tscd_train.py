@@ -6,9 +6,10 @@ tools/tscd_train.py; reference tools/tscd_train.py:102).
 
 Trains on the card (or the device given) one window a step, fp32, with
 the frozen backbone and fix_bn. `-c` loads initial weights, shape
-tolerant (a port or reference `.pth`); `--resume` continues from
-`<output_dir>/<exp_name>/latest_ckpt.pth` (or `-c`), momentum included;
-`-e N` starts at epoch N. Exp overrides (`key value` pairs) go after
+tolerant (a port or reference `.pth`, or a JAX `.msgpack`); `--resume`
+continues from `<output_dir>/<exp_name>/latest_ckpt.pth` (or `-c`, which
+may be a JAX trainer's `latest_ckpt.msgpack`), momentum included; `-e N`
+starts at epoch N. Exp overrides (`key value` pairs) go after
 every flag.
 """
 

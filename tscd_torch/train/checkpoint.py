@@ -3,13 +3,24 @@ yolox/utils/checkpoint.py) in the port's own torch format: one
 `torch.save`d dict of tensors and numbers, `<name>_ckpt.pth` with a
 `best_ckpt.pth` copy. Its "model" entry is a state_dict, as in the
 reference's files, so `utils.convert.load_reference_pth` reads it.
-JAX's msgpack checkpoints need flax to read and are not read here."""
+
+`load_checkpoint` also reads the JAX package's msgpack checkpoints (a
+`.msgpack` path, read by `utils.flax_msgpack`, no flax needed) into that
+format for a given model: "params" and "batch_stats" (the EMA weights a
+JAX trainer saves, or a bare variables tree) become "model", "raw_params"
+"raw_model", "start_epoch" stays, and optax's Nesterov traces in
+"opt_state" become the port's "optimizer" entry (`GroupedSGD` takes them
+where its groups are the checkpoint's).
+"""
 
 import os
 import shutil
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+
+from ..utils.convert import flatten_tree, state_dict_from_flax
+from ..utils.flax_msgpack import read_msgpack
 
 
 def save_checkpoint(state: Mapping[str, Any], save_dir: str,
@@ -30,8 +41,67 @@ def _to_cpu(x):
     return x
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    return torch.load(path, map_location="cpu", weights_only=True)
+def load_checkpoint(path: str, model: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+    """A port `.pth` checkpoint, or a JAX `.msgpack` one mapped onto
+    `model`'s names (which it then needs)."""
+    if not str(path).endswith(".msgpack"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if model is None:
+        raise ValueError(f"{path}: a JAX checkpoint is read onto a model's names; pass the model")
+    return checkpoint_from_flax(read_msgpack(path), model)
+
+
+def checkpoint_from_flax(tree: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, Any]:
+    """A JAX checkpoint's tree (tscd_tpu/core/tscd_trainer.py:save_ckpt, or
+    variables) -> the port's checkpoint dict for `model`. Weights map
+    shape-tolerantly: a name the tree lacks is left out."""
+    template = model.state_dict()
+    params = tree["params"] if "params" in tree else tree
+    out: Dict[str, Any] = {"model": state_dict_from_flax(
+        {"params": params, "batch_stats": tree.get("batch_stats", {})}, template, strict=False)}
+    if "raw_params" in tree:
+        out["raw_model"] = state_dict_from_flax(
+            {"params": tree["raw_params"], "batch_stats": tree.get("batch_stats", {})},
+            template, strict=False)
+    if "start_epoch" in tree:
+        out["start_epoch"] = int(tree["start_epoch"])
+    if "opt_state" in tree:
+        out["optimizer"] = optimizer_state_from_optax(tree["opt_state"], model.named_parameters())
+    return out
+
+
+def _under(tree: Any, key: str):
+    """Every value stored under `key` anywhere in a nested dict."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            if k == key:
+                yield v
+            else:
+                yield from _under(v, key)
+
+
+def optimizer_state_from_optax(opt_state: Mapping[str, Any],
+                               named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """build_sgd's optax state (its to_state_dict) -> {"count", "trace":
+    {port name: momentum trace, in the port's layout}, "labels": {port
+    name: the group it was in}}. Each group of a multi_transform holds a
+    Nesterov trace over the whole parameter tree, empty where a parameter
+    is another group's, and its schedule's count. A trace the port has no
+    parameter for leaves "count" None, so that the load sees the
+    mismatch."""
+    template = dict(named_params)
+    trace, labels, counts = {}, {}, set()
+    unknown = 0
+    for inner in _under(opt_state, "inner_states"):
+        for label, st in inner.items():
+            for tr in _under(st, "trace"):
+                got = state_dict_from_flax({"params": tr}, template, strict=False)
+                unknown += len(flatten_tree(tr)) - len(got)
+                trace.update(got)
+                labels.update(dict.fromkeys(got, label))
+            counts.update(int(c) for c in _under(st, "count"))
+    count = counts.pop() if len(counts) == 1 and not unknown else None
+    return {"count": count, "trace": trace, "labels": labels}
 
 
 def load_tolerant(target: Mapping[str, torch.Tensor],

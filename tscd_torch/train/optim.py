@@ -107,14 +107,28 @@ class GroupedSGD:
         return {"count": self.count,
                 "trace": {n: t.detach().cpu() for n, t in self.trace.items()}}
 
-    def load_state_dict(self, state: Dict, log=print):
-        """Restores the count and each momentum trace whose name and shape
-        match; the rest keep their fresh zeros, with a warning (tolerant,
-        as `restore_opt_state`)."""
-        self.count = int(state.get("count", 0))
+    def load_state_dict(self, state: Dict, log=print) -> bool:
+        """Restores the count and the momentum traces. A state read from a
+        JAX checkpoint (with "labels") restores only where its groups are
+        these, every trained parameter in the same group at the same shape;
+        otherwise it restores nothing and returns False, as JAX's
+        restore_opt_state keeps the fresh init. A port state restores each
+        trace whose name and shape match; the rest keep their zeros, with a
+        warning (tolerant, as `restore_opt_state`)."""
         saved = state.get("trace", {})
+        if "labels" in state:
+            same = (state.get("count") is not None
+                    and state["labels"] == {n: self.labels[n] for n in self.trained}
+                    and all(tuple(saved[n].shape) == tuple(t.shape)
+                            for n, t in self.trace.items()))
+            if not same:
+                log("the checkpoint's optimizer groups are not this optimizer's; "
+                    "keeping its fresh state")
+                return False
+        self.count = int(state.get("count", 0))
         for n, t in self.trace.items():
             if n in saved and tuple(saved[n].shape) == tuple(t.shape):
                 t.copy_(saved[n])
             else:
                 log(f"optimizer trace of {n} not in the checkpoint, kept at 0")
+        return True

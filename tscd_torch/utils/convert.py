@@ -146,23 +146,26 @@ def flax_param_path(name: str, ndim: int) -> Tuple[str, ...]:
     return path + (leaf,)
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+def flatten_tree(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    """{path tuple: leaf} of a nested dict (empty dicts give no leaf)."""
     flat = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            flat.update(_flatten(v, prefix + (k,)))
+            flat.update(flatten_tree(v, prefix + (k,)))
         else:
             flat[prefix + (k,)] = v
     return flat
 
 
 def state_dict_from_flax(variables: Mapping[str, Mapping],
-                         template: Mapping[str, torch.Tensor]
-                         ) -> Dict[str, torch.Tensor]:
+                         template: Mapping[str, torch.Tensor],
+                         strict: bool = True) -> Dict[str, torch.Tensor]:
     """JAX {'params', 'batch_stats'} tree (numpy arrays) -> the port's
     state_dict. `template` is the port model's own state_dict: it gives
-    the keys, shapes and dtypes; num_batches_tracked is kept from it."""
-    coll = {c: _flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
+    the keys, shapes and dtypes; num_batches_tracked is kept from it. With
+    `strict` False a key the tree lacks, or holds at another shape, is left
+    out (for a shape-tolerant load) instead of raising."""
+    coll = {c: flatten_tree(variables.get(c, {})) for c in ("params", "batch_stats")}
     out: Dict[str, torch.Tensor] = {}
     for name, ref in template.items():
         leaf = name.split(".")[-1]
@@ -172,17 +175,21 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
         path = flax_module_path(name)
         if path and path[-1] == "bn":
             c, key = _BN_LEAVES[leaf]
-            arr = np.asarray(coll[c][path + (key,)])
-        elif leaf == "weight" and ref.dim() == 4:       # HWIO -> OIHW
-            arr = np.asarray(coll["params"][path + ("kernel",)]).transpose(3, 2, 0, 1)
-        elif leaf == "weight" and ref.dim() == 2:       # (in,out) -> (out,in)
-            arr = np.asarray(coll["params"][path + ("kernel",)]).T
-        elif leaf == "weight":                          # LayerNorm
-            arr = np.asarray(coll["params"][path + ("scale",)])
+        elif leaf == "weight":
+            c, key = "params", ("kernel" if ref.dim() in (2, 4) else "scale")
         else:
-            arr = np.asarray(coll["params"][path + (leaf,)])
+            c, key = "params", leaf
+        if not strict and path + (key,) not in coll[c]:
+            continue
+        arr = np.asarray(coll[c][path + (key,)])
+        if leaf == "weight" and ref.dim() == 4:         # HWIO -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        elif leaf == "weight" and ref.dim() == 2:       # (in,out) -> (out,in)
+            arr = arr.T
         t = torch.from_numpy(np.array(arr, copy=True)).to(ref.dtype)
         if t.shape != ref.shape:
+            if not strict:
+                continue
             raise ValueError(f"{name}: flax {tuple(t.shape)} != port "
                              f"{tuple(ref.shape)}")
         out[name] = t
