@@ -42,7 +42,12 @@ Phases, each of which raises on failure (so the run exits non-zero):
              autograd path (kernel forward, plain recompute) against
              autograd of the plain version, 1e-5 of each gradient's max;
              forward + backward, backward alone (device time) and the
-             plain forward + backward, timed.
+             plain forward + backward, timed; the same at bf16 q/k/v (the
+             gradients bf16, 1e-5 beyond one bf16 ulp). The stem's backward
+             at the training shape (16 x 576 x 576, 64 channels): the w3,
+             scale and shift gradients through the wrapper's autograd rule
+             (kernel forward, the VJP of the fp32 recompute) against
+             autograd of the plain version, 1e-4; timed alike.
   3. small   the selftest configuration (depth 0.33, width 0.125, P=6,
              1+3 frames, 128 px) with the same seeded weights through the
              port on the CPU (plain versions) and on the card (kernels),
@@ -121,7 +126,22 @@ Phases, each of which raises on failure (so the run exits non-zero):
              recompute ms, the device busy share, the step's time by
              kernel class into build/profile_train_step.json) whose EMA is
              checked against the formula; the backbone bit-unchanged; the
-             EMA weights evaluated on 8 in-memory val windows.
+             EMA weights evaluated on 8 in-memory val windows. Then the rest
+             of JAX's trainer, each part TSCD-Large at 4 + 12 frames, 576 px:
+     train_bf16  bench.py:section_train's step (bf16 with fp32 masters,
+             LR 0.01, frozen backbone, stop_backbone_grad, fix_bn, bench's
+             inputs): median step, frames/s as bench counts, peak memory,
+             a traced step's launches and busy share; the selftest bf16 step
+             card vs CPU, window by window, within BF16_SPREAD x that
+             window's CPU bf16-to-fp32 distance (dense outputs, updates,
+             EMA; the losses through their outputs).
+     train_bn  fix_bn=False: the selftest step card vs CPU (1e-4), then
+             fp32 steps (ms, peak memory, 0 stem launches in the trace).
+     train_backbone_grad  stop_backbone_grad=False under fix_bn: the
+             updates equal the stopped step's, the stem's backward calls and
+             device ms; remat off and on (same gradients, less memory).
+     train_window_batch  2 windows a step: the gradient the mean of the
+             windows' own, LR x 2 (grad_accum is exact by construction).
 On a card, `make_predict_fn(...).dispatch` runs each window as one
 replayed CUDA graph, which runs no Python: the launches of a path are
 counted in the device trace of torch.profiler (`traced_path`), with every
@@ -138,9 +158,11 @@ in another commit's checkout times that commit's stage the same way.
 
     python3 chip_smoke.py --phase NAME        (NAME in PHASES)
 
-builds the kernels and runs that phase alone, printing its JSON lines with
-the checkout's path: run in two checkouts in turns (A B B A), in fresh
-processes, it A/Bs one phase of two commits on one card.
+builds the kernels and runs that phase alone (`train` with its four
+parts), printing its JSON lines with the checkout's path: run in two checkouts in turns (A B B A), in fresh
+processes, it A/Bs one phase of two commits on one card. One phase runs
+only so: `train_bf16_chain` chains bench.py's step (no reset) at fp32
+and at bf16 and names the op behind the first non-finite gradient.
 """
 
 import json
@@ -1755,7 +1777,7 @@ def attention_backward_phase(torch, dev):
     nbytes = 4 * (2 * 2 * B * h * q * d + 4 * B * h * k * d + B * k + B * h * q * k) + B * k
     flops = B * h * 24 * q * k * d
     b_ms, b_by = bound(nbytes, (flops, H100_FP32_FLOPS))
-    return dict(
+    row = dict(
         route="plain PyTorch recompute: autograd of fused_dual_attention_plain",
         replaces="tscd_tpu/ops/pallas/fused_attention.py:95-106 (_fused_bwd_rule: "
                  "XLA's VJP of dual_attention_reference, no Pallas kernel)",
@@ -1765,6 +1787,113 @@ def attention_backward_phase(torch, dev):
             fa.fused_dual_attention(*ins, score, valid), ins, cot), reps),
         plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             fa.fused_dual_attention_plain(*ref, score, valid), ref, cot), reps),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # the same at bf16 q/k/v (the bf16 step's): the gradients in bf16, the
+    # VJP computed in fp32 as JAX's is, against autograd of the plain
+    # version on the same bf16 values (1e-5 of the largest, plus one bf16
+    # ulp of the element: both round one fp32 VJP to bf16)
+    ins16 = [t.detach().to(torch.bfloat16).requires_grad_(True) for t in qkv]
+    ref16 = [t.detach().clone().requires_grad_(True) for t in ins16]
+    b0 = fa.fused_dual_attention.backward_calls
+    got16 = torch.autograd.grad(fa.fused_dual_attention(*ins16, score, valid), ins16, cot)
+    want16 = torch.autograd.grad(fa.fused_dual_attention_plain(*ref16, score, valid), ref16, cot)
+    errs16 = {}
+    for name, g, w in zip(("qc", "kc", "vc", "qr", "kr", "vr"), got16, want16):
+        w32 = w.float()
+        excess = (g.float() - w32).abs() - w32.abs() * 2.0 ** -8
+        errs16[name] = float(excess.max() / w32.abs().max())
+    ok16 = (fa.fused_dual_attention.backward_calls - b0 == 1
+            and all(g.dtype == torch.bfloat16 for g in got16)
+            and all(np.isfinite(v) and v <= ATTN_BWD_TOL for v in errs16.values()))
+    emit({"phase": "kernels", "check": "fused_dual_attention backward, bf16 q/k/v (B 4, h 4, q 50, "
+                                       "k 650, d 64)", "max_rel_err_beyond_one_bf16_ulp": errs16,
+          "tolerance": f"{ATTN_BWD_TOL} of each gradient's max beyond one bf16 ulp", "pass": ok16})
+    if not ok16:
+        raise AssertionError(f"bf16 attention backward differs from the plain version's: {errs16}")
+    outs16 = fa.fused_dual_attention(*ins16, score, valid)
+    bwd16 = lambda: torch.autograd.grad(outs16, ins16, cot, retain_graph=True)  # noqa: E731
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bwd16()
+        torch.cuda.synchronize()
+    dev16 = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and e.key != "Activity Buffer Request") / 1e3 / reps
+    # the six bf16 inputs and their bf16 gradients, the fp32 upstream
+    # gradients, score and mask; the work is the fp32 recompute's
+    qk = 2 * B * h * q * d + 4 * B * h * k * d
+    nbytes16 = 2 * 2 * qk + 4 * (2 * B * h * q * d + B * h * q * k + B * k) + B * k
+    b16_ms, b16_by = bound(nbytes16, (flops, H100_FP32_FLOPS))
+    row16 = dict(row, max_rel_err=max(errs16.values()), ms=dev16, call_ms=cuda_ms(torch, bwd16, reps),
+                 fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                     fa.fused_dual_attention(*ins16, score, valid), ins16, cot), reps),
+                 plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                     fa.fused_dual_attention_plain(*ref16, score, valid), ref16, cot), reps),
+                 bound_ms=b16_ms, bound_by=b16_by)
+    return row, row16
+
+
+def stem_backward_phase(torch, dev):
+    """Kernel check `focus_stem backward` at the training shape (16 frames
+    of 576 x 576, fp32, 64 channels): the wrapper's autograd path (the
+    kernel's forward, JAX's backward rule: the VJP of the fp32 recompute
+    of the 6x6 conv) against autograd of the plain fp32 version, the
+    gradients of w3, scale and shift (the frames need none in training)
+    within 1e-4 of each one's largest value (sums over 1.3 M products in
+    other orders); one backward counted; its device time a call (torch.
+    profiler), its call time, forward + backward, the plain version's.
+    Bound: the recompute and the weight gradient, 2 x the forward's FLOPs,
+    at the fp32 rate (its math is held against JAX's `_bwd` on the CPU,
+    tests/test_torch_port_train_knobs.py)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.ops.kernels import focus_stem as fs
+    rng = np.random.default_rng(60)
+    Fr, H, O = 16, 576, 64
+    x = torch.as_tensor(rng.uniform(0, 255, (Fr, H, H, 3)).astype(np.float32), device=dev)
+    params = [torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        rng.normal(0, 0.05, (O, 12, 3, 3)), rng.uniform(0.5, 1.5, O), rng.normal(0, 0.5, O))]
+    g = torch.as_tensor(rng.normal(size=(Fr, O, H // 2, H // 2)).astype(np.float32), device=dev)
+    ins = [p.clone().requires_grad_(True) for p in params]
+    ref = [p.clone().requires_grad_(True) for p in params]
+    b0, n0 = fs.focus_stem.backward_calls, fs.focus_stem.launches
+    got = torch.autograd.grad(fs.focus_stem(x, *ins), ins, g)
+    if (fs.focus_stem.backward_calls - b0, fs.focus_stem.launches - n0) != (1, 1):
+        raise AssertionError("the stem's autograd path did not launch once and run its backward once")
+    want = torch.autograd.grad(fs.focus_stem_plain(x, *ref), ref, g)
+    errs = {name: float((a - b).abs().max() / b.abs().max())
+            for name, a, b in zip(("w3", "scale", "shift"), got, want)}
+    ok = all(np.isfinite(v) and v <= 1e-4 for v in errs.values())
+    emit({"phase": "kernels", "check": "focus_stem backward (16 x 576 x 576, 64 channels)",
+          "max_rel_err": errs, "tolerance": "1e-4 of each gradient's max", "pass": ok})
+    if not ok:
+        raise AssertionError(f"stem backward differs from autograd of the plain version: {errs}")
+    out = fs.focus_stem(x, *ins)
+    bwd = lambda: torch.autograd.grad(out, ins, g, retain_graph=True)  # noqa: E731
+    reps = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bwd()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and e.key != "Activity Buffer Request") / 1e3 / reps
+    fwd_flops = 2 * Fr * (H // 2) ** 2 * O * 108
+    # frames, weights and the upstream gradient read, the weight gradients written
+    nbytes = 4 * (x.numel() + g.numel() + 2 * sum(p.numel() for p in params))
+    b_ms, b_by = bound(nbytes, (2 * fwd_flops, H100_FP32_FLOPS))
+    return dict(
+        route="plain PyTorch recompute: autograd of focus_stem_reference (cuDNN convs)",
+        replaces="tscd_tpu/ops/pallas/focus_stem.py:213-221 (_bwd: XLA's VJP of "
+                 "_xla_reference, no Pallas kernel)",
+        shape={"F": Fr, "H": H, "W": H, "O": O}, max_rel_err=max(errs.values()),
+        ms=dev_ms, call_ms=cuda_ms(torch, bwd, reps),
+        fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(fs.focus_stem(x, *ins), ins, g), reps),
+        plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            fs.focus_stem_plain(x, *ref), ref, g), reps),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -1824,7 +1953,7 @@ def one_train_step(torch, exp, dev, window, iters, step0):
     before = host(model.state_dict())
     lr = opt.lr()
     losses = train_step(st, *(t.to(dev) for t in window), exp.lframe, exp.gframe,
-                        ota_mode=exp.ota_mode)
+                        ota_mode=exp.ota_mode, fix_bn=exp.fix_bn)
     return ({k: float(v) for k, v in losses.items()}, before, host(model.state_dict()),
             host(st.ema.state_dict()), lr)
 
@@ -1846,18 +1975,13 @@ def train_small_phase(torch):
     cpu = one_train_step(torch, exp, "cpu", window, iters, step0)
     card = one_train_step(torch, exp, "cuda", window, iters, step0)
     loss_err = max(abs(card[0][k] - v) / max(abs(v), 1e-6) for k, v in cpu[0].items())
-    before, trained = card[1], [k for k in card[1] if not k.startswith("backbone")]
+    before = card[1]
+    trained = [k for k, v in before.items() if not k.startswith("backbone") and v.is_floating_point()]
     frozen = all(torch.equal(before[k], card[2][k]) for k in before if k.startswith("backbone"))
     upd = {k: (cpu[2][k].double() - cpu[1][k].double()) for k in trained}
     dmax = max(float(u.abs().max()) for u in upd.values())
-
-    def worst(got, want):
-        return max(float(((g.double() - want[k].double()).abs()
-                          - torch.as_tensor(np.spacing(np.abs(want[k].numpy())))).max())
-                   for k, g in got.items() if g.is_floating_point())
-
-    upd_err = worst({k: card[2][k] for k in trained}, cpu[2])
-    ema_err = worst(card[3], cpu[3])
+    upd_err = max_err(card[2], cpu[2], trained)
+    ema_err = max_err(card[3], cpu[3], [k for k, v in card[3].items() if v.is_floating_point()])
     finite = all(np.isfinite(v) for v in card[0].values())
     refined = cpu[0]["loss_refined_cls"] > 0 and cpu[0]["loss_matched_iou"] > 0
     ok = (frozen and finite and refined and card[4] > 0 and loss_err <= TRAIN_LOSS_RTOL and dmax > 0
@@ -2044,6 +2168,789 @@ def train_phase(torch, counters, steps=8):
     if not np.isfinite(ap50):
         raise AssertionError("evaluate() gave no AP50")
     return per_step
+
+
+# -- the rest of JAX's stage-2 trainer: bf16, train-mode BN, backbone
+# gradients and remat, window batches --------------------------------------
+
+TRAIN_BF16_CONFIG = ("TSCD-Large 4+12 frames 576px P=50, bf16 (fp32 masters), fix_bn, "
+                     "stop_backbone_grad, backbone frozen, constant LR 0.01 "
+                     "(bench.py:section_train)")
+# card vs the card machine's CPU with train-mode BN (fp32, TF32 off): the
+# losses (relative) and the new running statistics (of the largest)
+TRAIN_BN_TOL = 1e-4
+# remat recomputes the same backbone forward: each gradient within this
+# of its largest value of the gradients without remat
+REMAT_GRAD_TOL = 1e-6
+# B windows' accumulated gradient against the mean of the windows' own
+# gradients, of each gradient's largest value (fp32 sums of two terms in
+# another order at most)
+WINDOW_GRAD_TOL = 1e-5
+
+
+def large_exp():
+    """TSCD-Large's exp (the training parts' model)."""
+    from tscd_torch.exp.tscd_large import Exp
+    return Exp()
+
+
+def card(torch):
+    return torch.device("cuda")
+
+
+def bench_train_inputs(torch, dev, H=576, Lt=4, Ft=16, seed=0):
+    """bench.py:section_train's inputs (:447-457): fp32 frames uniform in
+    [0, 255) from seed 0, 6 boxes of 40-160 px a frame (12-48 px below 576
+    px, as its tiny size) in 40 gt slots, the time embedding of frames
+    0..F-1; on `dev`."""
+    import numpy as np
+
+    from tscd_torch.ops.position import get_timing_signal_1d
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 255, (Ft, H, H, 3)).astype(np.float32)
+    te = get_timing_signal_1d(np.arange(Ft), 256).astype(np.float32)
+    lab = np.zeros((Ft, 40, 5), np.float32)
+    lo, hi = (40, 160) if H >= 576 else (12, 48)
+    for f in range(Ft):
+        for g in range(6):
+            wh = rng.uniform(lo, hi, 2)
+            cxy = rng.uniform(wh / 2, H - wh / 2)
+            lab[f, g] = [rng.integers(0, 30), *cxy, *wh]
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, lab, te))
+
+
+def train_model(torch, exp, sd32, dev, dtype, **knobs):
+    """`exp`'s TSCD at `dtype` on `dev` with the fp32 weights `sd32`
+    (cast on load; BN not folded), `knobs` its training fields."""
+    from tscd_torch.models.tscd import TSCD
+    model = TSCD(num_classes=exp.num_classes, depth=exp.depth, width=exp.width,
+                 num_proposals=exp.num_proposals, minimal_limit=exp.minimal_limit,
+                 heads=exp.heads, device=dev, dtype=dtype, **knobs)
+    model.load_state_dict(sd32)
+    return model
+
+
+def capture_grads(opt, model):
+    """Makes `opt.step` keep the gradients it sees, {name: fp32 clone} (a
+    bf16 parameter's from its master), in the returned dict."""
+    grads, step = {}, opt.step
+
+    def wrapped():
+        opt.accumulate()
+        for n, p in model.named_parameters():
+            g = opt.masters[n].grad if n in opt.masters else p.grad
+            if g is not None:
+                grads[n] = g.float().clone()
+        step()
+    opt.step = wrapped
+    return grads
+
+
+def timed_steps(torch, run, n, warmup=2, reset=None):
+    """`run()` warmup + n times, CUDA events around each, peak memory from
+    the first: the n timed steps' ms, their wall seconds (synchronised, as
+    bench.py times its 8 steps) and the peak GB. `reset()`, where given,
+    runs before each step, outside its events."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for i in range(warmup + n):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if reset is not None:
+            reset()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        records.append((a, b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([a.elapsed_time(b) for a, b in records[warmup:]], wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def traced_train_step(torch, run, tag):
+    """One `run()` under torch.profiler: each TRACE_NAMES row's launches in
+    the device trace, the attention's and the stem's backward ranges
+    (calls, kernels, device ms), the device's busy ms and share of the
+    step (CUDA events), the step's device time by kernel class (into
+    build/profile_<tag>.json)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.ops.kernels import focus_stem as fs
+    from tscd_torch.ops.kernels import fused_attention as fa
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+    step_ms = a.elapsed_time(b)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.key != "Activity Buffer Request"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    ranges = {}
+    for name, key in ((fa.BACKWARD_RANGE, "attention_backward"), (fs.BACKWARD_RANGE, "stem_backward")):
+        got = [range_kernels(e) for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU]
+        ranges[key] = {"calls": len(got), "kernels": sum(k for k, _ in got),
+                       "ms": sum(ms for _, ms in got)}
+    table = sorted(({"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in kernels), key=lambda r: -r["ms"])
+    by_class = breakdown(table, TRAIN_KERNEL_CLASSES)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", f"profile_{tag}.json"), "w") as f:
+        json.dump({"by_class": by_class, "kernels": table}, f)
+    return {"step_ms": step_ms, "device_busy_ms": busy, "device_busy_share": busy / step_ms,
+            "launches": trace_launches(prof), **ranges, "by_class": by_class,
+            "kernels": sum(r["calls"] for r in table), "top": table[:8]}
+
+
+# the wrapper (kernel_counters' key) that launches each TRACE_NAMES row
+WRAPPER_OF = {"focus_stem": "focus_stem", "focus_stem_bf16": "focus_stem",
+              "fused_dual_attention": "fused_dual_attention",
+              "fused_dual_attention_bf16": "fused_dual_attention",
+              "hungarian": "hungarian", "nms": "nms"}
+
+
+def traced_checked(torch, run, tag, name, want, backwards, counters, prepare=None, attempts=3):
+    """`traced_train_step` (`prepare()` before it), the wrappers' counts
+    set to 0 just before: the wrappers must count `want` ({row: n}, every
+    other row 0, each wrapper the sum of its rows) and run `backwards`
+    ({range: calls}, the two autograd rules' `backward_calls`) every time,
+    or it raises at once; the device trace must hold the same. A trace
+    that lacks launches the wrappers counted in that same step is
+    torch.profiler dropping records (it has lost a range's spans, and on
+    some machines the stem's launch from every trace of the
+    backbone-gradient step, while other machines' traces held it): it is
+    traced again, `attempts` times at most. Where every trace lacks some,
+    the last is kept with what it lost (`trace_lost_launches`); a trace
+    with a launch the wrappers did not count, or a backward range missing,
+    raises. Each failed trace's counts beside the wrappers' go on the line
+    (`failed_traces`)."""
+    from tscd_torch.ops.kernels import focus_stem as fs
+    from tscd_torch.ops.kernels import fused_attention as fa
+    expect = dict.fromkeys(TRACE_NAMES, 0)
+    expect.update(want)
+    expect_wrappers = dict.fromkeys(counters, 0)
+    for row, n in want.items():
+        expect_wrappers[WRAPPER_OF[row]] += n
+    rules = {"attention_backward": fa.fused_dual_attention, "stem_backward": fs.focus_stem}
+    failed = []
+    for attempt in range(1, attempts + 1):
+        if prepare is not None:
+            prepare()
+        for c in counters.values():
+            c.launches = 0
+        for f in rules.values():
+            f.backward_calls = 0
+        traced = traced_train_step(torch, run, tag)
+        wrappers = {k: c.launches for k, c in counters.items()}
+        wrapper_bwd = {k: rules[k].backward_calls for k in backwards}
+        if wrappers != expect_wrappers or wrapper_bwd != backwards:
+            raise AssertionError(f"{name}: the traced step's wrappers launched {wrappers} and ran "
+                                 f"backwards {wrapper_bwd}; {expect_wrappers} and {backwards} "
+                                 "expected")
+        got = {k: traced[k]["calls"] for k in backwards}
+        traced["trace_attempts"] = attempt
+        traced["failed_traces"] = failed
+        if traced["launches"] == expect and got == backwards:
+            return traced
+        if got != backwards or any(v > expect[k] for k, v in traced["launches"].items()):
+            raise AssertionError(f"{name}: the trace holds launches {traced['launches']} and "
+                                 f"backwards {got} the wrappers did not count ({expect}, "
+                                 f"{backwards})")
+        failed.append({"trace_launches": traced["launches"], "trace_kernels": traced["kernels"],
+                       "wrapper_launches": wrappers, "wrapper_backwards": wrapper_bwd})
+    traced["trace_lost_launches"] = {k: expect[k] - v for k, v in traced["launches"].items()
+                                     if v != expect[k]}
+    return traced
+
+
+def trained_delta(after, before, names):
+    return {k: after[k].double() - before[k].double() for k in names}
+
+
+def max_err(got, want, names, spacing=True):
+    """max over `names` of |got - want|, beyond the fp32 spacing of want
+    where `spacing`."""
+    out = 0.0
+    for k in names:
+        d = (got[k].double() - want[k].double()).abs()
+        if spacing:
+            d = d - torch_spacing(want[k])
+        out = max(out, float(d.max()))
+    return out
+
+
+def torch_spacing(t):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.spacing(np.abs(t.float().cpu().numpy())), dtype=torch.float64,
+                           device=t.device)
+
+
+def bf16_small_steps(torch, windows=4):
+    """The selftest config (depth 0.33, width 0.125, P = 6, 2 + 2 frames,
+    128 px): one bench-style step (constant LR 0.01, backbone frozen, its
+    gradient stopped, fix_bn) on each of `windows` seeded windows (boxes
+    near the model's own proposals), each from the same fp32 weights: the
+    port at fp32 and at bf16 on the card machine's CPU and on the card.
+    Returns {run: [per window: (losses, params after (fp32 masters), EMA,
+    masters, what the step's loss saw: the dense raw outputs `raw`, the
+    discrete choices (the proposals' anchor indices `idx` and boxes at
+    the local frames, SimOTA's fg mask `fg`) and the loss of the run's
+    own head outputs computed on the CPU `losses_on_cpu`)]} and the
+    weights."""
+    from tscd_torch.exp.tscd_large import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train import losses as tl
+    from tscd_torch.train import step as ts
+    from tscd_torch.train.optim import GroupedSGD
+    from tscd_torch.train.step import init_train_state, train_step
+    exp = selftest_exp()
+    L = exp.lframe
+    wins = [boxes_near_proposals(torch, exp, train_window(torch, exp, 41 + 2 * i), 42 + 2 * i)
+            for i in range(windows)]
+    sd32 = random_init_(exp.get_model(device="cpu"), exp.seed).state_dict()
+    host = lambda sd: {k: v.detach().float().cpu() for k, v in sd.items()}  # noqa: E731
+    seen, simota, loss = {}, tl.simota_assign, ts.tscd_loss
+
+    def simota_seen(*a, **k):
+        tgt = simota(*a, **k)
+        seen["fg"] = tgt.fg_mask.cpu()
+        return tgt
+
+    def on_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu()
+        if isinstance(x, dict):
+            return {k: on_cpu(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(on_cpu(v) for v in x))
+        return x
+
+    def loss_seen(out, labels, *a, **k):
+        seen["idx"] = out["proposals"].idx[:L].cpu()
+        seen["boxes"] = out["proposals"].boxes[:L].detach().float().cpu()
+        seen["raw"] = out["raw_outputs"].detach().float().cpu()
+        with torch.no_grad():
+            seen["losses_on_cpu"] = {k2: float(v) for k2, v in loss(
+                on_cpu(out), labels.cpu(), *a, **k).items()}
+        return loss(out, labels, *a, **k)
+    runs = {}
+    tl.simota_assign, ts.tscd_loss = simota_seen, loss_seen
+    try:
+        for name, dev, dtype in (("cpu_fp32", "cpu", torch.float32),
+                                 ("cpu_bf16", "cpu", torch.bfloat16),
+                                 ("card_fp32", card(torch), torch.float32),
+                                 ("card_bf16", card(torch), torch.bfloat16)):
+            runs[name] = []
+            for window in wins:
+                model = train_model(torch, exp, sd32, dev, dtype, stop_backbone_grad=True)
+                opt = GroupedSGD(model.named_parameters(), lambda i: 0.01,
+                                 freeze_prefixes=("backbone",), masters=sd32)
+                st = init_train_state(model, opt, exp.ema_decay)
+                losses = train_step(st, *(t.to(dev) for t in window), exp.lframe, exp.gframe)
+                runs[name].append(({k: float(v) for k, v in losses.items()},
+                                   host(st.model_state()), host(st.ema.state_dict()),
+                                   dict(opt.masters), dict(seen)))
+    finally:
+        tl.simota_assign, ts.tscd_loss = simota, loss
+    return runs, sd32
+
+
+def train_bf16_small(torch):
+    """The bf16 step of the selftest config on the card against the same
+    step on the card machine's CPU, window by window (4 windows), each
+    within BF16_SPREAD x that window's own CPU bf16-to-fp32 distance (max
+    |difference|): the dense raw outputs the loss reads (the bf16 stem
+    kernel, the convs), the parameter updates and the EMA (every
+    gradient, the bf16 attention's backward included). The losses are
+    held through their inputs: each run's losses equal the CPU's
+    tscd_loss of that run's own head outputs (TRAIN_BN_TOL relative), so
+    that the card's losses differ from the CPU's only where its bf16
+    outputs do. Their own card-vs-CPU distance is printed, not held: a
+    loss term rests on a few proposals, and the refined ones on the
+    proposals' bf16 boxes (encode_reg_targets divides by the box and
+    takes its log), which two bf16 runs round a few percent apart; on
+    the selftest window 0 the matched-IoU term moved 0.104 between card
+    and CPU with the same proposals and the same SimOTA fg, while the
+    CPU's own bf16 moved it 0.020 from fp32 and the card's 0.085 (PERF.md
+    section 4). Printed beside each window: the card's own bf16-to-fp32
+    distance, each loss term's differences, the largest update beside
+    the update bound, and the discrete choices (proposal anchors, SimOTA's
+    fg mask) compared between the runs with the largest relative
+    difference of the proposals' boxes. Every bf16 parameter must train
+    on an fp32 master and the EMA be fp32."""
+    import numpy as np
+    runs, sd32 = bf16_small_steps(torch)
+    masters = runs["card_bf16"][0][3]
+    trained = [k for k in sd32 if not k.startswith("backbone") and "running_" not in k
+               and not k.endswith("num_batches_tracked")]
+
+    def vec(run, what, w):
+        losses, params, ema, _, seen = runs[run][w]
+        if what == "losses":
+            return np.array([losses[k] for k in sorted(losses)])
+        if what == "raw_outputs":
+            return seen["raw"].double().flatten().numpy()
+        src = params if what == "updates" else ema
+        return np.concatenate([(src[k].double() - (sd32[k].double() if what == "updates" else 0))
+                               .flatten().numpy() for k in trained])
+
+    def choices(a, b):
+        ca, cb = runs[a][w][4], runs[b][w][4]
+        rel = ((ca["boxes"] - cb["boxes"]).abs() / cb["boxes"].abs().clamp(min=1.0)).max()
+        return {"proposal_anchors_equal": bool(torch.equal(ca["idx"], cb["idx"])),
+                "simota_fg_equal": bool(torch.equal(ca["fg"], cb["fg"])),
+                "proposal_boxes_max_rel_diff": float(rel)}
+
+    per_window, ok = [], True
+    for w in range(len(runs["card_bf16"])):
+        row = {}
+        for what in ("raw_outputs", "updates", "ema", "losses"):
+            c16, c32, g16, g32 = (vec(r, what, w) for r in ("cpu_bf16", "cpu_fp32", "card_bf16",
+                                                            "card_fp32"))
+            gap, ref = distance(g16, c16), distance(c16, c32)
+            row[what] = {"card_vs_cpu_bf16": gap, "cpu_bf16_vs_fp32": ref,
+                         "card_bf16_vs_fp32": distance(g16, g32),
+                         "card_vs_cpu_fp32": distance(g32, c32)}
+            if what != "losses":
+                row[what]["bound"] = BF16_SPREAD * ref["max"]
+                row[what]["pass"] = gap["max"] <= BF16_SPREAD * ref["max"]
+                ok = ok and row[what]["pass"]
+            if what == "updates":
+                row[what]["largest_update"] = float(np.abs(c16).max())
+        own = max(abs(runs[r][w][0][k] - v) / max(abs(v), 1e-6) for r in runs
+                  for k, v in runs[r][w][4]["losses_on_cpu"].items())
+        row["losses"]["loss_of_own_outputs_max_rel_err"] = own
+        ok = ok and own <= TRAIN_BN_TOL
+        terms = sorted(runs["cpu_bf16"][w][0])
+        row["loss_terms"] = {k: {"card_minus_cpu_bf16": runs["card_bf16"][w][0][k]
+                                 - runs["cpu_bf16"][w][0][k],
+                                 "cpu_bf16_minus_fp32": runs["cpu_bf16"][w][0][k]
+                                 - runs["cpu_fp32"][w][0][k],
+                                 "card_bf16_minus_fp32": runs["card_bf16"][w][0][k]
+                                 - runs["card_fp32"][w][0][k]} for k in terms}
+        row["choices"] = {"card_vs_cpu_bf16": choices("card_bf16", "cpu_bf16"),
+                          "cpu_bf16_vs_fp32": choices("cpu_bf16", "cpu_fp32"),
+                          "card_vs_cpu_fp32": choices("card_fp32", "cpu_fp32")}
+        per_window.append(row)
+    fp32_state = all(v.dtype == torch.float32 for v in masters.values())
+    finite = all(np.isfinite(v) for r in runs["card_bf16"] for v in r[0].values())
+    ok = ok and fp32_state and len(masters) > 100 and finite
+    row = {"config": "selftest 2+2 frames 128px P=6, bf16, LR 0.01, 4 windows",
+           "windows": per_window, "bf16_parameters_with_fp32_masters": len(masters),
+           "tolerance": f"each window: the dense raw outputs, the updates and the EMA card vs "
+                        f"CPU bf16 within {BF16_SPREAD} x that window's CPU bf16-to-fp32 "
+                        f"distance (max |difference|); each run's losses the CPU loss of its "
+                        f"own outputs within {TRAIN_BN_TOL} relative",
+           "pass": ok}
+    if not ok:
+        emit({"phase": "train_bf16", "part": "selftest card vs cpu", **row})
+        raise AssertionError("train_bf16: the card's bf16 step departs from the CPU's")
+    return row
+
+
+def train_bf16_phase(torch, counters, steps=8):
+    """bench.py:section_train's step on the port: TSCD-Large computing in
+    bf16 (fp32 masters in the optimizer and the EMA), 4 + 12 frames at
+    576 px from bench's inputs, constant LR 0.01, the backbone frozen and
+    its gradient stopped, fix_bn. Each step starts from the same seeded
+    state (weights, masters, momentum, count; restored outside its
+    events), where bench.py chains its steps: chained from these random
+    weights the step diverges at fp32 as at bf16 (`--phase
+    train_bf16_chain`: a NaN gradient at step 10 at fp32 and at step 9
+    at bf16, both from the IoU loss's area product of a predicted box
+    that overflows, which JAX computes alike, tscd_tpu/ops/boxes.py:97),
+    and the solver would then take NaN costs; at bench's tiny shape JAX's
+    chain and the port's stay finite and close at both dtypes
+    (tests/torch_port_chained_steps.py; PERF.md section 4). Median
+    step (CUDA events, after 2), frames/s as bench.py:495 counts them (F
+    x steps / wall s of the 8, the restores' copies included), peak
+    memory, a traced step (the bf16 stem, the bf16 attention forward and
+    backward, the solver; busy share); then the selftest bf16 step on the
+    card against the CPU (`train_bf16_small`)."""
+    import numpy as np
+
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.train.optim import GroupedSGD
+    from tscd_torch.train.step import init_train_state, train_step
+    exp = large_exp()
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    sd32 = random_init_(exp.get_model(device=dev), exp.seed).state_dict()
+    model = train_model(torch, exp, sd32, dev, torch.bfloat16, stop_backbone_grad=True)
+    opt = GroupedSGD(model.named_parameters(), lambda i: 0.01, freeze_prefixes=("backbone",),
+                     masters=sd32)
+    del sd32
+    st = init_train_state(model, opt, exp.ema_decay)
+    x, lab, te = bench_train_inputs(torch, dev, exp.input_size[0], L, L + G)
+    losses = []
+    run = lambda: losses.append(train_step(st, x, lab, te, L, G))  # noqa: E731
+    params = dict(model.named_parameters())
+    start = {n: t.clone() for n, t in opt.updated.items()}
+
+    @torch.no_grad()
+    def reset():
+        for n, t in start.items():
+            opt.updated[n].copy_(t)
+            if n in opt.masters:
+                params[n].copy_(t)
+            opt.trace[n].zero_()
+        opt.count = 0
+    for c in counters.values():
+        c.launches = 0
+    fa.fused_dual_attention.backward_calls = 0
+    ms, wall, peak = timed_steps(torch, run, steps, reset=reset)
+    n = steps + 2
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    if launches != want or fa.fused_dual_attention.backward_calls != 2 * n:
+        raise AssertionError(f"train_bf16: wrapper launches {launches} != {want}")
+    host = [{k: float(v) for k, v in r.items()} for r in losses]
+    if not all(np.isfinite(v) for r in host for v in r.values()):
+        raise AssertionError(f"train_bf16: non-finite losses {host}")
+    traced = traced_checked(torch, run, "train_step_bf16", "train_bf16",
+                            {"focus_stem_bf16": 1, "fused_dual_attention_bf16": 2, "hungarian": L},
+                            {"attention_backward": 2, "stem_backward": 0}, counters,
+                            prepare=reset)
+    masters_fp32 = (all(m.dtype == torch.float32 for m in opt.masters.values())
+                    and all(v.dtype == torch.float32 for v in st.ema.state_dict().values()
+                            if v.is_floating_point()))
+    small = train_bf16_small(torch)
+    emit({"phase": "train_bf16", "config": TRAIN_BF16_CONFIG, "steps": steps,
+          "step_ms": ms, "median_step_ms_after_2": float(np.median(ms)),
+          "frames_per_s": (L + G) * steps / wall, "peak_mem_gb": peak,
+          "losses_first_last": [host[0], host[-1]], "wrapper_launches": launches,
+          "fp32_masters_and_ema": masters_fp32, "bf16_parameters": len(opt.masters),
+          "traced_step": traced, "selftest_card_vs_cpu": small})
+    if not masters_fp32:
+        raise AssertionError("train_bf16: a master or an EMA entry is not fp32")
+    return traced
+
+
+def train_bf16_chain_phase(torch, counters, steps=20):
+    """bench.py:section_train's chained step (each step from the state the
+    one before returned) for `steps` steps at fp32 and at bf16 from the
+    same seeded weights: each step's losses and the global norm of its
+    gradient before the clip. At the first step whose gradient holds a
+    non-finite value the chain stops (its update is not made): the
+    parameters whose gradients are non-finite, and the same step redone
+    under torch.autograd.detect_anomaly, which names the backward
+    function that first returned NaN and the forward line it came from."""
+    import warnings
+
+    import numpy as np
+
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.losses import tscd_loss
+    from tscd_torch.train.optim import GroupedSGD
+    from tscd_torch.train.step import init_train_state, train_step
+    exp = large_exp()
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    sd32 = random_init_(exp.get_model(device=dev), exp.seed).state_dict()
+    x, lab, te = bench_train_inputs(torch, dev, exp.input_size[0], L, L + G)
+
+    class NonFinite(Exception):
+        pass
+
+    for dtype in (torch.float32, torch.bfloat16):
+        model = train_model(torch, exp, sd32, dev, dtype, stop_backbone_grad=True)
+        opt = GroupedSGD(model.named_parameters(), lambda i: 0.01, freeze_prefixes=("backbone",),
+                         masters=sd32)
+        st = init_train_state(model, opt, exp.ema_decay)
+        rows, found, step = [], {}, opt.step
+
+        def checked():
+            opt.accumulate()
+            grads = {n: (opt.masters[n].grad if n in opt.masters else p.grad)
+                     for n, p in model.named_parameters()}
+            grads = {n: g for n, g in grads.items() if g is not None}
+            norm = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
+            rows.append({"grad_norm": norm})
+            if not np.isfinite(norm):
+                bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+                found["parameters"] = {"count": len(bad), "first": bad[:12], "last": bad[-4:]}
+                raise NonFinite
+            step()
+        opt.step = checked
+        try:
+            for _ in range(steps):
+                losses = train_step(st, x, lab, te, L, G)
+                rows[-1].update({k: float(v) for k, v in losses.items()})
+        except NonFinite:
+            model.zero_grad(set_to_none=True)
+            for m in opt.masters.values():
+                m.grad = None
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    with torch.autograd.detect_anomaly(check_nan=True):
+                        out = model(x, te, L, G)
+                        tscd_loss(out, lab, (8, 16, 32), L)["total_loss"].backward()
+                    found["anomaly"] = "the redone step's backward returned no NaN"
+                except RuntimeError as e:
+                    found["anomaly"] = str(e)
+            found["forward_trace"] = [str(w.message)[-4000:] for w in caught
+                                      if "anomaly" in str(w.message).lower()
+                                      or "Traceback" in str(w.message)][:2]
+            found["step"] = len(rows)
+        emit({"phase": "train_bf16_chain", "dtype": str(dtype).split(".")[-1],
+              "config": TRAIN_BF16_CONFIG, "steps": rows, "first_non_finite": found or None})
+
+
+def train_bn_small(torch):
+    """The selftest config's train-mode-BN step (fix_bn=False) on the card
+    against the card machine's CPU: losses and new running statistics
+    TRAIN_BN_TOL, updates and EMA TRAIN_UPDATE_TOL of the largest update
+    beyond the fp32 spacing (as `train_small`)."""
+    from tscd_torch.exp.tscd_large import selftest_exp
+    exp = selftest_exp()
+    exp.fix_bn = False
+    iters = 4
+    step0 = iters * exp.warmup_epochs + 1
+    window = boxes_near_proposals(torch, exp, train_window(torch, exp, 41), 42)
+    cpu = one_train_step(torch, exp, "cpu", window, iters, step0)
+    gpu = one_train_step(torch, exp, card(torch), window, iters, step0)
+    loss_err = max(abs(gpu[0][k] - v) / max(abs(v), 1e-6) for k, v in cpu[0].items())
+    running = [k for k in cpu[2] if ".running_" in k]
+    smax = max(float(cpu[2][k].abs().max()) for k in running)
+    stats_err = max_err(gpu[2], cpu[2], running, spacing=False) / smax
+    moved = sum(not torch.equal(cpu[2][k], cpu[1][k]) for k in running)
+    trained = [k for k in cpu[1] if not k.startswith("backbone") and ".running_" not in k
+               and cpu[1][k].is_floating_point()]
+    dmax = max(float(d.abs().max()) for d in trained_delta(cpu[2], cpu[1], trained).values())
+    upd_err = max_err(gpu[2], cpu[2], trained)
+    ema_err = max_err({k: gpu[3][k] for k in trained}, cpu[3], trained)
+    ok = (loss_err <= TRAIN_BN_TOL and stats_err <= TRAIN_BN_TOL and moved == len(running)
+          and dmax > 0 and upd_err <= TRAIN_UPDATE_TOL * dmax and ema_err <= TRAIN_UPDATE_TOL * dmax)
+    row = {"config": "selftest 2+2 frames 128px P=6, fix_bn=False", "loss_max_rel_err": loss_err,
+           "running_stats_max_err_of_largest": stats_err, "running_stats_moved": moved,
+           "max_update": dmax, "update_max_err_beyond_spacing": upd_err,
+           "ema_max_err_beyond_spacing": ema_err,
+           "tolerance": {"losses, running stats": TRAIN_BN_TOL,
+                         "updates, EMA": f"{TRAIN_UPDATE_TOL} of the largest update"},
+           "pass": ok}
+    if not ok:
+        emit({"phase": "train_bn", "part": "selftest card vs cpu", **row})
+        raise AssertionError("train_bn: the card's train-mode-BN step departs from the CPU's")
+    return row
+
+
+def large_fp32_state(torch, exp, dev):
+    """TSCD-Large (`exp`'s model) on `dev` with seeded weights, and a copy
+    of its state to start each step from."""
+    from tscd_torch.models.tscd import random_init_
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    return model, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def fresh_state(model, sd0, exp, iters, step0, window_batch=1):
+    from tscd_torch.train.step import init_train_state
+    model.load_state_dict(sd0)
+    opt = exp.get_optimizer(model, iters, window_batch=window_batch)
+    opt.count = step0
+    return init_train_state(model, opt, exp.ema_decay)
+
+
+def train_bn_phase(torch, counters, steps=4):
+    """fix_bn=False (train-mode BatchNorm: batch statistics, new running
+    averages, JAX's XLA conv route in the stem): the selftest step on the
+    card against the CPU (`train_bn_small`), then TSCD-Large in fp32 at the
+    `train` phase's shape (4 + 12 frames, 576 px, in-memory window): step
+    ms, peak memory, the running statistics moved, and a traced step with
+    no stem kernel in it."""
+    import numpy as np
+
+    from tscd_torch.train.step import train_step
+    small = train_bn_small(torch)
+    exp = large_exp()
+    exp.fix_bn = False
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    iters, step0 = 8, 9
+    model, sd0 = large_fp32_state(torch, exp, dev)
+    st = fresh_state(model, sd0, exp, iters, step0)
+    x, lab, te = (t.to(dev) for t in train_window(torch, exp, 43))
+    losses = []
+    run = lambda: losses.append(train_step(st, x, lab, te, L, G, fix_bn=False))  # noqa: E731
+    for c in counters.values():
+        c.launches = 0
+    ms, _, peak = timed_steps(torch, run, steps)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = steps + 2
+    want = {"focus_stem": 0, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    after = model.state_dict()
+    running = [k for k in after if ".running_" in k]
+    moved = sum(not torch.equal(after[k], sd0[k]) for k in running)
+    finite = all(torch.isfinite(after[k]).all() for k in running) and all(
+        np.isfinite(float(v)) for r in losses for v in r.values())
+    if launches != want or moved != len(running) or not finite:
+        raise AssertionError(f"train_bn: wrapper launches {launches} != {want}, or "
+                             f"{moved}/{len(running)} running statistics moved, finite {finite}")
+    traced = traced_checked(torch, run, "train_step_bn", "train_bn",
+                            {"fused_dual_attention": 2, "hungarian": L},
+                            {"attention_backward": 2, "stem_backward": 0}, counters)
+    emit({"phase": "train_bn", "config": "TSCD-Large 4+12 frames 576px P=50, fp32, fix_bn=False, "
+                                         "stop_backbone_grad, backbone frozen",
+          "steps": steps, "step_ms": ms, "median_step_ms_after_2": float(np.median(ms)),
+          "frames_per_s": (L + G) * len(ms) / (sum(ms) / 1e3), "peak_mem_gb": peak,
+          "wrapper_launches": launches, "stem_launches": launches["focus_stem"],
+          "running_stats_moved": moved, "traced_step": traced, "selftest_card_vs_cpu": small})
+
+
+def train_backbone_grad_phase(torch, counters, steps=3):
+    """stop_backbone_grad=False under fix_bn: the backbone's backward runs,
+    the stem's through its autograd rule (the kernel forward, the plain
+    recompute's VJP). TSCD-Large fp32, 4 + 12 frames at 576 px, from one
+    seeded state: the updates equal the stop_backbone_grad=True step's
+    (both freeze the backbone; TRAIN_UPDATE_TOL of the largest update
+    beyond the fp32 spacing) and the backbone stays bit-unchanged; the
+    gradients with remat_backbone equal those without (REMAT_GRAD_TOL of
+    each one's largest value); step ms and peak memory without and with
+    remat (remat must take less); a traced step: the stem's backward
+    calls and device ms."""
+    import numpy as np
+
+    from tscd_torch.ops.kernels import focus_stem as fs
+    from tscd_torch.train.step import train_step
+    exp = large_exp()
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    iters, step0 = 8, 9
+    model, sd0 = large_fp32_state(torch, exp, dev)
+    x, lab, te = (t.to(dev) for t in train_window(torch, exp, 44))
+    trained = [n for n, _ in model.named_parameters() if not n.startswith("backbone")]
+    backbone = [n for n, _ in model.named_parameters() if n.startswith("backbone")]
+
+    def one(stop, remat):
+        model.stop_backbone_grad, model.remat_backbone = stop, remat
+        st = fresh_state(model, sd0, exp, iters, step0)
+        grads = capture_grads(st.optimizer, model)
+        b0 = fs.focus_stem.backward_calls
+        train_step(st, x, lab, te, L, G)
+        after = {k: v.clone() for k, v in model.state_dict().items()}
+        return after, grads, fs.focus_stem.backward_calls - b0
+
+    for c in counters.values():
+        c.launches = 0
+    stopped, g_stop, b_stop = one(True, False)
+    opened, g_open, b_open = one(False, False)
+    _, g_remat, b_remat = one(False, True)
+    dmax = max(float(d.abs().max()) for d in trained_delta(stopped, sd0, trained).values())
+    upd_err = max_err(opened, stopped, trained)
+    frozen = all(torch.equal(opened[k], sd0[k]) and torch.equal(stopped[k], sd0[k]) for k in backbone)
+    remat_err = max(float((g_remat[k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                    for k, g in g_open.items())
+    bb_grads = sum(k in g_open for k in backbone)
+    times = {}
+    for remat in (False, True):
+        model.stop_backbone_grad, model.remat_backbone = False, remat
+        st = fresh_state(model, sd0, exp, iters, step0)
+        ms, _, peak = timed_steps(torch, lambda: train_step(st, x, lab, te, L, G), steps)
+        times["remat" if remat else "no_remat"] = {"step_ms": ms, "median_step_ms": float(np.median(ms)),
+                                                   "peak_mem_gb": peak}
+    launches = {name: c.launches for name, c in counters.items()}
+    n, n_remat = 3 + 2 * (steps + 2), 1 + steps + 2
+    # remat's backward recomputes the backbone's forward, the stem's kernel included
+    want = {"focus_stem": n + n_remat, "fused_dual_attention": 2 * n, "hungarian": L * n,
+            "nms": 0}
+    if launches != want:
+        raise AssertionError(f"train_backbone_grad: wrapper launches {launches} != {want}")
+    model.stop_backbone_grad, model.remat_backbone = False, False
+    held = {}
+    traced = traced_checked(
+        torch, lambda: train_step(held["st"], x, lab, te, L, G), "train_step_backbone",
+        "train_backbone_grad", {"focus_stem": 1, "fused_dual_attention": 2, "hungarian": L},
+        {"attention_backward": 2, "stem_backward": 1}, counters,
+        prepare=lambda: held.update(st=fresh_state(model, sd0, exp, iters, step0)))
+    ok = (dmax > 0 and upd_err <= TRAIN_UPDATE_TOL * dmax and frozen and bb_grads == len(backbone)
+          and g_stop.keys().isdisjoint(backbone) and remat_err <= REMAT_GRAD_TOL
+          and (b_stop, b_open, b_remat) == (0, 1, 1)
+          and times["remat"]["peak_mem_gb"] < times["no_remat"]["peak_mem_gb"])
+    emit({"phase": "train_backbone_grad",
+          "config": "TSCD-Large 4+12 frames 576px P=50, fp32, fix_bn, stop_backbone_grad=False, "
+                    "backbone frozen",
+          "max_update": dmax, "update_vs_stopped_max_err_beyond_spacing": upd_err,
+          "backbone_bit_unchanged": frozen, "backbone_gradients": bb_grads,
+          "remat_grad_max_rel_err": remat_err,
+          "wrapper_launches": launches,
+          "stem_backward_calls": {"stopped": b_stop, "open": b_open, "remat": b_remat},
+          "stem_backward_ms_per_call": traced["stem_backward"]["ms"],
+          "stem_backward_kernels_per_call": traced["stem_backward"]["kernels"],
+          **times, "traced_step": traced,
+          "tolerance": {"updates": f"{TRAIN_UPDATE_TOL} of the largest update beyond the spacing",
+                        "remat gradients": f"{REMAT_GRAD_TOL} of each gradient's largest value"},
+          "pass": ok})
+    if not ok:
+        raise AssertionError("train_backbone_grad: see the line above")
+    return traced
+
+
+def train_window_batch_phase(torch, counters):
+    """B = 2 windows a step (TSCD-Large fp32, 4 + 12 frames at 576 px,
+    fix_bn) from one seeded state: its gradient is the mean of the two
+    windows' own (WINDOW_GRAD_TOL of each one's largest value), its LR
+    twice the schedule's; the step's ms and peak memory; the wrappers'
+    launches over the part. grad_accum is exact by construction: the
+    step runs one window at a time whatever the chunking, so it takes no
+    grad_accum (the exp checks that it divides B)."""
+    import numpy as np
+
+    from tscd_torch.train.losses import tscd_loss
+    from tscd_torch.train.step import train_step
+    exp = large_exp()
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    iters, step0 = 8, 9
+    model, sd0 = large_fp32_state(torch, exp, dev)
+    wins = [[t.to(dev) for t in train_window(torch, exp, seed)] for seed in (45, 46)]
+    batch = [torch.stack([w[i] for w in wins]) for i in range(3)]
+    names = [n for n, _ in model.named_parameters()]
+    for c in counters.values():
+        c.launches = 0
+    st = fresh_state(model, sd0, exp, iters, step0, window_batch=2)
+    lr = st.optimizer.lr()
+    grads = capture_grads(st.optimizer, model)
+    train_step(st, *batch, L, G)
+    model.load_state_dict(sd0)
+    model.train()
+    single = []
+    for x, lab, te in wins:
+        model.zero_grad(set_to_none=True)
+        out = model(x, te, L, G)
+        tscd_loss(out, lab, (8, 16, 32), L)["total_loss"].backward()
+        single.append({n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+    mean = {n: (single[0][n] + single[1][n]) / 2 for n in single[0]}
+    grad_err = max(float((grads[n] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                   for n, g in mean.items())
+    lr_x2 = lr == 2 * exp.get_lr_schedule(iters)(step0)
+    st = fresh_state(model, sd0, exp, iters, step0, window_batch=2)
+    ms, _, peak = timed_steps(torch, lambda: train_step(st, *batch, L, G), 2, warmup=1)
+    launches = {name: c.launches for name, c in counters.items()}
+    n = 2 + 2 + 2 * 3           # windows: the step, the two alone, 3 timed steps
+    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    ok = (grad_err <= WINDOW_GRAD_TOL and lr_x2 and launches == want
+          and set(mean) == set(grads) - set(n for n in names if n.startswith("backbone")))
+    emit({"phase": "train_window_batch",
+          "config": "TSCD-Large 2 windows x (4+12 frames) 576px P=50, fp32, fix_bn",
+          "lr": lr, "lr_is_twice_the_schedule": lr_x2,
+          "grad_vs_mean_of_single_windows_max_rel_err": grad_err,
+          "step_ms": ms, "median_step_ms": float(np.median(ms)), "peak_mem_gb": peak,
+          "wrapper_launches": launches,
+          "tolerance": {"gradients": f"{WINDOW_GRAD_TOL} of each gradient's largest value"},
+          "pass": ok})
+    if not ok:
+        raise AssertionError("train_window_batch: see the line above")
 
 
 # -- phase files: frame files and JAX checkpoints ------------------------------
@@ -2525,8 +3432,12 @@ def nms_stage_main(torch):
           "valid": [int(a[3].sum()) for a in stage]})
 
 
-# the phases `--phase` runs alone: each takes (torch, counters)
-PHASES = ("full", "bf16", "eval", "files", "train")
+# the phases `--phase` runs alone: each takes (torch, counters); `train`
+# runs the trainer and the four parts of the rest of JAX's trainer
+PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
+          "train_backbone_grad", "train_window_batch", "train_bf16_chain")
+PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
+                         "train_window_batch")}
 
 
 def kernel_counters():
@@ -2551,7 +3462,8 @@ def phase_main(torch, name):
     torch.backends.cuda.matmul.allow_tf32 = False
     plain = emit
     emit = lambda obj: plain({"tree": HERE, **obj})   # noqa: E731
-    globals()[f"{name}_phase"](torch, kernel_counters())
+    for part in PHASE_PARTS.get(name, (name,)):
+        globals()[f"{part}_phase"](torch, kernel_counters())
 
 
 def main() -> int:
@@ -2591,7 +3503,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     rows = kernel_phase(torch, dev)
-    rows["fused_dual_attention"]["backward"] = attention_backward_phase(torch, dev)
+    rows["fused_dual_attention"]["backward"], attention_bwd_bf16 = attention_backward_phase(
+        torch, dev)
+    rows["focus_stem"]["backward"] = stem_backward_phase(torch, dev)
     small_phase(torch)
     # each row's launches in the 3 traced windows of its model's phase
     launches, carried, sorted_in, stage = full_phase(torch, counters)
@@ -2600,15 +3514,26 @@ def main() -> int:
     launches_bf16 = bf16_phase(torch, counters)
     for name in ("focus_stem_bf16", "fused_dual_attention_bf16"):
         launches[name] = launches_bf16[name]
+    rows["fused_dual_attention_bf16"]["backward"] = attention_bwd_bf16
     eval_phase(torch, counters)
     file_launches = files_phase(torch, counters)
     train_small_phase(torch)
     per_step = train_phase(torch, counters)
+    traced_bf16 = train_bf16_phase(torch, counters)
+    train_bn_phase(torch, counters)
+    traced_backbone = train_backbone_grad_phase(torch, counters)
+    train_window_batch_phase(torch, counters)
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}
+    rows["fused_dual_attention_bf16"]["backward"]["launches_per_train_step"] = {
+        k: traced_bf16["attention_backward"][k] for k in ("calls", "kernels")}
+    rows["focus_stem"]["backward"]["launches_per_train_step"] = {
+        "stop_backbone_grad=False": {k: traced_backbone["stem_backward"][k]
+                                     for k in ("calls", "kernels")}}
     for name in KERNELS:
         rows[name]["launches_per_train_step"] = per_step[name]
+        rows[name]["launches_per_bf16_train_step"] = traced_bf16["launches"][name]
         rows[name]["launches_file_eval"] = file_launches[name]
 
     smi = subprocess.run(

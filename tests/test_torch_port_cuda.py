@@ -14,7 +14,10 @@ fp32); col4row, the NMS keep mask and the NMS pack's bits are exact;
 the selftest evaluator on the card against the CPU, detections 1e-4
 (matched as sets per frame) and stats 1e-4, also through the eval CLI on
 the fixture's files from a JAX msgpack checkpoint; a window's CUDA graph
-replay equals its eager dispatch.
+replay equals its eager dispatch; the stem's backward on the card against
+the CPU's, 1e-4 of each gradient's largest value; the bf16 and the
+train-mode-BN selftest steps on the card against the CPU, at chip_smoke.py's
+bounds.
 """
 
 import numpy as np
@@ -505,3 +508,50 @@ def test_cuda_train_small_step_matches_cpu(fp32_card):
     term driven, the backbone bit-unchanged (it raises otherwise)."""
     import chip_smoke
     chip_smoke.train_small_phase(torch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_focus_stem_backward_matches_cpu(fp32_card, out_dtype):
+    """The stem's autograd rule on the card (the kernel's forward, the VJP
+    of the fp32 recompute) against the same on the CPU (the plain
+    version's forward): the x, w3, scale and shift gradients within 1e-4
+    of each one's largest value (fp32 sums over the frame in other
+    orders), one backward counted."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32)
+    w3 = rng.normal(0, 0.1, (16, 12, 3, 3)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    shift = rng.normal(0, 0.5, 16).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(2, 16, 32, 48)).astype(np.float32)).to(out_dtype)
+    grads = {}
+    for dev in ("cpu", fp32_card):
+        ins = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in (x, w3, scale, shift)]
+        b0 = pfs.focus_stem.backward_calls
+        out = pfs.focus_stem(*ins, out_dtype=out_dtype)
+        grads[torch.device(dev).type] = [t.cpu() for t in torch.autograd.grad(out, ins, g.to(dev))]
+        assert pfs.focus_stem.backward_calls == b0 + 1
+    for name, a, b in zip(("x", "w3", "scale", "shift"), grads["cuda"], grads["cpu"]):
+        assert a.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_train_step_matches_cpu(fp32_card):
+    """chip_smoke.py's selftest bf16 step (bench.py's: constant LR 0.01,
+    frozen backbone, fix_bn) on the card against the card machine's CPU,
+    window by window: the dense raw outputs, the updates and the EMA
+    within BF16_SPREAD x that window's CPU bf16-to-fp32 distance, each
+    run's losses the CPU loss of its own outputs, every bf16 parameter on
+    an fp32 master (it raises otherwise)."""
+    import chip_smoke
+    assert chip_smoke.train_bf16_small(torch)["pass"]
+
+
+@pytest.mark.cuda
+def test_cuda_train_mode_bn_step_matches_cpu(fp32_card):
+    """chip_smoke.py's selftest fix_bn=False step on the card against the
+    CPU: losses and new running statistics 1e-4, updates and EMA 1e-3 of
+    the largest update (it raises otherwise)."""
+    import chip_smoke
+    assert chip_smoke.train_bn_small(torch)["pass"]

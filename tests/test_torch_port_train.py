@@ -19,7 +19,8 @@ made from numpy seeds:
     and EMA (the same bound);
   - the train collate against JAX's collate_window (hsv_prob 0, flip
     probability 0 and 1), exactly;
-  - the knobs the port does not run raise, and the trainer runs an epoch
+  - the knobs the port does not run raise (the ported ones are held in
+    tests/test_torch_port_train_knobs.py), and the trainer runs an epoch
     of the selftest exp on the committed fixture;
   - the repairs of the port: an exp file that sets a model knob the port
     does not run raises in get_model (each default JAX's); the trainer
@@ -557,25 +558,17 @@ def _set(**kw):
     return apply
 
 
-@pytest.mark.parametrize("knob", [
-    "stop_backbone_grad", "fix_bn", "agg_type", "window_batch", "grad_accum",
-    "int8_frozen_backbone", "int8_qat"])
+@pytest.mark.parametrize("knob", ["agg_type", "int8_frozen_backbone", "int8_qat"])
 def test_knobs_the_port_does_not_run_raise(knob):
     exp = selftest_exp()
-    if knob in ("stop_backbone_grad", "fix_bn"):
-        setattr(exp, knob, False)
-        exp.get_model(device="cpu")          # eval never trains BN or the stem
-        with pytest.raises(NotImplementedError,
-                           match={"stop_backbone_grad": "stem", "fix_bn": "fix_bn"}[knob]):
-            exp.get_trainer(device="cpu")
-    elif knob == "agg_type":
+    if knob == "agg_type":
         exp.agg_type = "mca_aware"
         with pytest.raises(NotImplementedError, match="agg_type = 'mca_aware'.*queue 1 item 3"):
             exp.get_model(device="cpu")
         with pytest.raises(NotImplementedError, match="agg_type"):
             exp.get_trainer(device="cpu")
     else:
-        setattr(exp, knob, {"window_batch": 2, "grad_accum": 2}.get(knob, True))
+        setattr(exp, knob, True)
         with pytest.raises(NotImplementedError, match=knob):
             exp.get_trainer(device="cpu")
 
@@ -629,8 +622,9 @@ _KNOB_VALUES = {"use_pre_nms": True, "cat_ota_fg": True, "agg_type": "mca_aware"
 def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
     """An exp file that sets a model knob in __init__ to a value the port
     does not run raises in get_model; one that leaves the defaults builds.
-    remat_backbone changes only training memory, so that exp builds its
-    model and raises in the trainer. Each default is JAX's."""
+    remat_backbone changes only training memory: that exp builds its
+    model and its trainer, both recomputing the backbone. Each default is
+    JAX's."""
     from tscd_tpu.exp.tscd_base import Exp as JExp
     from tscd_torch.exp import get_exp
     from tscd_torch.exp.tscd_base import MODEL_KNOBS
@@ -647,9 +641,8 @@ def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
     if knob is None:
         assert exp.get_model(device="cpu") is not None
     elif knob == "remat_backbone":
-        assert exp.get_model(device="cpu") is not None
-        with pytest.raises(NotImplementedError, match="remat_backbone: .*ROADMAP queue 1 item 2.9"):
-            exp.get_trainer(device="cpu")
+        assert exp.get_model(device="cpu").remat_backbone is True
+        assert exp.get_trainer(device="cpu").model.remat_backbone is True
     else:
         with pytest.raises(NotImplementedError, match=f"{knob} = .*ROADMAP queue 1 item"):
             exp.get_model(device="cpu")

@@ -1,6 +1,10 @@
 """Stage-2 TSCD trainer of the port (counterpart of
 tscd_tpu/core/tscd_trainer.py:44-140,288-394,474-499; reference
-yolox/core/tscd_trainer.py:90), on one card, one window a step, fp32.
+yolox/core/tscd_trainer.py:90), on one card, fp32: `exp.window_batch`
+windows a step (0 meaning one, as on one card in JAX), the LR schedule
+times that count, `grad_accum`, `fix_bn` (else train-mode BatchNorm,
+whose statistics the step averages over the windows),
+`stop_backbone_grad` and `remat_backbone` as JAX's trainer runs them.
 
 JAX runs a step as one jitted program; here a step is an eager forward,
 backward, grouped SGD and EMA (`train.step.train_step`). The loader's
@@ -12,7 +16,8 @@ False (tscd_tpu/core/tscd_trainer.py:288-299); `no_aug_epochs` shapes
 only the LR schedule, as there. With `enable_multiscale` the window is
 resized to a size re-drawn every 10 iterations from
 `random.Random(step)`, JAX's sizes (:337-360), into float32 frames with
-the values of JAX's cv2.resize of its float32 window.
+the values of JAX's cv2.resize of its float32 window (each window of a
+batch, as JAX flattens the window axis).
 """
 
 import datetime
@@ -51,6 +56,7 @@ class TSCDTrainer:
         self.device = resolve_device(device)
         self.val_loader = val_loader
         self.lframe, self.gframe = exp.lframe, exp.gframe
+        self.window_batch = exp.windows_per_step
         self.max_epoch = exp.max_epoch
         self.file_name = os.path.join(exp.output_dir, exp.exp_name)
         self.start_epoch = int(getattr(args, "start_epoch", None) or 0)
@@ -84,15 +90,17 @@ class TSCDTrainer:
             model.load_state_dict(load_tolerant(model.state_dict(),
                                                 restored.get("model", restored)))
             print(f"loaded fine-tune weights from {ckpt_path}")
-        opt = exp.get_optimizer(model, iters)
+        opt = exp.get_optimizer(model, iters, window_batch=self.window_batch)
         if opt_ckpt is None or not opt.load_state_dict(opt_ckpt):
             opt.count = self.start_epoch * iters
         self.state = init_train_state(model, opt, exp.ema_decay)
 
     def _loader(self, epoch: int):
-        """The epoch's loader: augmented at every epoch, as JAX's."""
+        """The epoch's loader: augmented at every epoch, as JAX's;
+        `window_batch` windows a batch."""
         return self.exp.get_data_loader(pin_memory=self.device.type == "cuda",
-                                        rng=self.rng, dataset=self.dataset)
+                                        rng=self.rng, dataset=self.dataset,
+                                        batch_windows=self.window_batch)
 
     def multiscale_size(self, n: int):
         """The size iteration `n` of an epoch trains at, re-drawn when n is
@@ -105,10 +113,10 @@ class TSCDTrainer:
     def train(self) -> TrainState:
         exp = self.exp
         self.dataset = exp.get_train_dataset()
-        iters = max(len(self.dataset.res), 1)
+        iters = max(len(self.dataset.res) // self.window_batch, 1)
         self._init_state(iters)
-        print(f"training {exp.exp_name}: {self.max_epoch} epochs x {iters} windows "
-              f"from epoch {self.start_epoch}")
+        print(f"training {exp.exp_name}: {self.max_epoch} epochs x {iters} steps of "
+              f"{self.window_batch} window(s) from epoch {self.start_epoch}")
         for epoch in range(self.start_epoch, self.max_epoch):
             t_epoch = time.time()
             data_t0 = time.time()
@@ -138,15 +146,21 @@ class TSCDTrainer:
         return tuple(t.to(dev, non_blocking=True) for t in (frames, labels, te))
 
     def step(self, frames, labels, te) -> Dict[str, torch.Tensor]:
-        """One update on a window already on the device."""
+        """One update on a window (or a batch of windows) already on the
+        device."""
+        exp = self.exp
         return train_step(self.state, frames, labels, te, self.lframe,
-                          self.gframe, ota_mode=self.exp.ota_mode)
+                          self.gframe, ota_mode=exp.ota_mode, fix_bn=exp.fix_bn)
 
     def _one_iter(self, batch, epoch: int, n: int, iters: int, data_t0: float):
         if self.exp.enable_multiscale:
-            imgs, labels = multiscale_resize(np.asarray(batch["imgs"]), batch["labels"],
+            imgs, labels = np.asarray(batch["imgs"]), np.asarray(batch["labels"])
+            lead = imgs.shape[:-3]           # (F,) or (B, F): resized frame by frame
+            imgs, labels = multiscale_resize(imgs.reshape((-1,) + imgs.shape[-3:]),
+                                             labels.reshape((-1,) + labels.shape[-2:]),
                                              self.multiscale_size(n))
-            batch = dict(batch, imgs=imgs, labels=labels)
+            batch = dict(batch, imgs=imgs.reshape(lead + imgs.shape[1:]),
+                         labels=labels.reshape(lead + labels.shape[1:]))
         frames, labels, te = self._upload(batch)
         data_time = time.time() - data_t0
         t0 = time.time()
@@ -194,7 +208,7 @@ class TSCDTrainer:
         st = self.state
         return {"start_epoch": epoch + 1, "step": st.step,
                 "model": st.ema.state_dict(),
-                "raw_model": st.model.state_dict(),
+                "raw_model": st.model_state(),
                 "optimizer": st.optimizer.state_dict()}
 
     def save_ckpt(self, epoch: int, is_best: bool = False) -> str:

@@ -6,9 +6,8 @@ frame index as time, the HSV jitter and horizontal flip), and the
 multiscale resize.
 
 Frames are read, letterboxed and jittered by `data.image`, whose host C++
-gives cv2's pixels bit for bit without OpenCV. Not ported yet: batched
-windows (`exp.check_train_knobs` raises) and the OVIS and Argoverse
-datasets.
+gives cv2's pixels bit for bit without OpenCV. Not ported yet: the OVIS
+and Argoverse datasets.
 """
 
 import os
@@ -311,18 +310,31 @@ class WindowLoader:
     With `pin_memory` (a CUDA device) the worker turns `imgs` and
     `time_embedding` into pinned CPU tensors, so the step uploads them
     with non_blocking copies that do not wait on the card.
-    An error in the worker is raised in the consumer."""
+    An error in the worker is raised in the consumer.
+
+    `batch_windows` B > 1 stacks B collated windows on a new leading axis
+    (imgs (B, F, H, W, 3), labels, time_embedding; infos and paths as
+    lists of B), as JAX's loader does (vid.py:436-470); the last partial
+    group is dropped, so a pass has len(res) // B batches, and a B above
+    the dataset's window count raises."""
 
     def __init__(self, dataset, img_dtype=np.uint8, pin_memory: bool = False,
                  shuffle: bool = False, train_time_index: bool = False,
                  cxcywh: bool = False, augment: bool = False,
                  hsv_prob: float = 1.0, flip_prob: float = 0.5,
-                 rng: Optional[np.random.Generator] = None):
+                 rng: Optional[np.random.Generator] = None,
+                 batch_windows: int = 1):
         self.dataset = dataset
         self.img_dtype = img_dtype
         self.pin_memory = pin_memory
         self.shuffle = shuffle
         self.rng = rng if rng is not None else np.random.default_rng()
+        self.batch_windows = max(int(batch_windows), 1)
+        if self.batch_windows > len(dataset.res):
+            raise ValueError(
+                f"batch_windows({self.batch_windows}) exceeds the dataset's "
+                f"{len(dataset.res)} windows: every step takes batch_windows "
+                "full windows (shrink window_batch or enlarge the dataset)")
         self.collate_kw = dict(img_dtype=img_dtype,
                                train_time_index=train_time_index,
                                cxcywh=cxcywh, augment=augment,
@@ -330,10 +342,17 @@ class WindowLoader:
                                rng=self.rng)
 
     def __len__(self):
-        return len(self.dataset.res)
+        return len(self.dataset.res) // self.batch_windows
 
-    def _collate(self, paths, pool):
-        batch = collate_window(self.dataset, paths, pool, **self.collate_kw)
+    def _collate(self, group, pool):
+        ws = [collate_window(self.dataset, paths, pool, **self.collate_kw)
+              for paths in group]
+        if len(ws) == 1:
+            batch = ws[0]
+        else:
+            batch = {k: np.stack([w[k] for w in ws])
+                     for k in ("imgs", "labels", "time_embedding")}
+            batch.update({k: [w[k] for w in ws] for k in ("infos", "paths")})
         if self.pin_memory:
             for k in ("imgs", "time_embedding"):
                 batch[k] = torch.from_numpy(batch[k]).pin_memory()
@@ -343,6 +362,8 @@ class WindowLoader:
         windows = list(self.dataset.res)
         if self.shuffle:
             windows = [windows[i] for i in self.rng.permutation(len(windows))]
+        B = self.batch_windows
+        groups = [windows[i:i + B] for i in range(0, len(windows) - B + 1, B)]
         q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
         stop = threading.Event()
         end = object()
@@ -359,10 +380,10 @@ class WindowLoader:
             try:
                 with ThreadPoolExecutor(_DECODE_WORKERS,
                                         thread_name_prefix="vid-decode") as pool:
-                    for paths in windows:
+                    for group in groups:
                         if stop.is_set():
                             return
-                        put(self._collate(paths, pool))
+                        put(self._collate(group, pool))
                 put(end)
             except Exception as e:         # handed to the consumer, raised there
                 put(e)

@@ -102,16 +102,20 @@ class TSCDExp(BaseExp):
         # defaults; `get_model` raises for any other value (MODEL_KNOBS)
         for knob, (default, _) in MODEL_KNOBS.items():
             setattr(self, knob, default)
-        # knobs of the JAX trainer the port does not run yet; each raises
-        # unless at this default (`check_train_knobs`)
+        # the JAX trainer's window batching and memory knobs
+        # (tscd_trainer.py:65-74, :170-252): window_batch windows a step (0:
+        # one per card), their gradients accumulated over grad_accum chunks;
+        # remat_backbone recomputes the backbone in the backward
         self.window_batch = 0
         self.grad_accum = 1
+        self.remat_backbone = False
+        # knobs of the JAX trainer the port does not run yet; each raises
+        # unless at this default (`check_train_knobs`)
         self.mesh_data = 1
         self.mesh_model = 1
         self.fsdp = False
         self.int8_frozen_backbone = False
         self.int8_qat = False
-        self.remat_backbone = False     # jax.checkpoint over the backbone
 
     @property
     def num_proposals(self) -> int:
@@ -120,14 +124,20 @@ class TSCDExp(BaseExp):
     def get_model(self, device: Optional[Union[str, torch.device]] = None
                   ) -> TSCD:
         """The model on `device`, the card unless the caller asks for
-        another. Its training forward is stage 2's (`fix_bn`,
-        `stop_backbone_grad`). Raises for a model knob at a value the port
-        does not run."""
+        another, with the exp's `stop_backbone_grad` and `remat_backbone`.
+        Raises for a model knob at a value the port does not run, and,
+        as JAX's (tscd_base.py:143-152), where `stop_backbone_grad` would
+        sever the gradients of a backbone that is not frozen."""
         for knob, (default, item) in MODEL_KNOBS.items():
             if getattr(self, knob) != default:
                 raise NotImplementedError(
                     f"{knob} = {getattr(self, knob)!r}: the port's TSCD runs only "
                     f"{default!r} (ROADMAP {item})")
+        if self.stop_backbone_grad and not any(
+                p.startswith("backbone") for p in self.freeze_prefixes()):
+            raise ValueError("stop_backbone_grad=True but freeze_prefixes() does not "
+                             "freeze the backbone; set stop_backbone_grad=False "
+                             "for a full fine-tune")
         return TSCD(num_classes=self.num_classes, depth=self.depth,
                     width=self.width, act=self.act, depthwise=self.depthwise,
                     num_proposals=self.num_proposals,
@@ -136,7 +146,9 @@ class TSCDExp(BaseExp):
                     sim_thresh=self.sim_thresh,
                     conf_sim_thresh=self.conf_sim_thresh,
                     test_conf=self.test_conf,
-                    backbone_name=self.backbone_name, device=device)
+                    backbone_name=self.backbone_name,
+                    stop_backbone_grad=self.stop_backbone_grad,
+                    remat_backbone=self.remat_backbone, device=device)
 
     # -- stage-2 training ------------------------------------------------
     def freeze_prefixes(self) -> Sequence[str]:
@@ -150,31 +162,30 @@ class TSCDExp(BaseExp):
                 "head/cls_pred_", "head/reg_pred_", "head/obj_pred_")
 
     def check_train_knobs(self):
-        """Raises for a training knob the port does not run yet, and where
-        `stop_backbone_grad` has no frozen backbone (tscd_base.py:143-152)."""
-        if not self.fix_bn:
-            raise NotImplementedError(
-                "fix_bn=False (train-mode BatchNorm) is not ported yet "
-                "(ROADMAP queue 1 item 2.6)")
-        if not self.stop_backbone_grad:
-            raise NotImplementedError(
-                "stop_backbone_grad=False needs the Focus stem's backward, "
-                "which is not ported (ROADMAP queue 1 item 2.7)")
-        if not any(p.startswith("backbone") for p in self.freeze_prefixes()):
-            raise ValueError("stop_backbone_grad=True but freeze_prefixes() "
-                             "does not freeze the backbone")
+        """Raises for a training knob the port does not run yet (int8,
+        meshes), and where `grad_accum` does not divide the window batch
+        (tscd_trainer.py:178-181)."""
         leftovers = {"int8_frozen_backbone": ("int8_frozen_backbone", "2.8"),
-                     "int8_qat": ("int8_qat", "2.8"), "fsdp": ("a mesh", "8"),
-                     "remat_backbone": ("recomputing the backbone in the backward", "2.9")}
+                     "int8_qat": ("int8_qat", "2.8"), "fsdp": ("a mesh", "8")}
         for knob, (what, item) in leftovers.items():
             if getattr(self, knob):
                 raise NotImplementedError(
                     f"{knob}: {what} is not ported yet (ROADMAP queue 1 item {item})")
-        for knob in ("window_batch", "grad_accum", "mesh_data", "mesh_model"):
+        for knob in ("mesh_data", "mesh_model"):
             if int(getattr(self, knob) or 1) != 1:
                 raise NotImplementedError(
-                    f"{knob} = {getattr(self, knob)}: the port trains one window "
-                    "a step on one card (ROADMAP queue 1 items 2.4 and 8)")
+                    f"{knob} = {getattr(self, knob)}: the port trains on one card "
+                    "(ROADMAP queue 1 item 8)")
+        accum, batch = int(self.grad_accum or 1), self.windows_per_step
+        if accum > 1 and batch % accum:
+            raise ValueError(f"grad_accum({accum}) needs window_batch a multiple of it "
+                             f"(window_batch={batch})")
+
+    @property
+    def windows_per_step(self) -> int:
+        """Windows an optimizer step takes: `window_batch`, 0 meaning one
+        (one card, tscd_trainer.py:69-71)."""
+        return int(self.window_batch or 0) or 1
 
     def random_input_size(self, rng: random.Random) -> Tuple[int, int]:
         """A multiscale size (yolox_base.py:171-182 with the video rule):
@@ -203,10 +214,18 @@ class TSCDExp(BaseExp):
             return multistep_lr(lr, [total * 2 // 3, total * 5 // 6])
         raise ValueError(f"unknown scheduler {self.scheduler}")
 
-    def get_optimizer(self, model: TSCD, iters_per_epoch: int):
+    def get_optimizer(self, model: TSCD, iters_per_epoch: int,
+                      window_batch: int = 1):
+        """Grouped SGD over `model`'s parameters. With B windows a step the
+        schedule is multiplied by B (tscd_base.py:178-194: the LR is
+        basic_lr_per_img x the global batch, and batch_size is one
+        window's frames)."""
         from ..train.optim import GroupedSGD
-        return GroupedSGD(model.named_parameters(),
-                          self.get_lr_schedule(iters_per_epoch),
+        sched = self.get_lr_schedule(iters_per_epoch)
+        if window_batch > 1:
+            base = sched
+            sched = lambda i: base(i) * window_batch  # noqa: E731
+        return GroupedSGD(model.named_parameters(), sched,
                           momentum=self.momentum, weight_decay=self.weight_decay,
                           freeze_prefixes=self.freeze_prefixes(),
                           stem_lr_prefixes=self.stem_lr_prefixes(),
@@ -227,18 +246,20 @@ class TSCDExp(BaseExp):
 
     def get_data_loader(self, no_aug: bool = False, pin_memory: bool = False,
                         rng: Optional[np.random.Generator] = None,
-                        dataset=None):
+                        dataset=None, batch_windows: int = 1):
         """Shuffled training windows of `dataset` (`get_train_dataset()`
         unless given; tscd_base.py get_data_loader): up to 120 cxcywh
         labels a frame, the window's own frame index as time, and unless
-        `no_aug` the window's HSV jitter and flip, drawn from `rng`. Uint8
-        frames, pinned for a CUDA device."""
+        `no_aug` the window's HSV jitter and flip, drawn from `rng`; with
+        `batch_windows` B > 1, B windows stacked a batch. Uint8 frames,
+        pinned for a CUDA device."""
         from ..data.vid import WindowLoader
         ds = dataset if dataset is not None else self.get_train_dataset()
         return WindowLoader(ds, pin_memory=pin_memory, shuffle=True,
                             train_time_index=True, cxcywh=True,
                             augment=not no_aug, hsv_prob=self.hsv_prob,
-                            flip_prob=self.flip_prob, rng=rng)
+                            flip_prob=self.flip_prob, rng=rng,
+                            batch_windows=batch_windows)
 
     def get_trainer(self, args=None, device=None):
         from ..core.tscd_trainer import TSCDTrainer

@@ -1,7 +1,15 @@
 """Conv primitives of the detection core (counterpart of
-tscd_tpu/models/blocks.py; reference network_blocks.py). NCHW, eval-mode
+tscd_tpu/models/blocks.py; reference network_blocks.py). NCHW,
 BatchNorm with eps 1e-5. The int8 machinery of the JAX package is not
 ported.
+
+BatchNorm mode, as the JAX modules' `train` argument: each forward takes
+`stats`, None for eval-mode BN (the running statistics), or a dict for
+train-mode BN (`batch_norm`): the batch's statistics normalise, and the
+new running statistics are put in `stats` under the BatchNorm module,
+not written into its buffers, so that a step over several windows can
+average them (tscd_tpu/core/tscd_trainer.py:198-214). Modules stay in
+torch's eval mode either way.
 
 Compute dtype (`dtype`, fp32 or bf16), as the JAX modules' `dtype`
 field: the conv weights are stored in it (cast once, at construction or
@@ -11,12 +19,49 @@ back (blocks.py:231-245). `utils.model_utils.fuse_model` folds the BN
 into the conv: the conv then has a bias and `bn` is None (JAX:
 `use_bias`)."""
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.focus_stem import focus_stem
+from ..ops.kernels.focus_stem import focus_stem, rearrange_weight
+
+# new running statistics of a train-mode forward: {BatchNorm module:
+# (running mean, running var)}
+BNStats = Dict[nn.BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]]
+BN_MOMENTUM = 0.9     # flax's: running = 0.9 running + 0.1 batch
+
+
+def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor,
+               stats: Optional[BNStats]) -> torch.Tensor:
+    """BatchNorm of y (N, C, H, W) in fp32, cast back to y's dtype. With
+    `stats` None, eval mode (the running statistics). Otherwise flax's
+    train mode (nn.BatchNorm, flax 0.12.3 normalization.py): the batch
+    mean and the biased variance E[x^2] - E[x]^2 (its fast variance,
+    floored at 0) normalise, (x - mean) * (rsqrt(var + eps) * scale) +
+    bias, and stats[bn] gets momentum 0.9 running averages of them, which
+    carry no gradient."""
+    x = y.float()
+    if stats is None:
+        return bn(x).to(y.dtype)
+    axes = (0, 2, 3)
+    mean = x.mean(axes)
+    var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    out = (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    m = BN_MOMENTUM
+    stats[bn] = (m * bn.running_mean + (1.0 - m) * mean.detach(),
+                 m * bn.running_var + (1.0 - m) * var.detach())
+    return out.to(y.dtype)
+
+
+def run(seq: nn.Sequential, x: torch.Tensor,
+        stats: Optional[BNStats]) -> torch.Tensor:
+    """The modules of `seq` in turn, each given the BN mode `stats`."""
+    for m in seq:
+        x = m(x, stats)
+    return x
 
 
 def get_activation(name: str = "silu") -> nn.Module:
@@ -44,10 +89,11 @@ class BaseConv(nn.Module):
         self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
         self.act = get_activation(act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
         y = self.conv(x)
         if self.bn is not None:
-            y = self.bn(y.float()).to(y.dtype)
+            y = batch_norm(self.bn, y, stats)
         return self.act(y)
 
 
@@ -63,8 +109,9 @@ class DWConv(nn.Module):
         self.pconv = BaseConv(in_channels, out_channels, 1, 1, act=act,
                               dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pconv(self.dconv(x))
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        return self.pconv(self.dconv(x, stats), stats)
 
 
 def conv_cls(depthwise: bool):
@@ -85,8 +132,9 @@ class Bottleneck(nn.Module):
                                          dtype=dtype)
         self.use_add = shortcut and in_channels == out_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        y = self.conv2(self.conv1(x, stats), stats)
         return y + x if self.use_add else y
 
 
@@ -104,9 +152,10 @@ class SPPBottleneck(nn.Module):
         self.conv2 = BaseConv(hidden * (len(kernel_sizes) + 1), out_channels,
                               1, 1, act=act, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)
-        return self.conv2(torch.cat([x] + [m(x) for m in self.m], 1))
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        x = self.conv1(x, stats)
+        return self.conv2(torch.cat([x] + [m(x) for m in self.m], 1), stats)
 
 
 class CSPLayer(nn.Module):
@@ -127,24 +176,31 @@ class CSPLayer(nn.Module):
                        dtype=dtype)
             for _ in range(n)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.m(self.conv1(x))
-        x2 = self.conv2(x)
-        return self.conv3(torch.cat([x1, x2], 1))
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        x1 = run(self.m, self.conv1(x, stats), stats)
+        x2 = self.conv2(x, stats)
+        return self.conv3(torch.cat([x1, x2], 1), stats)
 
 
 class Focus(nn.Module):
-    """Space-to-depth stem (network_blocks.py:267), eval only.
+    """Space-to-depth stem (network_blocks.py:267).
 
-    Takes the raw (F, H, W, 3) image (fp32, or uint8 at bf16). BN folds
-    into scale/shift as in blocks.py:580-598 and the stem (6x6/s2 conv +
-    shift + SiLU) runs as the hand kernel `ops.kernels.focus_stem`; its
-    plain version does s2d + the 3x3 conv. The parameters are the
-    reference's (`stem.conv.conv.weight` (O, 12, 3, 3), `stem.conv.bn.*`)
-    and stay fp32 at any compute dtype: at bf16 the kernel rounds the
-    BN-folded weights to bf16 itself and writes bf16, as the Pallas
-    kernel does (focus_stem.py:144-148). After `fuse_model` the conv's
-    bias is the shift and the scale is 1."""
+    Takes the raw (F, H, W, 3) image (fp32, or uint8 at bf16). With
+    eval-mode BN, BN folds into scale/shift as in blocks.py:580-598 and
+    the stem (6x6/s2 conv + shift + SiLU) runs as the hand kernel
+    `ops.kernels.focus_stem`, differentiable in the weights and BN
+    parameters (its backward is JAX's `_bwd`, a plain recompute); its
+    plain version does s2d + the 3x3 conv. With train-mode BN (`stats`
+    given) JAX's Focus runs the XLA 6x6/s2 conv, then BatchNorm, then the
+    activation (blocks.py:573-577), and so does this one: `F.conv2d` in
+    the compute dtype, `batch_norm`, SiLU, and no kernel launch. The
+    parameters are the reference's (`stem.conv.conv.weight` (O, 12, 3, 3),
+    `stem.conv.bn.*`) and stay fp32 at any compute dtype: at bf16 the
+    kernel rounds the BN-folded weights to bf16 itself and writes bf16, as
+    the Pallas kernel does (focus_stem.py:144-148), and the train-mode
+    conv casts the image and the 6x6 weights to bf16, as `_conv6` does.
+    After `fuse_model` the conv's bias is the shift and the scale is 1."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
                  stride: int = 1, act: str = "silu",
@@ -157,8 +213,15 @@ class Focus(nn.Module):
         self.conv = BaseConv(in_channels * 4, out_channels, ksize, stride,
                              act=act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
         conv, bn = self.conv.conv, self.conv.bn
+        if stats is not None:
+            if bn is None:
+                raise ValueError("train-mode BatchNorm on a model with BN folded")
+            w6 = rearrange_weight(conv.weight).to(self.dtype)
+            y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype), w6, stride=2, padding=2)
+            return self.conv.act(batch_norm(bn, y, stats))
         if bn is None:
             shift = conv.bias
             scale = torch.ones_like(shift)

@@ -2,12 +2,12 @@
 reference darknet.py:98). base_channels = 64*width, base_depth =
 max(round(3*depth), 1)."""
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from .blocks import CSPLayer, Focus, SPPBottleneck, conv_cls
+from .blocks import BNStats, CSPLayer, Focus, SPPBottleneck, conv_cls, run
 
 
 class CSPDarknet(nn.Module):
@@ -37,13 +37,15 @@ class CSPDarknet(nn.Module):
             CSPLayer(b * 16, b * 16, n=d, shortcut=False,
                      depthwise=depthwise, **kw))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (F, H, W, 3) raw image, NHWC. Returns NCHW features in the
-        compute dtype."""
+    def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x: (F, H, W, 3) raw image, NHWC; `stats` the BN mode
+        (`blocks.batch_norm`). Returns NCHW features in the compute
+        dtype."""
         outputs = {}
-        x = self.stem(x)
+        x = self.stem(x, stats)
         outputs["stem"] = x
         for name in ("dark2", "dark3", "dark4", "dark5"):
-            x = getattr(self, name)(x)
+            x = run(getattr(self, name), x, stats)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}

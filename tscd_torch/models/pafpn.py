@@ -2,13 +2,13 @@
 yolo_pafpn.py:12): CSPDarknet + top-down FPN + bottom-up PAN. Outputs
 (pan_out2 stride 8, pan_out1 stride 16, pan_out0 stride 32), NCHW."""
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BaseConv, CSPLayer, conv_cls
+from .blocks import BaseConv, BNStats, CSPLayer, conv_cls
 from .darknet import CSPDarknet
 
 
@@ -40,22 +40,23 @@ class YOLOPAFPN(nn.Module):
         self.bu_conv1 = Conv(c1, c1, 3, 2, **kw)
         self.C3_n4 = CSPLayer(2 * c1, c2, n, False, depthwise=depthwise, **kw)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """x: (F, H, W, 3) image, NHWC. At fp32, uint8 is cast to fp32
-        exactly; at bf16 the stem reads uint8 frames itself."""
+        """x: (F, H, W, 3) image, NHWC; `stats` the BN mode
+        (`blocks.batch_norm`). At fp32, uint8 is cast to fp32 exactly; at
+        bf16 the stem reads uint8 frames itself."""
         if x.dtype == torch.uint8 and self.dtype == torch.float32:
             x = x.to(torch.float32)
-        feats = self.backbone(x)
+        feats = self.backbone(x, stats)
         x2, x1, x0 = (feats[f] for f in self.in_features)
-        fpn_out0 = self.lateral_conv0(x0)
-        f_out0 = self.C3_p4(torch.cat([upsample2x(fpn_out0), x1], 1))
-        fpn_out1 = self.reduce_conv1(f_out0)
-        pan_out2 = self.C3_p3(torch.cat([upsample2x(fpn_out1), x2], 1))
-        p_out1 = self.bu_conv2(pan_out2)
-        pan_out1 = self.C3_n3(torch.cat([p_out1, fpn_out1], 1))
-        p_out0 = self.bu_conv1(pan_out1)
-        pan_out0 = self.C3_n4(torch.cat([p_out0, fpn_out0], 1))
+        fpn_out0 = self.lateral_conv0(x0, stats)
+        f_out0 = self.C3_p4(torch.cat([upsample2x(fpn_out0), x1], 1), stats)
+        fpn_out1 = self.reduce_conv1(f_out0, stats)
+        pan_out2 = self.C3_p3(torch.cat([upsample2x(fpn_out1), x2], 1), stats)
+        p_out1 = self.bu_conv2(pan_out2, stats)
+        pan_out1 = self.C3_n3(torch.cat([p_out1, fpn_out1], 1), stats)
+        p_out0 = self.bu_conv1(pan_out1, stats)
+        pan_out0 = self.C3_n4(torch.cat([p_out0, fpn_out0], 1), stats)
         return pan_out2, pan_out1, pan_out0
 
 

@@ -1,14 +1,14 @@
 """TSCD top model (counterpart of tscd_tpu/models/tscd.py; reference
 yolox/models/tscd.py:11): YOLOPAFPN + TSCDHead over a frame window, plus
 the final eval postprocess. The forward is the eval forward; in train
-mode it is the stage-2 training forward (`fix_bn`, `stop_backbone_grad`),
-which autograd records."""
+mode it is the stage-2 training forward, which autograd records."""
 
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.postprocess import (Detections, postprocess_best_class,
@@ -30,7 +30,13 @@ class TSCD(nn.Module):
     keep fp32 parameters. At bf16 BN, LayerNorm, attention logits, decode,
     the matcher cost and the postprocess stay fp32, as in JAX. For
     serving, fold BN into the convs with
-    `utils.model_utils.fuse_model(model, fp32_state_dict)`."""
+    `utils.model_utils.fuse_model(model, fp32_state_dict)`.
+
+    `stop_backbone_grad` and `remat_backbone` are JAX's fields of the
+    same names (tscd.py:41-52): the first detaches the FPN outputs (the
+    backbone's forward is not recorded), the second recomputes the whole
+    PAFPN backbone in the backward (`torch.utils.checkpoint`, as
+    `nn.remat` wraps it, pafpn_variants.py:199-200)."""
 
     def __init__(self, num_classes: int = 30, depth: float = 1.0,
                  width: float = 1.0, act: str = "silu",
@@ -39,6 +45,8 @@ class TSCD(nn.Module):
                  decoder_layer_num: int = 1, sim_thresh: float = 0.75,
                  conf_sim_thresh: float = 0.99, test_conf: float = 0.001,
                  backbone_name: str = "MCSP",
+                 stop_backbone_grad: bool = False,
+                 remat_backbone: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -47,6 +55,8 @@ class TSCD(nn.Module):
         device = resolve_device(device)
         self.num_classes = num_classes
         self.dtype = dtype
+        self.stop_backbone_grad = stop_backbone_grad
+        self.remat_backbone = remat_backbone
         self.backbone = build_pafpn_backbone(backbone_name, depth, width,
                                              act=act, depthwise=depthwise,
                                              dtype=dtype)
@@ -61,7 +71,8 @@ class TSCD(nn.Module):
 
     def train(self, mode: bool = True):
         """Train mode records the forward for autograd; every module stays
-        in eval mode, so BN keeps its running statistics (fix_bn)."""
+        in torch's eval mode: BatchNorm's mode is the forward's `train`
+        argument, as in JAX."""
         super().train(False)
         self.training = mode
         return self
@@ -72,22 +83,40 @@ class TSCD(nn.Module):
 
     def forward(self, x: torch.Tensor, time_embedding: torch.Tensor,
                 lframe: int, gframe: int,
-                matcher_state: Optional[MatcherState] = None
-                ) -> Dict[str, Any]:
+                matcher_state: Optional[MatcherState] = None,
+                train: bool = False) -> Dict[str, Any]:
         """x: (F, H, W, 3) frame window [local..., global...] (F =
         lframe + gframe, H and W multiples of 32), fp32 or uint8;
         time_embedding: (F, 256). Returns the head's dict (raw outputs,
         refined logits and the matcher state in the compute dtype); thread
         out["matcher_state"] into the next window. In train mode, where
-        autograd is on, the head's forward is recorded and the backbone's
-        is not (its outputs are detached: stop_backbone_grad)."""
+        autograd is on, the forward is recorded, the backbone's only
+        without `stop_backbone_grad`.
+
+        `train` is JAX's argument of that name, which gates BatchNorm
+        only: with it every BN normalises with its batch's statistics, and
+        out["batch_stats"] holds the new running statistics
+        {state_dict key: tensor} (the model's buffers are left as they
+        are; `train.step` writes them). A remat backbone's recompute in
+        the backward runs the same BN on the same batch and adds nothing
+        to them."""
         if x.shape[0] != lframe + gframe:
             raise ValueError(f"{x.shape[0]} frames != {lframe} + {gframe}")
-        with torch.no_grad():
-            fpn_outs = self.backbone(x)
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-            return self.head(fpn_outs, time_embedding, lframe,
-                             matcher_state=matcher_state)
+        stats = {} if train else None
+        grad = self.training and torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and not self.stop_backbone_grad):
+            if self.remat_backbone and torch.is_grad_enabled():
+                fpn_outs = checkpoint(self.backbone, x, stats, use_reentrant=False)
+            else:
+                fpn_outs = self.backbone(x, stats)
+        with torch.set_grad_enabled(grad):
+            out = self.head(fpn_outs, time_embedding, lframe,
+                            matcher_state=matcher_state, stats=stats)
+        if train:
+            out["batch_stats"] = {
+                f"{name}.running_{k}": v for name, bn in self.named_modules()
+                if bn in stats for k, v in zip(("mean", "var"), stats[bn])}
+        return out
 
 
 def tscd_eval_postprocess(head_out: Dict[str, Any], lframe: int,

@@ -24,7 +24,7 @@ from ..ops.decode import decode_outputs
 from ..ops.nms import top_k
 from ..ops.wavelets import WaveletsHFBlock
 from .aggregation import MCAg2l
-from .blocks import BaseConv, conv_cls
+from .blocks import BaseConv, BNStats, conv_cls, run
 from .matching import MatcherState, RegMatcher, TaskAligned, init_matcher_state
 from .yolo_head import flatten_levels
 
@@ -159,25 +159,27 @@ class TSCDHead(nn.Module):
 
     def forward(self, xin: Sequence[torch.Tensor],
                 time_embedding: torch.Tensor, lframe: int,
-                matcher_state: Optional[MatcherState] = None
-                ) -> Dict[str, Any]:
+                matcher_state: Optional[MatcherState] = None,
+                stats: Optional[BNStats] = None) -> Dict[str, Any]:
         """xin: 3 FPN levels, each (F, c, h, w), frames [local...,
-        global...]; time_embedding (F, 256). Returns raw + refined
-        outputs and the new matcher state."""
+        global...]; time_embedding (F, 256); `stats` the BN mode of the
+        stems and towers (`blocks.batch_norm`; JAX's head gates only BN
+        on `train`, tscd_head.py:211-249). Returns raw + refined outputs
+        and the new matcher state."""
         C = self.num_classes
         P = self.num_proposals
         level_outputs, hw = [], []
         cls_vid, reg_vid, edges = [], [], []
         for k, x in enumerate(xin):
             hw.append((x.shape[2], x.shape[3]))
-            x = self.stems[k](x)
-            cls_f = self.cls_convs[k](x)
-            reg_f = self.reg_convs[k](x)
+            x = self.stems[k](x, stats)
+            cls_f = run(self.cls_convs[k], x, stats)
+            reg_f = run(self.reg_convs[k], x, stats)
             level_outputs.append(torch.cat(
                 [self.reg_preds[k](reg_f), self.obj_preds[k](reg_f),
                  self.cls_preds[k](cls_f)], 1))
-            cls_vid.append(self.cls_convs2[k](x))
-            reg_vid.append(self.reg_convs2[k](x))
+            cls_vid.append(run(self.cls_convs2[k], x, stats))
+            reg_vid.append(run(self.reg_convs2[k], x, stats))
             # the 'mca' path reads edge features of the local frames only
             edges.append(self.edge_enhance_reg[k](reg_vid[-1][:lframe]))
 

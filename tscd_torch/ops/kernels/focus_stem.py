@@ -16,7 +16,16 @@ operations bound the fp32 kernel (`focus_stem_kernel`). The bf16 variant
 cores (`focus_stem_mma`, 0.037 ms at the bf16 rate), so bytes bound it.
 The bf16 kernel takes its weights as mma.sync fragments
 (`weight_fragments`).
+
+The stem is differentiable in x, w3, scale and shift, as JAX's
+`focus_stem` is a `custom_vjp` (focus_stem.py:207-221): the forward is
+the kernel, the backward the VJP of a plain fp32 recompute of the 6x6
+conv (`focus_stem_reference`, JAX's `_xla_reference` at its default fp32
+compute), no kernel. The training path that records the stem with BN
+folded is `stop_backbone_grad=False` under `fix_bn`.
 """
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,15 +33,20 @@ import torch.nn.functional as F
 from . import library
 
 
-def rearrange_weight(w3: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+BACKWARD_RANGE = "focus_stem backward"
+
+
+def rearrange_weight(w3: torch.Tensor, scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Focus conv weight (O, 4C, 3, 3) in torch layout, s2d channel order
-    (dx*2+dy)*C + c, times the folded BN scale (O,) -> the equivalent
-    6x6 stride-2 kernel (O, C, 6, 6), with ky = 2u+dy and kx = 2v+dx."""
+    (dx*2+dy)*C + c, times the folded BN scale (O,) where given -> the
+    equivalent 6x6 stride-2 kernel (O, C, 6, 6), with ky = 2u+dy and
+    kx = 2v+dx."""
     O, C4, k, _ = w3.shape
     C = C4 // 4
     w6 = w3.reshape(O, 2, 2, C, k, k)                  # (o, dx, dy, c, u, v)
     w6 = w6.permute(0, 3, 4, 2, 5, 1).reshape(O, C, 2 * k, 2 * k)
-    return w6 * scale[:, None, None, None]
+    return w6 if scale is None else w6 * scale[:, None, None, None]
 
 
 TAPS = 108       # the 6x6 kernel's taps, (ky, kx, c) order: k = (6 ky + kx) 3 + c
@@ -108,6 +122,19 @@ def focus_stem_plain(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
     return F.silu(y).to(out_dtype)
 
 
+def focus_stem_reference(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
+                         shift: torch.Tensor) -> torch.Tensor:
+    """The stem's math as JAX's backward recomputes it (`_xla_reference`,
+    focus_stem.py:110, fp32 compute): the 6x6/s2 conv of the fp32 image
+    with the BN-scaled weights, + shift, SiLU as y sigmoid(y); (F, O, H/2,
+    W/2) fp32."""
+    f32 = torch.float32
+    w6 = rearrange_weight(w3.to(f32), scale.to(f32))
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(f32), w6, stride=2, padding=2)
+    y = y + shift.to(f32)[None, :, None, None]
+    return y * torch.sigmoid(y)
+
+
 def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor, out_dtype: torch.dtype = torch.float32
                ) -> torch.Tensor:
@@ -117,7 +144,42 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
     writes the (F, O, H/2, W/2) result contiguous (NCHW), the memory
     format of the plain version and of every conv after the stem. The
     bf16 kernel reads uint8 frames as they are; other frames are read as
-    fp32."""
+    fp32.
+
+    Differentiable in x (a floating image), w3, scale and shift through
+    `_Differentiable`, with JAX's backward rule; where no input needs a
+    gradient or grad mode is off, autograd records nothing."""
+    return _Differentiable.apply(x, w3, scale, shift, out_dtype)
+
+
+class _Differentiable(torch.autograd.Function):
+    """The stem with JAX's `_fwd`/`_bwd` (focus_stem.py:207-221): the
+    forward is the kernel (the plain version on the CPU) and keeps its
+    inputs; the backward differentiates `focus_stem_reference` on them
+    under the upstream gradient cast to fp32 (the VJP of the reference's
+    cast to `out_dtype`). Each backward adds one to
+    `focus_stem.backward_calls`; its work runs in a profiler range of
+    that name."""
+
+    @staticmethod
+    def forward(ctx, x, w3, scale, shift, out_dtype):
+        ctx.save_for_backward(x, w3, scale, shift)
+        return _forward(x, w3, scale, shift, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        focus_stem.backward_calls += 1
+        ins = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ins, need)]
+            out = focus_stem_reference(*ins)
+            wrt = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g.to(torch.float32)))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def _forward(x, w3, scale, shift, out_dtype):
     if x.device.type == "cpu":
         return focus_stem_plain(x, w3, scale, shift, out_dtype)
     if x.device.type != "cuda":
@@ -154,3 +216,4 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
 
 
 focus_stem.launches = 0
+focus_stem.backward_calls = 0

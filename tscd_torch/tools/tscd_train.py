@@ -4,8 +4,10 @@ tools/tscd_train.py; reference tools/tscd_train.py:102).
     python -m tscd_torch.tools.tscd_train -f <exp file> [-c init.pth]
     python -m tscd_torch.tools.tscd_train --exp selftest --device cpu
 
-Trains on the card (or the device given) one window a step, fp32, with
-the frozen backbone and fix_bn. `-c` loads initial weights, shape
+Trains on the card (or the device given) in fp32, as the exp sets it:
+`window_batch` windows a step and `grad_accum`, `fix_bn` (else train-mode
+BatchNorm), `stop_backbone_grad` and `remat_backbone` (e.g. the overrides
+`window_batch 2 fix_bn False`). `-c` loads initial weights, shape
 tolerant (a port or reference `.pth`, or a JAX `.msgpack`); `--resume`
 continues from `<output_dir>/<exp_name>/latest_ckpt.pth` (or `-c`, which
 may be a JAX trainer's `latest_ckpt.msgpack`), momentum included; `-e N`

@@ -2,7 +2,15 @@
 yolox/utils/checkpoint.py) in the port's own torch format: one
 `torch.save`d dict of tensors and numbers, `<name>_ckpt.pth` with a
 `best_ckpt.pth` copy. Its "model" entry is a state_dict, as in the
-reference's files, so `utils.convert.load_reference_pth` reads it.
+reference's files, so `utils.convert.load_reference_pth` reads it. A
+file name ending in `.msgpack` gets the same dict as the JAX trainer
+writes its checkpoints (tscd_trainer.py:save_ckpt), read by flax and by
+`load_checkpoint`:
+"params" and "batch_stats" the EMA's weights and running statistics,
+"raw_params" the trained weights (a bf16 model's fp32 masters, as
+`TrainState.model_state` gives them), "start_epoch"; the optimizer state
+is left out of it (JAX's resume then starts fresh momentum, as where its
+groups differ).
 
 `load_checkpoint` also reads the JAX package's msgpack checkpoints (a
 `.msgpack` path, read by `utils.flax_msgpack`, no flax needed) into that
@@ -19,18 +27,39 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 
-from ..utils.convert import flatten_tree, state_dict_from_flax
-from ..utils.flax_msgpack import read_msgpack
+import numpy as np
+
+from ..utils.convert import flatten_tree, flax_from_state_dict, state_dict_from_flax
+from ..utils.flax_msgpack import read_msgpack, write_msgpack
 
 
 def save_checkpoint(state: Mapping[str, Any], save_dir: str,
-                    is_best: bool = False, name: str = "latest") -> str:
+                    is_best: bool = False, name: str = "latest_ckpt.pth") -> str:
+    """`state` to `save_dir/name`, in JAX's layout where `name` ends in
+    `.msgpack`, else `torch.save`d; with `is_best` also copied to
+    `best_ckpt` with the same extension."""
     os.makedirs(save_dir, exist_ok=True)
-    path = os.path.join(save_dir, f"{name}_ckpt.pth")
-    torch.save(_to_cpu(state), path)
+    path = os.path.join(save_dir, name)
+    ext = os.path.splitext(name)[1]
+    if ext == ".msgpack":
+        write_msgpack(path, checkpoint_to_flax(state))
+    else:
+        torch.save(_to_cpu(state), path)
     if is_best:
-        shutil.copyfile(path, os.path.join(save_dir, "best_ckpt.pth"))
+        shutil.copyfile(path, os.path.join(save_dir, f"best_ckpt{ext}"))
     return path
+
+
+def checkpoint_to_flax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's checkpoint dict -> the JAX trainer's checkpoint tree
+    (the inverse of `checkpoint_from_flax` for its weights)."""
+    ema = flax_from_state_dict(state["model"])
+    tree: Dict[str, Any] = {"params": ema["params"], "batch_stats": ema["batch_stats"]}
+    if "raw_model" in state:
+        tree["raw_params"] = flax_from_state_dict(state["raw_model"])["params"]
+    if "start_epoch" in state:
+        tree["start_epoch"] = np.int32(state["start_epoch"])
+    return tree
 
 
 def _to_cpu(x):
@@ -43,7 +72,8 @@ def _to_cpu(x):
 
 def load_checkpoint(path: str, model: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
     """A port `.pth` checkpoint, or a JAX `.msgpack` one mapped onto
-    `model`'s names (which it then needs)."""
+    `model`'s names (which it then needs), its weights at the file's
+    precision (a bf16 model's fp32 masters stay fp32)."""
     if not str(path).endswith(".msgpack"):
         return torch.load(path, map_location="cpu", weights_only=True)
     if model is None:
@@ -54,8 +84,10 @@ def load_checkpoint(path: str, model: Optional[torch.nn.Module] = None) -> Dict[
 def checkpoint_from_flax(tree: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, Any]:
     """A JAX checkpoint's tree (tscd_tpu/core/tscd_trainer.py:save_ckpt, or
     variables) -> the port's checkpoint dict for `model`. Weights map
-    shape-tolerantly: a name the tree lacks is left out."""
-    template = model.state_dict()
+    shape-tolerantly: a name the tree lacks is left out. Weights keep
+    the tree's fp32, whatever the model's dtype."""
+    template = {k: v.float() if v.is_floating_point() else v
+                for k, v in model.state_dict().items()}
     params = tree["params"] if "params" in tree else tree
     out: Dict[str, Any] = {"model": state_dict_from_flax(
         {"params": params, "batch_stats": tree.get("batch_stats", {})}, template, strict=False)}
@@ -89,7 +121,7 @@ def optimizer_state_from_optax(opt_state: Mapping[str, Any],
     is another group's, and its schedule's count. A trace the port has no
     parameter for leaves "count" None, so that the load sees the
     mismatch."""
-    template = dict(named_params)
+    template = {n: p.detach().float() for n, p in named_params}
     trace, labels, counts = {}, {}, set()
     unknown = 0
     for inner in _under(opt_state, "inner_states"):

@@ -8,7 +8,7 @@ to its flax path with this module's copy of the name rules of
 tscd_tpu/utils/convert.py (torch_to_flax), then changes the layout:
 HWIO kernel -> OIHW conv weight, (in, out) kernel -> (out, in) linear
 weight, BN scale/bias/mean/var -> weight/bias/running_mean/running_var,
-LayerNorm scale -> weight.
+LayerNorm scale -> weight. `flax_from_state_dict` is the inverse.
 """
 
 from typing import Any, Dict, Mapping, Tuple
@@ -193,6 +193,35 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
             raise ValueError(f"{name}: flax {tuple(t.shape)} != port "
                              f"{tuple(ref.shape)}")
         out[name] = t
+    return out
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's state_dict -> a JAX {'params', 'batch_stats'} tree of
+    numpy arrays in flax's layout (the inverse of `state_dict_from_flax`;
+    num_batches_tracked has no flax counterpart and is left out). Each
+    value keeps its dtype; a bfloat16 one stays a torch tensor, which
+    `utils.flax_msgpack` writes as flax's bfloat16 ndarray."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        leaf = name.split(".")[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        path = flax_module_path(name)
+        if path and path[-1] == "bn":
+            c, key = _BN_LEAVES[leaf]
+        else:
+            c, key = "params", flax_param_path(name, t.dim())[-1]
+        t = t.detach().cpu()
+        if leaf == "weight" and t.dim() == 4:           # OIHW -> HWIO
+            t = t.permute(2, 3, 1, 0)
+        elif leaf == "weight" and t.dim() == 2:         # (out,in) -> (in,out)
+            t = t.t()
+        t = t.contiguous()
+        node = out[c]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = t if t.dtype == torch.bfloat16 else t.numpy()
     return out
 
 

@@ -1,5 +1,6 @@
-"""Flax's msgpack checkpoints read without flax or msgpack (counterpart of
-`flax.serialization.msgpack_restore`, flax 0.12.3 serialization.py:418).
+"""Flax's msgpack checkpoints read and written without flax or msgpack
+(counterpart of `flax.serialization.msgpack_restore` and
+`msgpack_serialize`, flax 0.12.3 serialization.py:418).
 
 A checkpoint is one msgpack object of nested maps with string keys whose
 leaves are numbers, strings or flax's ext types:
@@ -9,6 +10,10 @@ leaves are numbers, strings or flax's ext types:
 and arrays past 2^30 bytes are stored as `__msgpack_chunked_array__` maps of
 flattened chunks. Arrays are read-only views of the file's bytes; bfloat16
 arrays come back as torch tensors, since numpy has no bfloat16.
+`msgpack_serialize` writes the same types (a torch tensor as the ndarray
+of its values, bfloat16 included) in msgpack's shortest encodings, maps
+in sorted key order, the bytes flax writes for such a tree; arrays past
+2^30 bytes raise (flax would chunk them).
 """
 
 import struct
@@ -131,3 +136,91 @@ def msgpack_restore(data: bytes) -> Any:
 def read_msgpack(path: str) -> Any:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def _head(small: int, fix: int, codes: Tuple[int, int, int], n: int) -> bytes:
+    """The type byte(s) of a sized object: fix | n below `small`, else the
+    8-, 16- or 32-bit length form of `codes` (None where msgpack has
+    none)."""
+    if n < small:
+        return bytes([fix | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack object of {n} entries or bytes")
+
+
+def _pack_int(v: int) -> bytes:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        return struct.pack(">b" if v < 0 else ">B", v)
+    kinds = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF), (0xCE, ">I", 0, 0xFFFFFFFF),
+             (0xCF, ">Q", 0, 2 ** 64 - 1), (0xD0, ">b", -128, 127),
+             (0xD1, ">h", -2 ** 15, 2 ** 15 - 1), (0xD2, ">i", -2 ** 31, 2 ** 31 - 1),
+             (0xD3, ">q", -2 ** 63, 2 ** 63 - 1))
+    for code, fmt, lo, hi in kinds:
+        if (v >= 0) == (lo == 0) and lo <= v <= hi:
+            return bytes([code]) + struct.pack(fmt, v)
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    n = len(data)
+    if n in (1, 2, 4, 8, 16):
+        head = bytes([0xD4 + n.bit_length() - 1])
+    else:
+        head = _head(0, 0, (0xC7, 0xC8, 0xC9), n)
+    return head + struct.pack(">b", code) + data
+
+
+def _pack_array(a) -> bytes:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous()
+        if a.dtype == torch.bfloat16:
+            return _pack((tuple(a.shape), "bfloat16", a.view(torch.int16).numpy().tobytes()))
+        a = a.numpy()
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:
+        a = a.copy(order="C")
+    if a.nbytes > 2 ** 30:
+        raise ValueError(f"array of {a.nbytes} bytes: flax stores it chunked")
+    return _pack((tuple(int(d) for d in a.shape), a.dtype.name, a.tobytes()))
+
+
+def _pack(obj: Any) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if obj is True or obj is False:
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        return _pack_int(obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        b = obj.encode("utf-8")
+        return _head(32, 0xA0, (0xD9, 0xDA, 0xDB), len(b)) + b
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        b = bytes(obj)
+        return _head(0, 0, (0xC4, 0xC5, 0xC6), len(b)) + b
+    if isinstance(obj, (list, tuple)):
+        return _head(16, 0x90, (None, 0xDC, 0xDD), len(obj)) + b"".join(map(_pack, obj))
+    if isinstance(obj, dict):
+        return _head(16, 0x80, (None, 0xDE, 0xDF), len(obj)) + b"".join(
+            _pack(k) + _pack(obj[k]) for k in sorted(obj))
+    if isinstance(obj, complex):
+        return _pack_ext(_EXT_COMPLEX, _pack((obj.real, obj.imag)))
+    if isinstance(obj, np.generic):
+        return _pack_ext(_EXT_NPSCALAR, _pack_array(np.asarray(obj)))
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        return _pack_ext(_EXT_NDARRAY, _pack_array(obj))
+    raise TypeError(f"{type(obj).__name__} is not a flax checkpoint leaf")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """`tree` (nested dicts with string keys; numpy, torch or Python
+    leaves) as the bytes flax.serialization.msgpack_restore reads."""
+    return _pack(tree)
+
+
+def write_msgpack(path: str, tree: Any):
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))
