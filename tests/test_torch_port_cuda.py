@@ -17,7 +17,10 @@ the fixture's files from a JAX msgpack checkpoint; a window's CUDA graph
 replay equals its eager dispatch; the stem's backward on the card against
 the CPU's, 1e-4 of each gradient's largest value; the bf16 and the
 train-mode-BN selftest steps on the card against the CPU, at chip_smoke.py's
-bounds.
+bounds; the proposal-patch towers against the dense ones at the selftest
+size (features at JAX's tolerances of the dense path with fp64 convs,
+detections 1e-4 as sets); the NMS at
+the pre-NMS call's shape (32, 750), exactly.
 """
 
 import numpy as np
@@ -555,3 +558,64 @@ def test_cuda_train_mode_bn_step_matches_cpu(fp32_card):
     the largest update (it raises otherwise)."""
     import chip_smoke
     assert chip_smoke.train_bn_small(torch)["pass"]
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_towers_equal_dense_at_selftest(fp32_card):
+    """The selftest model with sparse_vid_towers against the dense one on
+    the same weights (the head's BN shifted off 0) on the card: the video
+    features at the model's proposals within JAX's tolerances
+    (chip_smoke.FEATURE_TOL) of the dense path with fp64 convs, and two
+    streamed windows (the second a graph replay) give the same detections
+    as sets, 1e-4."""
+    import chip_smoke
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    exp = selftest_exp()
+    L, G = exp.lframe_val, exp.gframe_val
+    dense = chip_smoke.seeded_head_bn_(
+        torch, random_init_(exp.get_model(device=fp32_card), exp.seed), 61)
+    sparse = chip_smoke.exp_with(selftest_exp(), sparse_vid_towers=True).get_model(
+        device=fp32_card)
+    sparse.load_state_dict(dense.state_dict())
+    x, te = chip_smoke.device_window(torch, exp, 62)
+    with torch.no_grad():
+        idx = dense(x, te, L, G)["proposals"].idx
+    stems = chip_smoke.stem_maps(torch, dense, x)
+    fs = chip_smoke.tower_features(torch, dense.head, stems, idx, L, True)
+    ref = chip_smoke.fp64_features(torch, dense.head, stems, idx, L)
+    for part, got, want in zip(chip_smoke.FEATURE_TOL, fs, ref):
+        assert chip_smoke.feature_excess(torch, got, want, part)[0] <= 0, part
+    rows = {}
+    for name, model in (("dense", dense), ("sparse", sparse)):
+        pred = make_predict_fn(model, L, G, exp.nmsthre, exp.test_conf)
+        dets, _, _ = chip_smoke.run_windows(torch, pred, exp, 2, 1, False)
+        rows[name] = [pred.materialize(d) for d in dets]
+    _, n = chip_smoke.match_rows(rows["dense"], rows["sparse"], 1e-4, 1e-4)
+    assert n > 0
+
+
+@pytest.mark.cuda
+def test_cuda_pre_nms_shape_equals_plain(card):
+    """batched_class_aware_nms at the pre-NMS call's shape, 32 frames of
+    750 boxes (in clusters of 3 classes, so that it suppresses), IoU 0.75:
+    one launch of the kernels, whose keep mask equals the plain version's
+    on a host copy."""
+    from tscd_torch.ops import nms as pnms
+    rng = np.random.default_rng(15)
+    B, K = 32, 750
+    centres = rng.uniform(40, 500, (B, 20, 2))
+    pick = rng.integers(0, 20, (B, K))
+    xy = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 6, (B, K, 2))
+    wh = rng.uniform(30, 80, (B, K, 2))
+    args = [torch.from_numpy(a) for a in (
+        np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32),
+        rng.uniform(size=(B, K)).astype(np.float32), rng.integers(0, 3, (B, K)),
+        np.ones((B, K), bool))]
+    n0 = pkn.nms_sorted.launches
+    got = pnms.batched_class_aware_nms(*(a.to(card) for a in args), 0.75)
+    assert pkn.nms_sorted.launches == n0 + 1
+    want = pnms.batched_class_aware_nms(*args, 0.75)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < want.numel()

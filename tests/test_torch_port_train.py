@@ -22,8 +22,9 @@ made from numpy seeds:
   - the knobs the port does not run raise (the ported ones are held in
     tests/test_torch_port_train_knobs.py), and the trainer runs an epoch
     of the selftest exp on the committed fixture;
-  - the repairs of the port: an exp file that sets a model knob the port
-    does not run raises in get_model (each default JAX's); the trainer
+  - the repairs of the port: an exp file that sets a model knob builds
+    and runs its model where JAX's TSCD takes the knob, and raises in
+    get_model where JAX's exp never passes it (each default JAX's); the trainer
     augments every epoch, as JAX's one loader does, with the LR schedule's
     no-aug tail kept;
   - multiscale: random_input_size and the trainer's every-10-iterations
@@ -562,8 +563,8 @@ def _set(**kw):
 def test_knobs_the_port_does_not_run_raise(knob):
     exp = selftest_exp()
     if knob == "agg_type":
-        exp.agg_type = "mca_aware"
-        with pytest.raises(NotImplementedError, match="agg_type = 'mca_aware'.*queue 1 item 3"):
+        exp.agg_type = "localagg"
+        with pytest.raises(NotImplementedError, match="agg_type = 'localagg'.*queue 1 item 6"):
             exp.get_model(device="cpu")
         with pytest.raises(NotImplementedError, match="agg_type"):
             exp.get_trainer(device="cpu")
@@ -620,17 +621,20 @@ _KNOB_VALUES = {"use_pre_nms": True, "cat_ota_fg": True, "agg_type": "mca_aware"
 
 @pytest.mark.parametrize("knob", [None] + sorted(_KNOB_VALUES))
 def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
-    """An exp file that sets a model knob in __init__ to a value the port
-    does not run raises in get_model; one that leaves the defaults builds.
-    remat_backbone changes only training memory: that exp builds its
-    model and its trainer, both recomputing the backbone. Each default is
-    JAX's."""
+    """An exp file that sets a model knob in __init__: the knobs JAX's TSCD
+    takes build their model, which runs one forward (and, for
+    remat_backbone, the trainer recomputing the backbone); the six JAX's
+    exp never passes to its TSCD raise in get_model, saying why
+    (agg_type's 'localagg' is held in test_knobs_the_port_does_not_run_raise).
+    Each default is JAX's."""
     from tscd_tpu.exp.tscd_base import Exp as JExp
     from tscd_torch.exp import get_exp
     from tscd_torch.exp.tscd_base import MODEL_KNOBS
     jexp = JExp()
-    assert {k: getattr(jexp, k) for k in MODEL_KNOBS} == {k: d for k, (d, _) in MODEL_KNOBS.items()}
-    assert set(MODEL_KNOBS) == set(_KNOB_VALUES) - {"remat_backbone"}
+    assert {k: getattr(jexp, k) for k in MODEL_KNOBS} == {k: v[0] for k, (v, _) in MODEL_KNOBS.items()}
+    ported = {"use_pre_nms", "cat_ota_fg", "decouple_reg", "reconf", "sparse_vid_towers"}
+    assert {k: getattr(selftest_exp(), k) for k in ported} == {k: getattr(jexp, k) for k in ported}
+    assert set(MODEL_KNOBS) == set(_KNOB_VALUES) - ported - {"remat_backbone"}
     assert selftest_exp().remat_backbone == jexp.remat_backbone is False
     line = f"        self.{knob} = {_KNOB_VALUES[knob]!r}\n" if knob else ""
     path = tmp_path / "exp_knob.py"
@@ -638,14 +642,22 @@ def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
                     "class Exp(SelftestExp):\n    def __init__(self):\n"
                     "        super().__init__()\n" + line)
     exp = get_exp(str(path))
-    if knob is None:
-        assert exp.get_model(device="cpu") is not None
-    elif knob == "remat_backbone":
-        assert exp.get_model(device="cpu").remat_backbone is True
-        assert exp.get_trainer(device="cpu").model.remat_backbone is True
-    else:
-        with pytest.raises(NotImplementedError, match=f"{knob} = .*ROADMAP queue 1 item"):
+    if knob in MODEL_KNOBS and _KNOB_VALUES[knob] not in MODEL_KNOBS[knob][0]:
+        with pytest.raises(NotImplementedError, match=f"{knob} = .*JAX's exp does not pass it"):
             exp.get_model(device="cpu")
+        return
+    model = exp.get_model(device="cpu")
+    if knob == "remat_backbone":
+        assert model.remat_backbone is True
+        assert exp.get_trainer(device="cpu").model.remat_backbone is True
+    elif knob is not None:
+        field = getattr(model.head, knob)
+        assert field == _KNOB_VALUES[knob]
+    _, x, te = _window()
+    with torch.no_grad():
+        out = model(T(x), T(te), L, G)
+    assert torch.isfinite(out["refined_cls_logits"]).all()
+    assert ("refined_boxes" in out) == (knob not in ("reconf", "decouple_reg"))
 
 
 def test_the_trainer_augments_every_epoch_as_jax(tmp_path):

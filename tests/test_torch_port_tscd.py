@@ -2,7 +2,8 @@
 selftest configuration of YOLOX_outputs/validate_ref (depth 0.33, width
 0.125, P=6, 1 local + 3 global frames, 128 px):
 
-  (a) the port's parameter names map onto exactly the JAX TSCD tree;
+  (a) the port's parameter names map onto exactly the JAX TSCD tree, the
+      default one and that of each model knob that changes it;
   (b) JAX weights carried into the port give the same refined and
       original detections over 3 streamed windows;
   (c) the reference checkpoint ref_random.pth, loaded by the port and by
@@ -137,14 +138,37 @@ def _stream(port, jvars, step, windows, near_ties=False):
     return n_det
 
 
+# the model knobs whose trees differ from the default's
+_TREES = ({"agg_type": "mca_aware"}, {"reconf": False}, {"decouple_reg": False},
+          {"agg_type": "mca_aware", "decouple_reg": False}, {"act": "relu"})
+
+
 def test_port_names_map_onto_the_jax_tree(jax_side):
+    """The default tree, then the tree of each knob that changes it (its
+    shapes from jax.eval_shape); the port's state_dict carried back to
+    flax (`flax_from_state_dict`) lands on the same paths."""
+    from tscd_torch.utils.convert import flax_from_state_dict
     variables, _ = jax_side
-    port = EXP.get_model(device="cpu")
-    conv = torch_to_flax({k: v.numpy() for k, v in port.state_dict().items()})
-    for coll in ("params", "batch_stats"):
-        got = {k: v.shape for k, v in traverse_util.flatten_dict(conv[coll]).items()}
-        want = {k: v.shape for k, v in traverse_util.flatten_dict(variables[coll]).items()}
-        assert got == want, coll
+    trees = [({}, variables)]
+    x, te = _windows(1)[0]
+    for knobs in _TREES:
+        jm = JTSCD(num_classes=EXP.num_classes, depth=EXP.depth, width=EXP.width,
+                   num_proposals=P, minimal_limit=EXP.minimal_limit, heads=EXP.heads,
+                   **knobs)
+        trees.append((knobs, jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(te), L, G))))
+    for knobs, tree in trees:
+        exp = selftest_exp()
+        for k, v in knobs.items():
+            setattr(exp, k, v)
+        sd = exp.get_model(device="cpu").state_dict()
+        conv = torch_to_flax({k: v.numpy() for k, v in sd.items()})
+        back = flax_from_state_dict(sd)
+        for coll in ("params", "batch_stats"):
+            want = {k: v.shape for k, v in traverse_util.flatten_dict(tree[coll]).items()}
+            for got in (conv[coll], back[coll]):
+                got = {k: v.shape for k, v in traverse_util.flatten_dict(got).items()}
+                assert got == want, (knobs, coll)
 
 
 def test_jax_weights_stream_three_windows(jax_side):

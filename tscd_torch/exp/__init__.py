@@ -4,6 +4,7 @@ from .base_exp import BaseExp
 from .build import get_exp, get_exp_by_file, get_exp_by_name
 from .tscd_base import TSCDExp
 from .tscd_large import Exp, SelftestExp, selftest_exp
+from .vid_tscd_base import Exp as TSCDBaseExp
 
-__all__ = ["BaseExp", "Exp", "SelftestExp", "TSCDExp", "get_exp",
+__all__ = ["BaseExp", "Exp", "SelftestExp", "TSCDBaseExp", "TSCDExp", "get_exp",
            "get_exp_by_file", "get_exp_by_name", "selftest_exp"]

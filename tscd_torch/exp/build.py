@@ -9,8 +9,10 @@ import os
 from .tscd_base import TSCDExp
 from .tscd_large import Exp as TSCDLargeExp
 from .tscd_large import SelftestExp
+from .vid_tscd_base import Exp as TSCDBaseExp
 
-BUILTIN = {"tscd_large": TSCDLargeExp, "selftest": SelftestExp}
+BUILTIN = {"tscd_large": TSCDLargeExp, "tscd_base": TSCDBaseExp,
+           "selftest": SelftestExp}
 
 
 def get_exp_by_file(exp_file: str) -> TSCDExp:

@@ -16,18 +16,19 @@ from ..models.tscd import TSCD
 from .base_exp import BaseExp
 
 
-# {knob: (JAX's default, the ROADMAP item that ports the other values)}.
-# The port's TSCD runs the default of each; JAX's TSCD ignores ave,
-# use_mask, vid_cls, vid_reg, pre_nms and defualt_pre, which its exp does
-# not pass on.
-_HEAD = "queue 1 item 3"
+# Model knobs of the JAX exp that `get_model` raises for: {knob: (the
+# values the port runs, the first JAX's default; why not the others)}.
+# JAX's exp never hands the last six to its TSCD (tscd_base.py:149-165),
+# which leaves them at its head's defaults: another value in an exp has no
+# JAX counterpart. The head takes them (models/tscd_head.py: TSCDHead).
+_NOT_PASSED = ("JAX's exp does not pass it to its TSCD, so no other value has a JAX "
+               "counterpart; TSCDHead takes it")
 MODEL_KNOBS = {
-    "use_pre_nms": (False, _HEAD), "cat_ota_fg": (False, _HEAD),
-    "agg_type": ("mca", _HEAD), "decouple_reg": (True, _HEAD),
-    "reconf": (True, _HEAD), "ave": (True, _HEAD), "use_mask": (False, _HEAD),
-    "vid_cls": (True, _HEAD), "vid_reg": (True, _HEAD),
-    "sparse_vid_towers": (False, _HEAD), "pre_nms": (0.75, _HEAD),
-    "defualt_pre": (750, _HEAD),
+    "agg_type": (("mca", "mca_aware"), "'localagg' needs the YOLOV family's "
+                 "LocalAggregation (ROADMAP queue 1 item 6)"),
+    "ave": ((True,), _NOT_PASSED), "use_mask": ((False,), _NOT_PASSED),
+    "vid_cls": ((True,), _NOT_PASSED), "vid_reg": ((True,), _NOT_PASSED),
+    "pre_nms": ((0.75,), _NOT_PASSED), "defualt_pre": ((750,), _NOT_PASSED),
 }
 
 
@@ -65,7 +66,7 @@ class TSCDExp(BaseExp):
         self.val_seq_path = "./yolox/data/datasets/val_seq.npy"
         self.train_seq_path = "./yolox/data/datasets/train_seq.npy"
         self.anno_cache = ""
-        self.dataset_name = "vid"       # vid (ovis is not ported yet)
+        self.dataset_name = "vid"       # vid (OVIS: ROADMAP queue 1 item 4)
         # stage-2 training (tscd_base.py:97-120, yolox_base.py:56-80)
         self.lframe = 4
         self.gframe = 12
@@ -99,9 +100,15 @@ class TSCDExp(BaseExp):
         self.output_dir = "./YOLOX_outputs"
         self.exp_name = "tscd_large"
         # model knobs of the JAX exp (tscd_base.py:53-70,99-101) at its
-        # defaults; `get_model` raises for any other value (MODEL_KNOBS)
-        for knob, (default, _) in MODEL_KNOBS.items():
-            setattr(self, knob, default)
+        # defaults: those JAX's TSCD takes, then those `get_model` raises
+        # for at another value (MODEL_KNOBS)
+        self.use_pre_nms = False
+        self.cat_ota_fg = False
+        self.decouple_reg = True
+        self.reconf = True
+        self.sparse_vid_towers = False
+        for knob, (values, _) in MODEL_KNOBS.items():
+            setattr(self, knob, values[0])
         # the JAX trainer's window batching and memory knobs
         # (tscd_trainer.py:65-74, :170-252): window_batch windows a step (0:
         # one per card), their gradients accumulated over grad_accum chunks;
@@ -125,14 +132,15 @@ class TSCDExp(BaseExp):
                   ) -> TSCD:
         """The model on `device`, the card unless the caller asks for
         another, with the exp's `stop_backbone_grad` and `remat_backbone`.
-        Raises for a model knob at a value the port does not run, and,
+        Raises for a model knob at a value the port does not run
+        (MODEL_KNOBS), and,
         as JAX's (tscd_base.py:143-152), where `stop_backbone_grad` would
         sever the gradients of a backbone that is not frozen."""
-        for knob, (default, item) in MODEL_KNOBS.items():
-            if getattr(self, knob) != default:
+        for knob, (values, why) in MODEL_KNOBS.items():
+            if getattr(self, knob) not in values:
                 raise NotImplementedError(
-                    f"{knob} = {getattr(self, knob)!r}: the port's TSCD runs only "
-                    f"{default!r} (ROADMAP {item})")
+                    f"{knob} = {getattr(self, knob)!r}: the port's TSCD runs "
+                    f"{' or '.join(map(repr, values))}: {why}")
         if self.stop_backbone_grad and not any(
                 p.startswith("backbone") for p in self.freeze_prefixes()):
             raise ValueError("stop_backbone_grad=True but freeze_prefixes() does not "
@@ -142,6 +150,10 @@ class TSCDExp(BaseExp):
                     width=self.width, act=self.act, depthwise=self.depthwise,
                     num_proposals=self.num_proposals,
                     minimal_limit=self.minimal_limit, heads=self.heads,
+                    agg_type=self.agg_type, cat_ota_fg=self.cat_ota_fg,
+                    reconf=self.reconf, decouple_reg=self.decouple_reg,
+                    use_pre_nms=self.use_pre_nms,
+                    sparse_vid_towers=self.sparse_vid_towers,
                     decoder_layer_num=self.decoder_layer_num,
                     sim_thresh=self.sim_thresh,
                     conf_sim_thresh=self.conf_sim_thresh,
@@ -274,7 +286,7 @@ class TSCDExp(BaseExp):
         if self.dataset_name != "vid":
             raise NotImplementedError(
                 f"dataset {self.dataset_name!r}: the port reads ImageNet VID "
-                "only (ROADMAP queue 1 item 7)")
+                "only (ROADMAP queue 1 item 4)")
         ds = VIDDataset(
             file_path=self.val_seq_path, img_size=self.test_size,
             lframe=lframe or self.lframe_val, gframe=gframe or self.gframe_val,

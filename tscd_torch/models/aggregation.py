@@ -1,6 +1,6 @@
 """Cross-frame attention aggregation (counterpart of
-tscd_tpu/models/aggregation.py: DualBranchAttention, MCACore, MCAg2l;
-reference post_trans.py:550,1109).
+tscd_tpu/models/aggregation.py: DualBranchAttention, MCACore, MCAg2l,
+MCAg2lAware; reference post_trans.py:366,550,1109).
 
 Each local frame's P proposals attend to its own frame plus every
 global frame. The JAX package vmaps over local frames; here the local
@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels.fused_attention import fused_dual_attention
-from .matching import _norm
+from .matching import SEGate, _norm
 
 NEG = -1e9
 
@@ -139,15 +139,18 @@ class DualBranchAttention(nn.Module):
 
 class MCACore(DualBranchAttention):
     """Attention_mca_g2l (post_trans.py:550): attention core + 2C->2C
-    linear(s) + round-2 ("ave") pooling of raw V -> (B, q, 3C), the mode
-    the TSCD exps run (tscd_base.py:58). Subclasses the
-    core so the parameter names stay flat (`mca.q_cls_local`,
+    linear(s), then with `ave` (the mode the TSCD exps run,
+    tscd_base.py:58) the round-2 pooling of raw V -> (B, q, 3C); without
+    it the linear outputs (B, q, 2C) (aggregation.py:203-204). Subclasses
+    the core so the parameter names stay flat (`mca.q_cls_local`,
     `mca.linear`) as in the reference."""
 
     def __init__(self, dim: int, num_heads: int = 4, scale: float = 25.0,
-                 reconf: bool = False, dtype: torch.dtype = torch.float32):
+                 reconf: bool = False, ave: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(dim, num_heads, scale, dtype=dtype)
         self.reconf = reconf
+        self.ave = ave
         self.linear = nn.Linear(2 * dim, 2 * dim, dtype=dtype)
         if reconf:
             self.linear_reg = nn.Linear(2 * dim, 2 * dim, dtype=dtype)
@@ -159,26 +162,30 @@ class MCACore(DualBranchAttention):
                         n_query, sim_thresh=sim_thresh, use_mask=use_mask,
                         conf_sim_thresh=conf_sim_thresh)
         out_cls = self.linear(p.out_cls)
+        out_reg = self.linear_reg(p.out_reg) if self.reconf else None
+        if not self.ave:
+            return out_cls, out_reg
         cls_feature = torch.cat([p.sim_round2 @ p.v_cls, out_cls], -1)
-        reg_feature = (torch.cat([p.obj_round2 @ p.v_reg,
-                                  self.linear_reg(p.out_reg)], -1)
+        reg_feature = (torch.cat([p.obj_round2 @ p.v_reg, out_reg], -1)
                        if self.reconf else None)
         return cls_feature, reg_feature
 
 
 class MCAg2l(nn.Module):
     """MCA_tscd_g2l_reg (post_trans.py:1109): local-frame proposals
-    attend to own frame + all global frames."""
+    attend to own frame + all global frames. `ave` as `MCACore`'s: the
+    output Linear layers take 3C with it, 2C without."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
-                 scale: float = 25.0, reconf: bool = False,
+                 scale: float = 25.0, reconf: bool = False, ave: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.reconf = reconf
-        self.mca = MCACore(in_dim, num_heads, scale, reconf, dtype)
-        self.linear = nn.Linear(3 * in_dim, out_dim, dtype=dtype)
+        self.mca = MCACore(in_dim, num_heads, scale, reconf, ave, dtype)
+        width = (3 if ave else 2) * in_dim
+        self.linear = nn.Linear(width, out_dim, dtype=dtype)
         if reconf:
-            self.linear_obj = nn.Linear(3 * in_dim, out_dim, dtype=dtype)
+            self.linear_obj = nn.Linear(width, out_dim, dtype=dtype)
 
     def forward(self, feat_cls: torch.Tensor, feat_reg: torch.Tensor,
                 cls_score: torch.Tensor, fg_score: torch.Tensor,
@@ -200,3 +207,28 @@ class MCAg2l(nn.Module):
             conf_sim_thresh=conf_sim_thresh)
         out_reg = self.linear_obj(out_reg) if self.reconf else None
         return self.linear(out_cls), out_reg
+
+
+class MCAg2lAware(nn.Module):
+    """Edge-aware MCA (Attention_mca_aware_g2l, post_trans.py:366 +
+    MCA_tscd_aware_g2l_{cls,reg}:1071,1165; aggregation.py:268-292): the
+    reg features SE-gated with the wavelet edge features of the same
+    proposals, then `MCAg2l` (the hand attention kernel on its fused
+    branch). Parameters `se.*` and `mca.*`, as JAX's `agg/se`,
+    `agg/mca/mca/attn`."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
+                 scale: float = 25.0, reconf: bool = False, ave: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.se = SEGate(dtype=dtype)
+        self.mca = MCAg2l(in_dim, out_dim, num_heads, scale, reconf, ave, dtype)
+
+    def forward(self, feat_cls: torch.Tensor, feat_reg: torch.Tensor,
+                edge: torch.Tensor, cls_score: torch.Tensor,
+                fg_score: torch.Tensor, valid: torch.Tensor, lframe: int,
+                **kw):
+        """As `MCAg2l.forward`, with `edge` (F, P, C) the edge features of
+        every frame's proposals."""
+        return self.mca(feat_cls, self.se(feat_reg, edge), cls_score,
+                        fg_score, valid, lframe, **kw)

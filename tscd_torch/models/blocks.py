@@ -77,7 +77,9 @@ def get_activation(name: str = "silu") -> nn.Module:
 
 
 class BaseConv(nn.Module):
-    """Conv2d -> BatchNorm -> activation, 'same' padding for odd kernels."""
+    """Conv2d -> BatchNorm -> activation, 'same' padding for odd kernels;
+    `valid=True` runs the same parameters with no padding (the sparse
+    tower path's patch convs, blocks.py:216-221)."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, groups: int = 1, act: str = "silu",
@@ -89,9 +91,11 @@ class BaseConv(nn.Module):
         self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
         self.act = get_activation(act)
 
-    def forward(self, x: torch.Tensor,
-                stats: Optional[BNStats] = None) -> torch.Tensor:
-        y = self.conv(x)
+    def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None,
+                valid: bool = False) -> torch.Tensor:
+        c = self.conv
+        y = (F.conv2d(x, c.weight, c.bias, c.stride, 0, c.dilation, c.groups)
+             if valid else c(x))
         if self.bn is not None:
             y = batch_norm(self.bn, y, stats)
         return self.act(y)
@@ -109,9 +113,9 @@ class DWConv(nn.Module):
         self.pconv = BaseConv(in_channels, out_channels, 1, 1, act=act,
                               dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                stats: Optional[BNStats] = None) -> torch.Tensor:
-        return self.pconv(self.dconv(x, stats), stats)
+    def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None,
+                valid: bool = False) -> torch.Tensor:
+        return self.pconv(self.dconv(x, stats, valid), stats)
 
 
 def conv_cls(depthwise: bool):
@@ -187,31 +191,42 @@ class Focus(nn.Module):
     """Space-to-depth stem (network_blocks.py:267).
 
     Takes the raw (F, H, W, 3) image (fp32, or uint8 at bf16). With
-    eval-mode BN, BN folds into scale/shift as in blocks.py:580-598 and
-    the stem (6x6/s2 conv + shift + SiLU) runs as the hand kernel
-    `ops.kernels.focus_stem`, differentiable in the weights and BN
-    parameters (its backward is JAX's `_bwd`, a plain recompute); its
-    plain version does s2d + the 3x3 conv. With train-mode BN (`stats`
-    given) JAX's Focus runs the XLA 6x6/s2 conv, then BatchNorm, then the
-    activation (blocks.py:573-577), and so does this one: `F.conv2d` in
-    the compute dtype, `batch_norm`, SiLU, and no kernel launch. The
-    parameters are the reference's (`stem.conv.conv.weight` (O, 12, 3, 3),
-    `stem.conv.bn.*`) and stay fp32 at any compute dtype: at bf16 the
-    kernel rounds the BN-folded weights to bf16 itself and writes bf16, as
-    the Pallas kernel does (focus_stem.py:144-148), and the train-mode
-    conv casts the image and the 6x6 weights to bf16, as `_conv6` does.
-    After `fuse_model` the conv's bias is the shift and the scale is 1."""
+    eval-mode BN, BN folds into scale/shift as in blocks.py:580-598; with
+    ksize 3, stride 1 and SiLU the stem (6x6/s2 conv + shift + SiLU) runs
+    as the hand kernel `ops.kernels.focus_stem`, differentiable in the
+    weights and BN parameters (its backward is JAX's `_bwd`, a plain
+    recompute); its plain version does s2d + the 3x3 conv. Any other
+    ksize, stride or activation takes JAX's own route for it, where no
+    Pallas kernel runs either (blocks.py:596-598): the (2k)x(2k)/(2s) conv
+    in the compute dtype, then scale and shift in fp32, then the
+    activation. With train-mode BN (`stats` given) JAX's Focus runs that
+    conv, then BatchNorm, then the activation (blocks.py:573-577), and so
+    does this one, with no kernel launch. The parameters are the
+    reference's (`stem.conv.conv.weight` (O, 4C, k, k), `stem.conv.bn.*`)
+    and stay fp32 at any compute dtype: at bf16 the kernel rounds the
+    BN-folded weights to bf16 itself and writes bf16, as the Pallas kernel
+    does (focus_stem.py:144-148), and the XLA-route conv casts the image
+    and the (2k)x(2k) weights to bf16, as `_conv6` does. After
+    `fuse_model` the conv's bias is the shift and the scale is 1."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 3,
                  stride: int = 1, act: str = "silu",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if (ksize, stride, act) != (3, 1, "silu"):
-            raise NotImplementedError(
-                "the Focus stem kernel takes ksize 3, stride 1 and SiLU")
+        if ksize % 2 != 1:
+            raise ValueError("the Focus stem's fused conv takes an odd ksize")
         self.dtype = dtype
+        self.ksize, self.stride = ksize, stride
+        self.kernel = (ksize, stride, act) == (3, 1, "silu")
         self.conv = BaseConv(in_channels * 4, out_channels, ksize, stride,
                              act=act)
+
+    def _conv6(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's `_conv6`: the s2d + kxk conv as one (2k)x(2k) conv of
+        stride 2s over the NHWC image, in the compute dtype."""
+        w6 = rearrange_weight(self.conv.conv.weight).to(self.dtype)
+        return F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype), w6,
+                        stride=2 * self.stride, padding=self.ksize - 1)
 
     def forward(self, x: torch.Tensor,
                 stats: Optional[BNStats] = None) -> torch.Tensor:
@@ -219,13 +234,14 @@ class Focus(nn.Module):
         if stats is not None:
             if bn is None:
                 raise ValueError("train-mode BatchNorm on a model with BN folded")
-            w6 = rearrange_weight(conv.weight).to(self.dtype)
-            y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype), w6, stride=2, padding=2)
-            return self.conv.act(batch_norm(bn, y, stats))
+            return self.conv.act(batch_norm(bn, self._conv6(x), stats))
         if bn is None:
             shift = conv.bias
             scale = torch.ones_like(shift)
         else:
             scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
             shift = bn.bias - bn.running_mean * scale
-        return focus_stem(x, conv.weight, scale, shift, out_dtype=self.dtype)
+        if self.kernel:
+            return focus_stem(x, conv.weight, scale, shift, out_dtype=self.dtype)
+        y = self._conv6(x).float() * scale[:, None, None] + shift[:, None, None]
+        return self.conv.act(y.to(self.dtype))

@@ -99,12 +99,20 @@ def extract_position_embedding(pos_mat: torch.Tensor, feat_dim: int = 64,
 
 
 class CosineMHAttention(nn.Module):
-    """PositionMHAttention (tscd_matching.py:11) without the box bias,
-    which no caller on the ported path passes: cosine-normalised QK,
-    masked softmax, attn @ V. Leading batch axes are allowed."""
+    """PositionMHAttention (tscd_matching.py:11): cosine-normalised QK,
+    masked softmax, attn @ V. Leading batch axes are allowed.
+
+    With `position_bias` the module holds the reference's
+    `position_embedding`, a 1x1 conv of the 64-dim box-geometry embedding
+    to one bias a head (its reference layout; JAX applies it as a Dense);
+    a call with q_boxes/k_boxes (N, 4)/(M, 4) xyxy then adds log(ReLU(that
+    bias) + 1e-6) to the SOFTMAXED attention before the value product, the
+    reference's quirk that JAX keeps (matching.py:91,114-119). No caller of
+    the TSCD head passes boxes, as in JAX, so its matcher has no such
+    parameter."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 position_bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -112,13 +120,24 @@ class CosineMHAttention(nn.Module):
         self.q_reg = nn.Linear(dim, dim, **kw)
         self.k_reg = nn.Linear(dim, dim, **kw)
         self.v_reg = nn.Linear(dim, dim, **kw)
+        if position_bias:
+            self.position_embedding = nn.Conv2d(64, num_heads, 1, dtype=dtype)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         *lead, n, c = x.shape
         h = self.num_heads
         return x.reshape(*lead, n, h, c // h).transpose(-2, -3)
 
-    def forward(self, query, key, value, key_valid=None) -> torch.Tensor:
+    def box_bias(self, q_boxes: torch.Tensor, k_boxes: torch.Tensor) -> torch.Tensor:
+        """(h, N, M) log(ReLU(position_embedding(geometry)) + 1e-6) in fp32."""
+        pe = extract_position_embedding(extract_position_matrix(q_boxes, k_boxes))
+        conv = self.position_embedding
+        w = conv.weight[:, :, 0, 0]
+        bias = torch.relu(pe.to(w.dtype) @ w.T + conv.bias).permute(2, 0, 1)
+        return torch.log(bias.float() + 1e-6)
+
+    def forward(self, query, key, value, key_valid=None, q_boxes=None,
+                k_boxes=None) -> torch.Tensor:
         f32 = torch.float32
         q = _l2norm(self._heads(self.q_reg(query))).to(f32)
         k = _l2norm(self._heads(self.k_reg(key))).to(f32)
@@ -128,6 +147,8 @@ class CosineMHAttention(nn.Module):
             logits = logits + torch.where(key_valid[..., None, None, :],
                                           0.0, NEG).to(f32)
         attn = torch.softmax(logits, -1)
+        if q_boxes is not None and k_boxes is not None:
+            attn = self.box_bias(q_boxes, k_boxes) + attn
         out = torch.einsum("...hqk,...hkd->...hqd", attn, v)
         return out.transpose(-2, -3).reshape(query.shape).to(self.dtype)
 

@@ -19,10 +19,14 @@ from .tscd_head import TSCDHead
 
 
 class TSCD(nn.Module):
-    """Eval-mode TSCD on the TSCD-Large path (MCA aggregation, decoupled
-    reg, reconf heads, top-k proposals). Built on `device`, the card
-    unless the caller passes another; random init from the default torch
-    initialisers until weights are loaded (see `random_init_`).
+    """TSCD (tscd.py:20). Built on `device`, the card unless the caller
+    passes another; random init from the default torch initialisers until
+    weights are loaded (see `random_init_`). The head knobs are the ones
+    JAX's TSCD hands to its head (tscd.py:61-76): agg_type, cat_ota_fg,
+    reconf, decouple_reg, use_pre_nms, sparse_vid_towers (and the
+    proposal and matcher sizes); the head's others (ave, use_mask,
+    vid_cls, vid_reg, pre_nms) stay at JAX's defaults here, as JAX's
+    TSCD leaves them.
 
     `dtype` is the compute dtype, as `TSCD.dtype` in JAX (tscd.py:56):
     fp32 or bf16. Conv and Linear weights are stored in it (an fp32
@@ -42,6 +46,9 @@ class TSCD(nn.Module):
                  width: float = 1.0, act: str = "silu",
                  depthwise: bool = False, num_proposals: int = 50,
                  minimal_limit: Optional[int] = None, heads: int = 4,
+                 agg_type: str = "mca", cat_ota_fg: bool = False,
+                 reconf: bool = True, decouple_reg: bool = True,
+                 use_pre_nms: bool = False, sparse_vid_towers: bool = False,
                  decoder_layer_num: int = 1, sim_thresh: float = 0.75,
                  conf_sim_thresh: float = 0.99, test_conf: float = 0.001,
                  backbone_name: str = "MCSP",
@@ -62,10 +69,13 @@ class TSCD(nn.Module):
                                              dtype=dtype)
         self.head = TSCDHead(
             num_classes, width=width, act=act, depthwise=depthwise,
-            heads=heads, decoder_layer_num=decoder_layer_num,
-            num_proposals=num_proposals, minimal_limit=minimal_limit,
+            heads=heads, agg_type=agg_type,
+            decoder_layer_num=decoder_layer_num, num_proposals=num_proposals,
+            minimal_limit=minimal_limit, cat_ota_fg=cat_ota_fg, reconf=reconf,
+            decouple_reg=decouple_reg, use_pre_nms=use_pre_nms,
             sim_thresh=sim_thresh, conf_sim_thresh=conf_sim_thresh,
-            test_conf=test_conf, dtype=dtype)
+            test_conf=test_conf, sparse_vid_towers=sparse_vid_towers,
+            dtype=dtype)
         self.to(device)
         self.eval()
 
@@ -84,7 +94,8 @@ class TSCD(nn.Module):
     def forward(self, x: torch.Tensor, time_embedding: torch.Tensor,
                 lframe: int, gframe: int,
                 matcher_state: Optional[MatcherState] = None,
-                train: bool = False) -> Dict[str, Any]:
+                train: bool = False,
+                labels: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """x: (F, H, W, 3) frame window [local..., global...] (F =
         lframe + gframe, H and W multiples of 32), fp32 or uint8;
         time_embedding: (F, 256). Returns the head's dict (raw outputs,
@@ -99,7 +110,11 @@ class TSCD(nn.Module):
         {state_dict key: tensor} (the model's buffers are left as they
         are; `train.step` writes them). A remat backbone's recompute in
         the backward runs the same BN on the same batch and adds nothing
-        to them."""
+        to them.
+
+        `labels` (F, G, 5), which the train steps pass (train mode or
+        not, as JAX's fix_bn step does), let a cat_ota_fg head inject
+        SimOTA's foreground anchors into its proposals."""
         if x.shape[0] != lframe + gframe:
             raise ValueError(f"{x.shape[0]} frames != {lframe} + {gframe}")
         stats = {} if train else None
@@ -111,7 +126,8 @@ class TSCD(nn.Module):
                 fpn_outs = self.backbone(x, stats)
         with torch.set_grad_enabled(grad):
             out = self.head(fpn_outs, time_embedding, lframe,
-                            matcher_state=matcher_state, stats=stats)
+                            matcher_state=matcher_state, stats=stats,
+                            labels=labels)
         if train:
             out["batch_stats"] = {
                 f"{name}.running_{k}": v for name, bn in self.named_modules()
@@ -126,13 +142,17 @@ def tscd_eval_postprocess(head_out: Dict[str, Any], lframe: int,
     """Final eval postprocess (reference tscd_head.py:726 ->
     post_process.py:9): per local frame, obj = sigmoid(matcher obj),
     class scores = sigmoid(refined cls), boxes = matcher-decoded boxes,
-    then class-aware NMS. Returns (refined, original) Detections batched
-    over local frames; `original` keeps each proposal's best class."""
+    then class-aware NMS; a head without the matcher's outputs
+    (decouple_reg or reconf off) keeps the proposals' obj and boxes, as
+    JAX's (tscd.py:108-116). Returns (refined, original) Detections
+    batched over local frames; `original` keeps each proposal's best
+    class."""
     props = head_out["proposals"]
     valid = props.valid[:lframe]
+    obj = (torch.sigmoid(head_out["matcher_obj_logits"].to(torch.float32))
+           if "matcher_obj_logits" in head_out else props.obj[:lframe])
     refined = postprocess_refined(
-        head_out["refined_boxes"],
-        torch.sigmoid(head_out["matcher_obj_logits"].to(torch.float32)),
+        head_out.get("refined_boxes", props.boxes[:lframe]), obj,
         torch.sigmoid(head_out["refined_cls_logits"].to(torch.float32)),
         valid, conf_thre, nms_thresh, out_k)
     original = postprocess_best_class(

@@ -43,6 +43,13 @@ class SimOTATargets(NamedTuple):
     num_gt: torch.Tensor       # (B,) float
 
 
+def labels_to_padded(labels: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, G, 5) [cls, cx, cy, w, h] zero-padded -> (boxes, classes,
+    valid); a row is a gt where its sum is positive (yolo_head.py:283)."""
+    return labels[..., 1:5], labels[..., 0].to(torch.int32), labels.sum(-1) > 0
+
+
 def _safe_log(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x.clamp(min=_EPS)).clamp(min=_LOG_CLAMP)
 

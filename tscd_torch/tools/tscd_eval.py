@@ -26,7 +26,7 @@ def make_parser():
     src.add_argument("-f", "--exp_file", type=str, default=None,
                      help="exp file defining Exp (a tscd_torch.exp.TSCDExp)")
     src.add_argument("--exp", type=str, default=None,
-                     help="built-in exp: tscd_large (default) or selftest")
+                     help="built-in exp: tscd_large (default), tscd_base or selftest")
     parser.add_argument("-c", "--ckpt", type=str, required=True)
     parser.add_argument("--lframe", type=int, default=None)
     parser.add_argument("--gframe", type=int, default=None)

@@ -8,14 +8,14 @@ objectness and matched offset losses over the local frames. Each sum is
 divided by its foreground count, clamped at 1.
 """
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence
 
 import torch
 
 from ..models.tscd_head import encode_reg_targets
 from ..ops.boxes import box_cxcywh_to_xyxy, iou_loss_cxcywh, pairwise_iou_xyxy
 from ..ops.decode import anchor_centers, decode_outputs
-from ..ops.simota import simota_assign
+from ..ops.simota import labels_to_padded, simota_assign
 
 REG_WEIGHT = 3.0          # base IoU loss
 IOU_MATCH_WEIGHT = 6.0    # matched offsets (smooth L1)
@@ -26,13 +26,6 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     """Elementwise BCE with logits, in JAX's stable form."""
     return (logits.clamp(min=0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs())))
-
-
-def labels_to_padded(labels: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, G, 5) [cls, cx, cy, w, h] zero-padded -> (boxes, classes,
-    valid); a row is a gt where its sum is positive (yolo_head.py:283)."""
-    return labels[..., 1:5], labels[..., 0].to(torch.int32), labels.sum(-1) > 0
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -73,7 +66,7 @@ def tscd_loss(head_out: Dict[str, Any], labels: torch.Tensor,
               ota_mode: bool = True) -> Dict[str, torch.Tensor]:
     """total = 3 iou + obj + cls (base detector, all frames)
              + refined cls + matched obj (clipped at 15) + 6 matched
-               smooth L1 (local frames),
+               smooth L1 (local frames; 0 without the matcher's outputs),
     normalised by the SimOTA fg count (base) and the local one (refined);
     with ota_mode=False the refined targets are IoU-based
     (`iou_based_refined_targets`). Returns each term, the total and
@@ -88,9 +81,13 @@ def tscd_loss(head_out: Dict[str, Any], labels: torch.Tensor,
     obj_logits = raw[..., 4]
     cls_logits = raw[..., 5:]
 
-    gt_boxes, gt_classes, gt_valid = labels_to_padded(labels.to(f32))
-    tgt = simota_assign(bbox_preds, obj_logits, cls_logits, gt_boxes,
-                        gt_classes, gt_valid, *anchor_centers(hw, strides, raw.device))
+    if "simota" in head_out:
+        # a cat_ota_fg head ran SimOTA in its forward: reuse it (losses.py:114-118)
+        tgt = head_out["simota"]
+    else:
+        gt_boxes, gt_classes, gt_valid = labels_to_padded(labels.to(f32))
+        tgt = simota_assign(bbox_preds, obj_logits, cls_logits, gt_boxes,
+                            gt_classes, gt_valid, *anchor_centers(hw, strides, raw.device))
 
     num_fg = tgt.num_fg.sum().clamp(min=1.0)
     fg = tgt.fg_mask.to(f32)
@@ -119,19 +116,23 @@ def tscd_loss(head_out: Dict[str, Any], labels: torch.Tensor,
     loss_refined_cls = (bce_with_logits(
         head_out["refined_cls_logits"][:lframe].to(f32), refined_cls_t
     ).sum(-1) * refined_fg_f).sum() / num_fg_local
-    loss_matched_obj = (bce_with_logits(
-        head_out["matcher_obj_logits"].to(f32), refined_fg_f
-    ) * obj_weight).sum() / num_fg_local
-    # the reference's `loss / float(loss) * 15`: the value becomes 15 and
-    # the gradient keeps its direction, scaled by 15 / loss
-    loss_matched_obj = torch.where(
-        loss_matched_obj > MATCHED_OBJ_CLIP,
-        loss_matched_obj * (MATCHED_OBJ_CLIP / loss_matched_obj).detach(),
-        loss_matched_obj)
-    enc_t = encode_reg_targets(refined_reg_t, props.boxes[:lframe]).detach()
-    loss_matched_iou = (smooth_l1(
-        head_out["matcher_reg_offsets"].to(f32) - enc_t
-    ).sum(-1) * refined_fg_f).sum() / num_fg_local
+    if "matcher_obj_logits" in head_out:
+        loss_matched_obj = (bce_with_logits(
+            head_out["matcher_obj_logits"].to(f32), refined_fg_f
+        ) * obj_weight).sum() / num_fg_local
+        # the reference's `loss / float(loss) * 15`: the value becomes 15
+        # and the gradient keeps its direction, scaled by 15 / loss
+        loss_matched_obj = torch.where(
+            loss_matched_obj > MATCHED_OBJ_CLIP,
+            loss_matched_obj * (MATCHED_OBJ_CLIP / loss_matched_obj).detach(),
+            loss_matched_obj)
+        enc_t = encode_reg_targets(refined_reg_t, props.boxes[:lframe]).detach()
+        loss_matched_iou = (smooth_l1(
+            head_out["matcher_reg_offsets"].to(f32) - enc_t
+        ).sum(-1) * refined_fg_f).sum() / num_fg_local
+    else:
+        # no matcher outputs (decouple_reg or reconf off): no matched terms
+        loss_matched_obj = loss_matched_iou = torch.zeros((), device=raw.device)
 
     total = (REG_WEIGHT * loss_iou + loss_obj + loss_cls + loss_refined_cls
              + loss_matched_obj + IOU_MATCH_WEIGHT * loss_matched_iou)

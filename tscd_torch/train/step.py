@@ -77,7 +77,10 @@ def train_step(state: TrainState, frames: torch.Tensor, labels: torch.Tensor,
     sums: Dict[str, torch.Tensor] = {}
     stats: Dict[str, torch.Tensor] = {}
     for b in range(B):
-        out = model(frames[b], time_emb[b], lframe, gframe, train=not fix_bn)
+        # labels ride into the forward as JAX's fix_bn and train-mode steps
+        # pass them (a cat_ota_fg head runs SimOTA there, once a window)
+        out = model(frames[b], time_emb[b], lframe, gframe, train=not fix_bn,
+                    labels=labels[b])
         losses = tscd_loss(out, labels[b], strides, lframe, ota_mode=ota_mode)
         total = losses["total_loss"]
         (total / B if B > 1 else total).backward()

@@ -7,7 +7,8 @@ variables, `state_dict_from_flax` maps each key of the port's state_dict
 to its flax path with this module's copy of the name rules of
 tscd_tpu/utils/convert.py (torch_to_flax), then changes the layout:
 HWIO kernel -> OIHW conv weight, (in, out) kernel -> (out, in) linear
-weight, BN scale/bias/mean/var -> weight/bias/running_mean/running_var,
+weight (or (out, in, 1, 1) for the reference's 1x1 conv that JAX runs as
+a Dense), BN scale/bias/mean/var -> weight/bias/running_mean/running_var,
 LayerNorm scale -> weight. `flax_from_state_dict` is the inverse.
 """
 
@@ -127,6 +128,11 @@ def flax_module_path(name: str) -> Tuple[str, ...]:
     return tuple(_translate_video(_translate_head(_translate_backbone(parts))))
 
 
+# 1x1 convs of the reference that JAX applies as a Dense on the last axis
+# (PositionMHAttention.position_embedding, tscd_matching.py:27;
+# tscd_tpu/utils/convert.py:168-175)
+_DENSE_AS_CONV = ("position_embedding",)
+
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
@@ -182,7 +188,9 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
         if not strict and path + (key,) not in coll[c]:
             continue
         arr = np.asarray(coll[c][path + (key,)])
-        if leaf == "weight" and ref.dim() == 4:         # HWIO -> OIHW
+        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV:
+            arr = arr.T[:, :, None, None]               # (in,out) -> (out,in,1,1)
+        elif leaf == "weight" and ref.dim() == 4:       # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "weight" and ref.dim() == 2:       # (in,out) -> (out,in)
             arr = arr.T
@@ -213,7 +221,9 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
         else:
             c, key = "params", flax_param_path(name, t.dim())[-1]
         t = t.detach().cpu()
-        if leaf == "weight" and t.dim() == 4:           # OIHW -> HWIO
+        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV:
+            t = t[:, :, 0, 0].t()                       # (out,in,1,1) -> (in,out)
+        elif leaf == "weight" and t.dim() == 4:         # OIHW -> HWIO
             t = t.permute(2, 3, 1, 0)
         elif leaf == "weight" and t.dim() == 2:         # (out,in) -> (in,out)
             t = t.t()
