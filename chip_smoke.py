@@ -164,6 +164,38 @@ Phases, each of which raises on failure (so the run exits non-zero):
              (32, 750), the attention at TSCD-Base's head dim 32 (fp32 and
              bf16) and the stem writing 32 channels (fp32 and bf16), each
              checked against its plain version first.
+ 11. still   stage 1 of the OVIS recipe, still-image YOLOX: the port's
+             warp of each OVIS fixture frame's mosaic canvas against the
+             sha256 of cv2's (tscd_torch/data/fixtures/ovis/
+             warp_sha256.json); the selftest size (depth 0.33, width
+             0.125, 25 classes) card against the card machine's CPU (raw
+             outputs 1e-4 of the largest, detections 1e-4 as sets, one
+             train-mode-BN step at train_small's bounds); ovis_yolox_l at
+             full width (640 px training, batches of 16) through Trainer
+             for 8 steps on the fixture's JPEGs (6 with mosaic, mixup and
+             the warp, 2 in the no-aug tail with L1): step ms (CUDA
+             events), images/s, peak memory, the wrappers' launches (0:
+             train-mode BN runs the conv route), one more step traced (busy
+             share, build/profile_still_step.json); the EMA weights through
+             COCOEvaluator at ovis_yolox_l's (576 px), yolox_l's (640) and
+             yoloxl_ovis's (640 x 960) eval settings: ms an image, the stem
+             and NMS launches a pass; the checkpoint phase ovis starts
+             from (build/still_phase). The kernels line adds the stem at 8
+             x 576 and 8 x 640 frames and the NMS pair at
+             postprocess_dense's (8, 2048), IoU 0.65 and 0.5.
+ 12. ovis    stage 2 of the OVIS recipe: ovis_tscd_large (seeded weights)
+             through OVISEvaluator on the fixture's val json (4 windows of
+             8 + 24 frames at 576 px, decoded from the files): a window
+             eagerly with its attention, solver and NMS inputs kept, the
+             evaluation (window ms, local frames/s), then again with each
+             window dispatched eagerly (the wrappers' counts: 8 solver
+             launches a window); one ovis_tscd_large stage-2 step
+             from still's checkpoint (its backbone and still-image head
+             equal to stage 1's EMA weights), and a second from its state
+             (both timed); ovis_selftest through the
+             eval CLI, card against the card machine's CPU (1e-4). The
+             kernels line adds the attention at B 8, the solver's and the
+             NMS pair's OVIS rows, on that window's own inputs.
 On a card, `make_predict_fn(...).dispatch` runs each window as one
 replayed CUDA graph, which runs no Python: the launches of a path are
 counted in the device trace of torch.profiler (`traced_path`), with every
@@ -181,12 +213,13 @@ in another commit's checkout times that commit's stage the same way.
     python3 chip_smoke.py --phase NAME        (NAME in PHASES)
 
 builds the kernels and runs that phase alone (`train` with its four
-parts), printing its JSON lines with the checkout's path: run in two checkouts in turns (A B B A), in fresh
+parts; `ovis` after `still`, whose checkpoint it reads), printing its JSON lines with the checkout's path: run in two checkouts in turns (A B B A), in fresh
 processes, it A/Bs one phase of two commits on one card. One phase runs
 only so: `train_bf16_chain` chains bench.py's step (no reset) at fp32
 and at bf16 and names the op behind the first non-finite gradient.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -260,25 +293,124 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def timed(torch, fn, reps, kernel, warmup=2):
+# The lead-in's kernel (torch.cuda._sleep's spin), and its launches: on
+# some of the H100's machines a trace loses the kernel records of its
+# first moments (PERF.md §7), so every trace that counts or times kernels
+# starts with these, waited for, and leaves them out of its tables.
+LEAD_IN = "spin_kernel"
+LEAD_IN_LAUNCHES = 17
+# each trace's lead-in records lost, where it lost some
+LEAD_IN_LOST = []
+
+
+def lead_in(torch):
+    """16 short spins and one of about 10 ms, waited for."""
+    for _ in range(LEAD_IN_LAUNCHES - 1):
+        torch.cuda._sleep(1000)
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def traced(torch):
+    """torch.profiler over the block, CPU and CUDA, after `lead_in`; the
+    lead-in records the trace lost go on LEAD_IN_LOST."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
+        yield prof
+    lost = LEAD_IN_LAUNCHES - sum(e.count for e in prof.key_averages()
+                                  if e.device_type == DeviceType.CUDA and LEAD_IN in e.key)
+    if lost:
+        LEAD_IN_LOST.append(lost)
+
+
+def trace_events(prof, path):
+    """The events of a torch.profiler trace, from its chrome export
+    (written to `path`; a trace exports once)."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def trace_kernels(evs):
+    """Every device kernel of a trace's events (`trace_events`) in start
+    order: name, the correlation id of its host launch (one
+    cudaGraphLaunch for all of a replay's kernels) and grid."""
+    ks = sorted((e for e in evs if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    return [{"name": e["name"], "corr": e["args"].get("correlation"),
+             "grid": e["args"].get("grid")} for e in ks]
+
+
+def launch_records(evs):
+    """Each host launch of a trace's events (`trace_events`) in order, a
+    kernel launch or a graph launch, with the names of the device kernels
+    recorded for it: an empty list is a launch whose kernel record the
+    trace lost."""
+    kernels = {}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            kernels.setdefault(e["args"].get("correlation"), []).append(e["name"][:60])
+    hosts = sorted((e for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and ("LaunchKernel" in e["name"] or "GraphLaunch" in e["name"])),
+                   key=lambda e: e["ts"])
+    return [(e["name"], kernels.get(e["args"].get("correlation"), [])) for e in hosts]
+
+
+def odd_replays(ks):
+    """The kernels of each host launch of more than one kernel in a trace
+    (`trace_kernels`; a graph replay's kernels share its cudaGraphLaunch's
+    correlation id), held against the launch with the most: a replay runs
+    every node of its graph, so a kernel a replay lacks is a record the
+    trace lost. Returns the number of such launches and, for each that
+    differs, its index, kernel count, and the names it lacks and adds."""
+    from collections import Counter
+    by_launch = {}
+    for k in ks:
+        by_launch.setdefault(k["corr"], []).append(k["name"][:80])
+    groups = [Counter(g) for g in by_launch.values() if len(g) > 1]
+    if not groups:
+        return 0, []
+    ref = max(groups, key=lambda g: sum(g.values()))
+    return len(groups), [{"replay": i, "kernels": sum(g.values()),
+                          "lacks": dict(ref - g), "adds": dict(g - ref)}
+                         for i, g in enumerate(groups) if g != ref]
+
+
+def timed(torch, fn, reps, kernel, warmup=2, attempts=3):
     """One call's times in ms: `ms`, the self device time of the CUDA
     kernels whose names hold `kernel`, from torch.profiler over `reps`
     calls (and `ms_by_kernel` where a call launches several); `call_ms`,
     CUDA events around `reps` back-to-back calls in a loop of their own
-    (host work included, no profiler)."""
+    (host work included, no profiler). Each matched kernel is launched
+    once a call, so the trace must hold `reps` of each: one that holds
+    fewer lost records (PERF.md §7) and is taken again, `attempts` times
+    in all, before it raises."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     call_ms = cuda_ms(torch, fn, reps, warmup)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and kernel in e.key]
-    if not evs:
-        raise AssertionError(f"no {kernel} kernel in the profile")
+    for attempt in range(1, attempts + 1):
+        with traced(torch) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key]
+        counts = {e.key[:60]: e.count for e in evs}
+        if evs and all(n == reps for n in counts.values()):
+            break
+        seq = launch_records(trace_events(prof, os.path.join(HERE, "build",
+                                                             "trace_timed_incomplete.json")))
+        emit({"phase": "trace", "timed": kernel, "reps": reps, "counts": counts,
+              "attempt": attempt, "host_launches": len(seq),
+              "lost_at": [i for i, (_, ks) in enumerate(seq) if not ks]})
+        if not evs or any(n > reps for n in counts.values()) or attempt == attempts:
+            raise AssertionError(f"{kernel}: {counts} launches in the trace of {reps} calls "
+                                 f"({attempt} traces)")
     out = dict(ms=sum(e.self_device_time_total for e in evs) / 1e3 / reps,
                call_ms=call_ms)
+    if attempt > 1:
+        out["traces"] = attempt
     if len(evs) > 1:       # a call of several launches: each one's share
         out["ms_by_kernel"] = {e.key[:60]: e.self_device_time_total / 1e3 / reps
                                for e in evs}
@@ -333,12 +465,11 @@ def traced_path(torch, counters, run, windows, lframe, bf16, nms=2, attempts=1):
     launches of some row and more of none is torch.profiler losing records
     (PERF.md §7): `run()` is traced again, `attempts` times in all, and the
     number of traces it took goes on `traced_path.attempts`."""
-    from torch.profiler import ProfilerActivity, profile
     want = window_launches(windows, lframe, bf16, nms)
     for attempt in range(1, attempts + 1):
         for c in counters.values():
             c.launches = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with traced(torch) as prof:
             out = run()
             torch.cuda.synchronize()
         wrapped = {name: c.launches for name, c in counters.items()}
@@ -346,6 +477,10 @@ def traced_path(torch, counters, run, windows, lframe, bf16, nms=2, attempts=1):
         traced_path.attempts = attempt
         if launches == want and not any(wrapped.values()):
             return out, launches, prof
+        n, odd = odd_replays(trace_kernels(trace_events(
+            prof, os.path.join(HERE, "build", "trace_incomplete.json"))))
+        emit({"phase": "trace", "incomplete": launches, "want": want, "attempt": attempt,
+              "wrapper_launches": wrapped, "replays": n, "odd_replays": odd})
         lost = all(launches[k] <= n for k, n in want.items())
         if any(wrapped.values()) or not lost or attempt == attempts:
             raise AssertionError(f"launches in the trace {launches} != {want}, "
@@ -1245,22 +1380,9 @@ def carried_phase(torch, row, carried):
 def capture_window(torch, pred, exp, state, targets):
     """Streams window 3, resumed from `state`, eagerly, keeping a copy of
     the arguments of every call of each `targets` entry, (module,
-    function name) -> list; returns the new state. Its launches are not
-    counted."""
-    import contextlib
-
-    def keeping(fn, kept):
-        def call(*args):
-            kept.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
-                              for a in args))
-            return fn(*args)
-        return call
-
-    with contextlib.ExitStack() as undo:
-        for (module, name), kept in targets.items():
-            fn = getattr(module, name)
-            setattr(module, name, keeping(fn, kept))
-            undo.callback(setattr, module, name, fn)
+    function name) -> list (`keeping_calls`); returns the new state. Its
+    launches are not counted."""
+    with keeping_calls(torch, targets):
         _, _, state = run_windows(torch, pred, exp, 1, 3, True, state, 3, eager=True)
     return state
 
@@ -2330,12 +2452,11 @@ def traced_train_step(torch, run, tag):
     step (CUDA events), the step's device time by kernel class (into
     build/profile_<tag>.json)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced(torch) as prof:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         run()
@@ -2343,7 +2464,8 @@ def traced_train_step(torch, run, tag):
         torch.cuda.synchronize()
     step_ms = a.elapsed_time(b)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.key != "Activity Buffer Request"]
+               and not e.is_user_annotation and e.key != "Activity Buffer Request"
+               and LEAD_IN not in e.key]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ranges = {}
     for name, key in ((fa.BACKWARD_RANGE, "attention_backward"), (fs.BACKWARD_RANGE, "stem_backward")):
@@ -2895,9 +3017,16 @@ def train_backbone_grad_phase(torch, counters, steps=3):
 
     for c in counters.values():
         c.launches = 0
-    stopped, g_stop, b_stop = one(True, False)
-    opened, g_open, b_open = one(False, False)
-    _, g_remat, b_remat = one(False, True)
+    # cuDNN's deterministic algorithms for the comparisons: with its
+    # default ones remat's gradients sat 0.8-1.1e-6 of their largest value
+    # from the plain step's on the H100, across REMAT_GRAD_TOL (PERF.md §7)
+    torch.backends.cudnn.deterministic = True
+    try:
+        stopped, g_stop, b_stop = one(True, False)
+        opened, g_open, b_open = one(False, False)
+        _, g_remat, b_remat = one(False, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
     dmax = max(float(d.abs().max()) for d in trained_delta(stopped, sd0, trained).values())
     upd_err = max_err(opened, stopped, trained)
     frozen = all(torch.equal(opened[k], sd0[k]) and torch.equal(stopped[k], sd0[k]) for k in backbone)
@@ -2934,7 +3063,7 @@ def train_backbone_grad_phase(torch, counters, steps=3):
                     "backbone frozen",
           "max_update": dmax, "update_vs_stopped_max_err_beyond_spacing": upd_err,
           "backbone_bit_unchanged": frozen, "backbone_gradients": bb_grads,
-          "remat_grad_max_rel_err": remat_err,
+          "remat_grad_max_rel_err": remat_err, "compared_with_cudnn_deterministic": True,
           "wrapper_launches": launches,
           "stem_backward_calls": {"stopped": b_stop, "open": b_open, "remat": b_remat},
           "stem_backward_ms_per_call": traced["stem_backward"]["ms"],
@@ -3449,7 +3578,7 @@ def replay_breakdown(prof, windows):
               "calls": e.count / windows}
              for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-             and e.key != "Activity Buffer Request"]
+             and e.key != "Activity Buffer Request" and LEAD_IN not in e.key]
     table.sort(key=lambda r: -r["ms"])
     by_class = breakdown(table)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
@@ -3537,7 +3666,7 @@ def replays(torch, counters, pred, exp, state, bf16, nms=2, n=HEAD_WINDOWS):
         n, exp.lframe_val, bf16, nms, attempts=3)
     work = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation and e.key != "Activity Buffer Request"
-            and "Memcpy" not in e.key]
+            and "Memcpy" not in e.key and LEAD_IN not in e.key]
     n_det = 0
     for d in dets:
         for r in pred.materialize(d):
@@ -4127,12 +4256,709 @@ def nms_stage_main(torch):
           "valid": [int(a[3].sum()) for a in stage]})
 
 
+# -- phases still and ovis: the OVIS recipe, stage 1 (still-image YOLOX) and
+# stage 2 (TSCD on OVIS-format video) ---------------------------------------
+
+OVIS_FIXTURE = os.path.join(FILE_FIXTURE, "ovis")
+STILL_CONFIG = ("ovis_yolox_l: YOLOX-L (depth 1.0, width 1.0), 25 classes, batches of 16 at "
+                "640 px (mosaic, mixup, affine warp, HSV, flip), eval batches of 8 at 576 px, "
+                "fp32")
+OVIS_CONFIG = ("ovis_tscd_large: TSCD-Large (depth 1.0, width 1.0), 25 classes, P=50, eval "
+               "windows of 8 + 24 frames at 576 px, training windows of 4 + 12, fp32")
+STILL_STEPS = 8            # 4 epochs of the fixture's 32 frames in batches of 16
+STILL_EXP = "ovis_yolox_l"
+# where `still` leaves the stage-1 checkpoint that `ovis` starts stage 2 from
+STAGE1_DIR = os.path.join("build", "still_phase")
+# rows of the kernels line at these phases' shapes: {row: (its kernel's row, the shape)}
+RECIPE_ROWS = {
+    "focus_stem_yolox_576": ("focus_stem",
+                             "ovis_yolox_l eval batch: 8 x 576 x 576 fp32 frames -> 64 channels"),
+    "focus_stem_yolox_640": ("focus_stem",
+                             "yolox_l eval batch: 8 x 640 x 640 fp32 frames -> 64 channels"),
+    "nms_dense_065": ("nms", "postprocess_dense: B 8, K 2048, 25 classes shifted, IoU 0.65 "
+                             "(ovis_yolox_l, yolox_l)"),
+    "nms_dense_05": ("nms", "postprocess_dense: B 8, K 2048, 25 classes shifted, IoU 0.5 "
+                            "(yoloxl_ovis, 640 x 960)"),
+    "fused_dual_attention_ovis": ("fused_dual_attention",
+                                  "ovis_tscd_large window: B 8, h 4, q 50, k 1600, d 64, fp32"),
+    "hungarian_ovis": ("hungarian", "ovis_tscd_large window: each local frame's 50 x 50 "
+                                    "carried-state cost, 8 a window"),
+    "nms_ovis": ("nms", "ovis_tscd_large postprocess_refined: 8 frames x K = 1250 (50 "
+                        "proposals x 25 classes, shifted), IoU 0.5"),
+}
+
+
+def warp_canvas(img, offset):
+    """The frame letterboxed to 640 px on a 1280 x 1280 canvas of 114 at
+    `offset` (y, x), as the mosaic places a tile (the canvas the fixture's
+    recorded warps start from, tests/torch_port_ovis_fixture.py)."""
+    import numpy as np
+
+    from tscd_torch.data import image
+    h, w = img.shape[:2]
+    r = min(640 / h, 640 / w)
+    tile = image.resize_linear(img, int(h * r), int(w * r))
+    canvas = np.full((1280, 1280, 3), 114, np.uint8)
+    y, x = offset
+    canvas[y:y + tile.shape[0], x:x + tile.shape[1]] = tile
+    return canvas
+
+
+def warp_checks():
+    """The port's warp (data/image.py:warp_affine) of each fixture frame's
+    mosaic canvas by its recorded matrix, against the sha256 of
+    cv2.warpAffine's pixels recorded where cv2 exists
+    (tscd_torch/data/fixtures/ovis/warp_sha256.json); and the host ms of
+    one warp of a 1280 x 1280 canvas to 640 x 640."""
+    import hashlib
+
+    import numpy as np
+
+    from tscd_torch.data import image
+    with open(os.path.join(HERE, OVIS_FIXTURE, "warp_sha256.json")) as f:
+        recorded = json.load(f)
+    w, h = recorded["size"][1], recorded["size"][0]
+    bad, canvases = [], []
+    for rel, rec in recorded["frames"].items():
+        canvas = warp_canvas(image.imread(os.path.join(HERE, rel)), rec["offset"])
+        out = image.warp_affine(canvas, np.asarray(rec["matrix"]), (w, h), recorded["border"])
+        if hashlib.sha256(out.tobytes()).hexdigest() != rec["sha256"]:
+            bad.append(rel)
+        canvases.append((canvas, np.asarray(rec["matrix"])))
+    ms = host_ms(lambda c: image.warp_affine(c[0], c[1], (w, h), 114), canvases[:4], 3)
+    return {"frames": len(recorded["frames"]), "sha256_match": len(recorded["frames"]) - len(bad),
+            "mismatched": bad, "reference": f"cv2 {recorded['cv2']}",
+            "host_ms_warp_1280_to_640": ms, "pass": not bad}
+
+
+def call_grid(torch, fn, kernel, path):
+    """The grid of the one `kernel` launch that `fn()` makes, from a
+    torch.profiler trace of that call alone."""
+    with traced(torch) as prof:
+        fn()
+        torch.cuda.synchronize()
+    grids = [k["grid"] for k in trace_kernels(trace_events(prof, path)) if kernel in k["name"]]
+    if len(grids) != 1:
+        raise AssertionError(f"{len(grids)} {kernel} launches in the trace of one call")
+    return grids[0]
+
+
+def trace_lead_in_phase(torch, counters, rounds=3):
+    """Which kernel records torch.profiler traces lose (not in the default
+    run). Three workloads, each traced `rounds` times in three ways, fresh
+    each time: as it is, after `lead_in` (a small kernel, waited for), and
+    with a small kernel after it, before the trace stops. The workloads:
+    the block solver on a 129 x 129 random cost and the fp32 stem on 8 x
+    640 x 640 frames, 20 calls each as `timed` makes them; and
+    ovis_tscd_large's replayed evaluation of the fixture's val json (its
+    window graph captured first). For each trace: each host launch's
+    index where its kernel record is missing (`launch_records`), the
+    launches of each row, and for the evaluation the replays that differ
+    from the others (`odd_replays`)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.kernels import focus_stem as fs
+    from tscd_torch.ops.kernels import hungarian as hu
+    quiet = lambda *a: None   # noqa: E731
+    dev = card(torch)
+    rng = np.random.default_rng(6)
+    cost = torch.as_tensor(rng.uniform(0, 2, (1, 129, 129)).astype(np.float32), device=dev)
+    w3 = torch.as_tensor(rng.normal(0, 0.1, (64, 12, 3, 3)), device=dev).float()
+    scale, shift = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    x = torch.as_tensor(rng.integers(0, 256, (8, 640, 640, 3)), device=dev).float()
+    exp = ovis_exp(OVIS_EXP)
+    L = exp.lframe_val
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    pred = make_predict_fn(model, L, exp.gframe_val, exp.nmsthre, exp.test_conf)
+    loader = exp.get_eval_loader(pin_memory=True)
+    first = next(iter(loader))
+    pred.materialize(pred.dispatch(first["imgs"], first["time_embedding"], False, None)[0])
+    nw = len(loader.dataset.res)
+    want = window_launches(nw, L, False)
+
+    def calls(fn, n=20):
+        def run():
+            for _ in range(n):
+                fn()
+        return run
+
+    def evaluate():
+        exp.get_evaluator(exp.get_eval_loader(pin_memory=True)).evaluate(
+            recording(pred, []), quiet)
+
+    workloads = {"hungarian_block_129": calls(lambda: hu.linear_sum_assignment(cost)),
+                 "focus_stem_640": calls(lambda: fs.focus_stem(x, w3, scale, shift,
+                                                               out_dtype=torch.float32)),
+                 "ovis_eval": evaluate}
+    for run in workloads.values():
+        run()
+    torch.cuda.synchronize()
+    path = os.path.join(HERE, "build", "trace_lead_in.json")
+    summary = {}
+    for r in range(rounds):
+        for name, run in workloads.items():
+            for way in ("plain", "lead_in", "lead_out"):
+                for c in counters.values():
+                    c.launches = 0
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    if way == "lead_in":
+                        lead_in(torch)
+                    run()
+                    if way == "lead_out":
+                        torch.ones(1, device="cuda").add_(1)
+                    torch.cuda.synchronize()
+                launches = trace_launches(prof)
+                evs = trace_events(prof, path)
+                seq = launch_records(evs)
+                rec = {"round": r, "workload": name, "way": way, "launches": launches,
+                       "host_launches": len(seq),
+                       "lost_at": [i for i, (_, ks) in enumerate(seq) if not ks],
+                       "wrapper_launches": {k: c.launches for k, c in counters.items()}}
+                if name == "ovis_eval":
+                    rec["complete"] = launches == want
+                    rec["replays"], rec["odd_replays"] = odd_replays(trace_kernels(evs))
+                summary.setdefault(f"{name} {way}", []).append(len(rec["lost_at"]))
+                emit({"phase": "trace_lead_in", **rec})
+    emit({"phase": "trace_lead_in", "lost_records_a_trace": summary, "rounds": rounds})
+
+
+@contextlib.contextmanager
+def keeping_calls(torch, targets):
+    """Inside it, every call of each `targets` entry, (module, function
+    name) -> list, keeps a copy of its arguments in that list."""
+    def keeping(fn, kept):
+        def call(*args, **kw):
+            kept.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                              for a in args))
+            return fn(*args, **kw)
+        return call
+
+    with contextlib.ExitStack() as undo:
+        for (module, name), kept in targets.items():
+            fn = getattr(module, name)
+            setattr(module, name, keeping(fn, kept))
+            undo.callback(setattr, module, name, fn)
+        yield
+
+
+def stem_row(torch, dev, rng, F, H, W, O=64):
+    """The fp32 stem on F x H x W x 3 frames writing O channels against its
+    plain version (1e-4 relative, as phase kernels), then timed, with its
+    bound and the folded F.conv2d's time."""
+    import numpy as np
+    import torch.nn.functional as Fn
+
+    from tscd_torch.ops.kernels import focus_stem as fs
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)   # noqa: E731
+    w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
+    scale = t(rng.uniform(0.5, 1.5, O))
+    shift = t(rng.normal(0, 0.5, O))
+    x = t(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8))
+    err = check_close(f"focus_stem ({F}, {H}, {W}, 3) -> {O}",
+                      fs.focus_stem(x, w3, scale, shift, out_dtype=torch.float32),
+                      fs.focus_stem_plain(x, w3, scale, shift, torch.float32),
+                      atol=1e-3, rtol=1e-4)
+    nbytes = 4 * F * H * W * 3 + 4 * F * (H // 2) * (W // 2) * O + 4 * (w3.numel() + 2 * O)
+    b_ms, b_by = bound(nbytes, (2 * F * (H // 2) * (W // 2) * O * 108, H100_FP32_FLOPS))
+    xn, w6 = x.permute(0, 3, 1, 2), fs.rearrange_weight(w3, scale)
+    return dict(max_abs_err=err,
+                **timed(torch, lambda: fs.focus_stem(x, w3, scale, shift,
+                                                     out_dtype=torch.float32), 20, "focus_stem"),
+                plain_ms=cuda_ms(torch, lambda: fs.focus_stem_plain(x, w3, scale, shift,
+                                                                   torch.float32), 10),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(torch, lambda: Fn.conv2d(xn, w6, shift, stride=2, padding=2),
+                                   20))
+
+
+def dense_nms_row(torch, dev, rng, thr, lat, clock, B=8, K=2048, C=25):
+    """The NMS kernels at postprocess_dense's shape: B frames of its top K
+    candidates (boxes in clusters, so that it suppresses; 25 classes
+    shifted apart, scores sorted), checked element for element and bit for
+    bit against the plain version, then timed, with the latency bound."""
+    import numpy as np
+
+    from tscd_torch.ops.kernels import nms as kn
+    from tscd_torch.ops.nms import class_shift, score_order
+    centres = rng.uniform(40, 560, (B, 60, 2))
+    xy = np.take_along_axis(centres, rng.integers(0, 60, (B, K))[..., None], 1) \
+        + rng.normal(0, 8, (B, K, 2))
+    wh = rng.uniform(20, 160, (B, K, 2))
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    boxes = t(np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32))
+    cls = t(rng.integers(0, C, (B, K)))
+    valid = t(np.ones((B, K), bool))
+    _, bs, vs = score_order(class_shift(boxes, cls, valid),
+                            t(rng.uniform(size=(B, K)).astype(np.float32)), valid)
+    err, want = check_nms(torch, f"postprocess_dense ({B}, {K}) IoU {thr}", bs, vs, thr)
+    return dict(max_abs_err=err, **timed(torch, lambda: kn.nms_sorted(bs, vs, thr), 100, "nms_"),
+                plain_ms=cuda_ms(torch, lambda: kn.nms_sorted_plain(bs, vs, thr), 2, 1),
+                **nms_bounds(B, K, lat, clock), bound_by="operations", bound_model=NMS_BOUND,
+                library_ms=None, kept=int(want.sum()))
+
+
+def fixture_still_exp(name, seed=2024):
+    """A built-in still exp on the committed OVIS-format fixture (stage 1's
+    json over the 720p frames)."""
+    from tscd_torch.exp.yolox_base import STILL_EXPS
+    exp = STILL_EXPS[name]()
+    exp.data_dir = os.path.join(HERE, FILE_FIXTURE)
+    exp.train_ann = os.path.join("ovis", "annotations_train.json")
+    exp.val_ann = os.path.join("ovis", "annotations_valid.json")
+    exp.train_name = exp.val_name = os.path.join("vid", "Data", "VID", "val")
+    exp.seed = seed
+    return exp
+
+
+def OVIS_EXP():
+    """The configuration phase ovis drives: ovis_tscd_large."""
+    from tscd_torch.exp.ovis_tscd_base import LargeExp
+    return LargeExp()
+
+
+def ovis_exp(cls):
+    """An OVIS TSCD exp on the committed fixture's json and frames."""
+    exp = cls()
+    exp.data_dir = os.path.join(HERE, FILE_FIXTURE, "vid")
+    exp.ovis_name = os.path.join("Data", "VID", "val")
+    exp.ovis_train_json = os.path.join(HERE, OVIS_FIXTURE, "annotations_train.json")
+    exp.ovis_val_json = os.path.join(HERE, OVIS_FIXTURE, "annotations_valid.json")
+    return exp
+
+
+def still_agreement(torch):
+    """The selftest-size YOLOX (depth 0.33, width 0.125, 25 classes) from
+    the same seeded weights on the card machine's CPU and on the card: raw
+    outputs (1e-4 of the largest) and detections (1e-4, as sets) on four
+    fixture frames letterboxed to 128 px, then one step (train-mode BN,
+    grouped SGD, EMA) on a mosaic batch: losses TRAIN_LOSS_RTOL relative,
+    updates and EMA TRAIN_UPDATE_TOL of the largest update beyond the fp32
+    spacing, the running statistics TRAIN_BN_TOL of their largest."""
+    import numpy as np
+
+    from tscd_torch.core.trainer import make_predict_fn
+    from tscd_torch.data.transforms import letterbox
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.step import init_train_state, yolox_train_step
+    exp = fixture_still_exp("ovis_still_selftest", seed=0)
+    ds = exp.get_eval_dataset()
+    imgs = np.stack([letterbox(ds.pull_item(i)[0], exp.test_size, np.uint8)[0]
+                     for i in (0, 9, 18, 27)])
+    loader = exp.get_data_loader(rng=random.Random(5), np_rng=np.random.RandomState(5),
+                                 img_dtype=np.uint8)
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    host = lambda sd: {k: v.detach().cpu().clone() for k, v in sd.items()}   # noqa: E731
+    res = {}
+    for dev in ("cpu", card(torch)):
+        model = random_init_(exp.get_model(device=dev), exp.seed)
+        with torch.no_grad():
+            raw = model(torch.as_tensor(imgs).to(dev), decode=False)["outputs"].cpu()
+        rows = make_predict_fn(model, exp.num_classes, 1e-4, exp.nmsthre)(imgs)
+        opt = exp.get_optimizer(model, loader.steps_per_epoch)
+        opt.count = loader.steps_per_epoch * exp.warmup_epochs + 1
+        st = init_train_state(model, opt, exp.ema_decay)
+        before = host(model.state_dict())
+        losses = yolox_train_step(st, torch.as_tensor(batch["imgs"]).to(dev),
+                                  torch.as_tensor(batch["labels"]).to(dev))
+        res[str(dev)] = (raw, rows, {k: float(v) for k, v in losses.items()}, before,
+                         host(model.state_dict()), host(st.ema.state_dict()))
+    cpu, gpu = res["cpu"], res[str(card(torch))]
+    raw_err = float((gpu[0] - cpu[0]).abs().max()) / float(cpu[0].abs().max())
+    worst, n = match_rows([cpu[1]], [gpu[1]], 1e-4, 1e-4)
+    loss_err = max(abs(gpu[2][k] - v) / max(abs(v), 1e-6) for k, v in cpu[2].items())
+    params = [k for k, v in cpu[3].items() if v.is_floating_point() and ".running_" not in k]
+    running = [k for k in cpu[3] if ".running_" in k]
+    dmax = max(float((cpu[4][k].double() - cpu[3][k].double()).abs().max()) for k in params)
+    upd_err, ema_err = max_err(gpu[4], cpu[4], params), max_err(gpu[5], cpu[5], params)
+    bn_err = max(float((gpu[4][k] - cpu[4][k]).abs().max()) / float(cpu[4][k].abs().max())
+                 for k in running)
+    ok = (raw_err <= 1e-4 and loss_err <= TRAIN_LOSS_RTOL and dmax > 0 and bn_err <= TRAIN_BN_TOL
+          and upd_err <= TRAIN_UPDATE_TOL * dmax and ema_err <= TRAIN_UPDATE_TOL * dmax
+          and all(np.isfinite(v) for v in gpu[2].values()))
+    rec = {"config": "ovis_still_selftest: depth 0.33, width 0.125, 25 classes, 128 px",
+           "raw_max_rel_err": raw_err, "detections": n, "detections_max_abs_err": worst,
+           "losses_card": gpu[2], "losses_cpu": cpu[2], "loss_max_rel_err": loss_err,
+           "max_update": dmax, "update_max_err_beyond_spacing": upd_err,
+           "ema_max_err_beyond_spacing": ema_err, "running_stats_max_rel_err": bn_err,
+           "tolerance": {"raw outputs": "1e-4 of the largest", "detections": 1e-4,
+                         "losses": f"{TRAIN_LOSS_RTOL} relative",
+                         "updates and EMA": f"{TRAIN_UPDATE_TOL} of the largest update beyond "
+                                            "each value's fp32 spacing",
+                         "running statistics": f"{TRAIN_BN_TOL} of the largest"},
+           "pass": ok}
+    emit({"phase": "still", "part": "card_against_cpu", **rec})
+    if not ok:
+        raise AssertionError("still: the selftest-size card run departs from the CPU's")
+
+
+def still_phase(torch, counters):
+    """Stage 1 of the OVIS recipe: the warp hashes; the selftest size card
+    against CPU; ovis_yolox_l at full width through Trainer for
+    STILL_STEPS steps on the fixture (6 with mosaic, mixup and the warp, 2
+    in the no-aug tail with L1), each step timed with CUDA events, one more
+    traced (busy share), the wrappers' launches (0: train-mode BN takes the
+    conv route); the EMA weights through COCOEvaluator at ovis_yolox_l's,
+    yolox_l's and yoloxl_ovis's sizes (stem and NMS launches a pass); the
+    checkpoint `ovis` starts from; the kernels at the new shapes. Returns
+    {"rows": kernels-line rows, "launches": {row: n}}."""
+    import shutil
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.core.trainer import make_predict_fn
+    from tscd_torch.ops.kernels import library
+    t_phase = time.time()
+    warp = warp_checks()
+    emit({"phase": "still", "part": "warp", **warp})
+    if not warp["pass"]:
+        raise AssertionError(f"warp: {len(warp['mismatched'])} frames differ from cv2's pixels")
+    still_agreement(torch)
+
+    exp = fixture_still_exp(STILL_EXP)
+    exp.max_epoch, exp.no_aug_epochs, exp.warmup_epochs, exp.batch_size = 4, 1, 1, 16
+    exp.eval_interval = exp.ckpt_interval = 100     # evaluated below; the last epoch saves
+    exp.print_interval = 2
+    exp.output_dir = os.path.join(HERE, STAGE1_DIR)
+    shutil.rmtree(exp.output_dir, ignore_errors=True)
+    trainer = exp.get_trainer(device=card(torch))
+    step_fn, records = trainer.step, []
+
+    def timed_step(images, labels, use_l1=False):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = step_fn(images, labels, use_l1)
+        b.record()
+        records.append((a, b, losses, use_l1, time.perf_counter()))
+        return losses
+
+    trainer.step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    wrapped = {name: c.launches for name, c in counters.items()}
+    losses = [{k: float(v) for k, v in r[2].items()} for r in records]
+    step_ms = [a.elapsed_time(b) for a, b, *_ in records]
+    l1 = [r[3] for r in records]
+    ok = (len(records) == STILL_STEPS and not any(wrapped.values())
+          and l1 == [False] * (STILL_STEPS - 2) + [True] * 2
+          and all(np.isfinite(v) for row in losses for v in row.values()))
+    if not ok:
+        raise AssertionError(f"still training: {len(records)} steps, L1 {l1}, wrapper launches "
+                             f"{wrapped}, losses {losses}")
+    B = exp.batch_size
+    timed_ms = step_ms[2:]
+    batch = next(it := iter(trainer._loader(False)))
+    it.close()
+    images, labels = trainer._upload(batch["imgs"], batch["labels"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step_fn(images, labels)
+        b.record()
+        torch.cuda.synchronize()
+    traced_ms = a.elapsed_time(b)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.key != "Activity Buffer Request"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    table = sorted(({"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in kernels), key=lambda r: -r["ms"])
+    with open(os.path.join(HERE, "build", "profile_still_step.json"), "w") as f:
+        json.dump({"by_class": breakdown(table, TRAIN_KERNEL_CLASSES), "kernels": table}, f)
+    ckpt = os.path.join(trainer.file_name, "latest_ckpt.pth")
+    emit({"phase": "still", "part": "train", "config": STILL_CONFIG, "steps": len(records),
+          "data": "the OVIS fixture's 32 JPEGs 1280x720 decoded by the port",
+          "losses": losses, "l1_on": l1, "step_ms": step_ms,
+          "median_step_ms_after_2": float(np.median(timed_ms)),
+          "images_per_s": B * len(timed_ms) / (sum(timed_ms) / 1e3),
+          "loop_images_per_s": B * (len(records) - 1) / (records[-1][4] - records[0][4]),
+          "train_s": train_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "wrapper_launches": wrapped, "host_cpu": host_cpu(),
+          "traced_step": {"step_ms": traced_ms, "device_busy_ms": busy_ms,
+                          "device_busy_share": busy_ms / traced_ms,
+                          "by_class": breakdown(table, TRAIN_KERNEL_CLASSES),
+                          "kernels": sum(r["calls"] for r in table), "top": table[:10]},
+          "checkpoint": os.path.relpath(ckpt, HERE),
+          "checkpoint_mb": os.path.getsize(ckpt) / 2 ** 20})
+    del images, labels, prof, trainer.step
+
+    # the EMA weights through COCOEvaluator at three exps' eval settings
+    model = exp.get_model(device=card(torch))
+    model.load_state_dict(state.ema.state_dict())
+    del state, trainer
+    free_card(torch)
+    from tscd_torch.exp.yolox_base import STILL_EXPS
+    passes = {}
+    for name in ("ovis_yolox_l", "yolox_l", "yoloxl_ovis"):
+        # the fixture's val json, at that exp's eval settings
+        e = fixture_still_exp(STILL_EXP)
+        ref = STILL_EXPS[name]()
+        e.test_size, e.nmsthre, e.test_conf = ref.test_size, ref.nmsthre, ref.test_conf
+        predict = make_predict_fn(model, e.num_classes, e.test_conf, e.nmsthre)
+        predict(np.full((8, *e.test_size, 3), 114, np.uint8))     # warm-up at this size
+        for c in counters.values():
+            c.launches = 0
+        res = e.get_evaluator().evaluate(predict, log=lambda *a: None)
+        torch.cuda.synchronize()
+        n = {k: c.launches for k, c in counters.items()}
+        batches = -(-32 // 8)
+        if n != {"focus_stem": batches, "fused_dual_attention": 0, "hungarian": 0,
+                 "nms": batches}:
+            raise AssertionError(f"eval at {e.test_size}: wrapper launches {n}")
+        passes[name] = {"test_size": list(e.test_size), "nmsthre": e.nmsthre,
+                        "test_conf": e.test_conf, "ms_per_image": res.get("ms_per_image"),
+                        "stats": res.get("stats"), "AP50": res["AP50"], "launches": n}
+    emit({"phase": "still", "part": "eval", "images": 32, "batch": 8, "passes": passes})
+    del model
+    free_card(torch)
+
+    dev = card(torch)
+    lat, clock = latencies(torch, library.load()), sm_clock_mhz()
+    rng = np.random.default_rng(60)
+    rows = {"focus_stem_yolox_576": stem_row(torch, dev, rng, 8, 576, 576),
+            "focus_stem_yolox_640": stem_row(torch, dev, rng, 8, 640, 640),
+            "nms_dense_065": dense_nms_row(torch, dev, rng, 0.65, lat, clock),
+            "nms_dense_05": dense_nms_row(torch, dev, rng, 0.5, lat, clock)}
+    launches = {"focus_stem_yolox_576": passes["ovis_yolox_l"]["launches"]["focus_stem"],
+                "focus_stem_yolox_640": passes["yolox_l"]["launches"]["focus_stem"],
+                "nms_dense_065": passes["ovis_yolox_l"]["launches"]["nms"]
+                + passes["yolox_l"]["launches"]["nms"],
+                "nms_dense_05": passes["yoloxl_ovis"]["launches"]["nms"]}
+    emit({"phase": "still", "seconds": time.time() - t_phase,
+          "rows": {n: {k: v for k, v in r.items() if "ms" in k} for n, r in rows.items()}})
+    return {"rows": rows, "launches": launches}
+
+
+def ovis_phase(torch, counters):
+    """Stage 2 of the OVIS recipe: ovis_tscd_large (seeded weights) over
+    the fixture's val json through OVISEvaluator (4 windows of 8 + 24
+    frames at 576 px): one window eagerly with its attention, solver and
+    NMS inputs kept (the kernels checked and timed on them), the window's
+    graph captured, then the evaluation timed (window ms, local frames/s)
+    under torch.profiler, its launches counted in its own device trace (8
+    solvers a window; the K = P x C NMS call told from the K = P one by its
+    pack kernel's grid); one stage-2 step of ovis_tscd_large from `still`'s
+    checkpoint; the selftest size (ovis_selftest) through the eval CLI on
+    the card and on the card machine's CPU. Returns {"rows", "launches"}."""
+    import numpy as np
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp.ovis_tscd_base import OVISSelftestExp
+    from tscd_torch.models import aggregation
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops import hungarian, nms
+    from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.ops.kernels import hungarian as hu
+    from tscd_torch.ops.kernels import library
+    from tscd_torch.ops.kernels import nms as kn
+    t_phase = time.time()
+    quiet = lambda *a: None   # noqa: E731
+    exp = ovis_exp(OVIS_EXP)
+    L = exp.lframe_val
+    dev = card(torch)
+    pin = dev.type == "cuda"
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    pred = make_predict_fn(model, L, exp.gframe_val, exp.nmsthre, exp.test_conf)
+    loader = exp.get_eval_loader(pin_memory=pin)
+    first = next(iter(loader))
+    att, costs, sorted_in = [], [], []
+    with keeping_calls(torch, {(aggregation, "fused_dual_attention"): att,
+                               (hungarian, "linear_sum_assignment"): costs,
+                               (nms, "nms_sorted"): sorted_in}):
+        pred.materialize(pred.dispatch_eager(first["imgs"], first["time_embedding"], False,
+                                             None)[0])
+    shapes = [tuple(a[0].shape) for a in att], [tuple(c[0].shape) for c in costs], \
+        [tuple(s[0].shape[:2]) for s in sorted_in]
+    P = exp.num_proposals
+    if (len(att) != 2 or shapes[0][0][0] != L or len(costs) != L
+            or shapes[2] != [(L, P * exp.num_classes), (L, P)]):
+        raise AssertionError(f"an OVIS window's calls: attention, solver, NMS {shapes}")
+
+    # the window's CUDA graph, captured at its first dispatch (which runs
+    # the window eagerly), before the timed evaluation replays it
+    pred.materialize(pred.dispatch(first["imgs"], first["time_embedding"], False, None)[0])
+    # the val json's one video of 32 frames: 32 // L windows
+    nw = len(loader.dataset.res)
+    rows_ev, times = [], {}
+
+    def evaluate():
+        rows_ev.clear()
+        times.update(events=[], dispatch_s=[], materialize_s=[], marks=[])
+        t0 = time.perf_counter()
+        res = exp.get_evaluator(exp.get_eval_loader(pin_memory=pin)).evaluate(
+            recording(pred, rows_ev, times), quiet)
+        return res, time.perf_counter() - t0
+
+    # the timed evaluation traced: every window a replay, its kernels
+    # counted in the device trace, none by a wrapper
+    (res, eval_s), launches, prof = traced_path(torch, counters, evaluate, nw, L, bf16=False,
+                                                attempts=3)
+    eval_kernels = trace_kernels(trace_events(prof, os.path.join(HERE, "build",
+                                                                 "trace_ovis_eval.json")))
+    del prof
+    window_ms = [a.elapsed_time(b) for a, b in times["events"]]
+    if (nw != 32 // L or len(rows_ev) != nw or len(res.get("stats", [])) != 12
+            or not np.isfinite(res["stats"]).all()):
+        raise AssertionError(f"OVIS eval: {len(rows_ev)} of {nw} windows, result {res}")
+    emit({"phase": "ovis", "part": "eval", "config": OVIS_CONFIG,
+          "data": "the OVIS fixture's valid json: 1 video of 32 JPEGs 1280x720",
+          "windows": nw, "evaluated_frames": nw * L, "evaluate_s": eval_s,
+          "local_frames_per_s": nw * L / eval_s, "window_ms": window_ms,
+          "window_ms_mean": float(np.mean(window_ms)), "ms_per_frame": res["ms_per_frame"],
+          "launches": launches, "traces": traced_path.attempts,
+          "launches_from": "the device trace of this timed evaluation (graph replays, "
+                           "under torch.profiler)",
+          "solver_launches_a_window": launches["hungarian"] / nw, "stats": res["stats"],
+          "pass": True})
+
+    # the kernels on the window's own inputs
+    lat, clock = latencies(torch, library.load()), sm_clock_mhz()
+    a = att[0]
+    errs = [check_close(f"fused_dual_attention OVIS window {part}", g, w, atol=1e-5, rtol=1e-4)
+            for part, g, w in zip(("out_cls", "out_reg", "attn"), fa.fused_dual_attention(*a),
+                                  fa.fused_dual_attention_plain(*a))]
+    B, h, q, d = a[0].shape
+    k = a[1].shape[2]
+    nbytes = 4 * (2 * B * h * q * d + 4 * B * h * k * d + B * k) + B * k \
+        + 4 * (2 * B * h * q * d + B * h * q * k)
+    b_ms, b_by = bound(nbytes, (B * h * 8 * q * k * d, H100_FP32_FLOPS))
+    rows = {"fused_dual_attention_ovis": dict(
+        max_abs_err=max(errs), **timed(torch, lambda: fa.fused_dual_attention(*a), 100,
+                                       "fused_dual_attention"),
+        plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*a), 20),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)}
+    cost = costs[-1][0]
+    for c in costs:
+        check_hungarian("hungarian OVIS window's cost", c[0])
+    rows["hungarian_ovis"] = dict(
+        max_abs_err=0, **hungarian_cost_row(torch, cost, lat, clock), bound_by="operations",
+        bound_model=HUNGARIAN_BOUND, library_ms=None,
+        plain_ms=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(cost), 3, 1))
+    boxes_s, valid_s, thr = sorted_in[0]
+    err, want = check_nms(torch, f"OVIS window's refined call {tuple(boxes_s.shape[:2])}",
+                          boxes_s, valid_s, thr)
+    rows["nms_ovis"] = dict(
+        max_abs_err=err, **timed(torch, lambda: kn.nms_sorted(boxes_s, valid_s, thr), 100, "nms_"),
+        plain_ms=cuda_ms(torch, lambda: kn.nms_sorted_plain(boxes_s, valid_s, thr), 3, 1),
+        **nms_bounds(L, boxes_s.shape[1], lat, clock), bound_by="operations",
+        bound_model=NMS_BOUND, library_ms=None, kept=int(want.sum()),
+        valid=int(valid_s.sum()))
+    # the K = P x C call's launches in the timed evaluation's trace: its
+    # pack kernel's grid, read from a trace of that call alone
+    grid = call_grid(torch, lambda: kn.nms_sorted(boxes_s, valid_s, thr), "nms_pack_iou",
+                     os.path.join(HERE, "build", "trace_nms_ovis.json"))
+    packs = [k["grid"] for k in eval_kernels if "nms_pack_iou" in k["name"]]
+    n_ovis = sum(g == grid for g in packs)
+    if n_ovis != nw or len(packs) != 2 * nw:
+        raise AssertionError(f"OVIS eval trace: {n_ovis} NMS calls of grid {grid} and "
+                             f"{len(packs)} in all for {nw} windows")
+    rows["nms_ovis"]["pack_grid"] = grid
+    recipe_launches = {"fused_dual_attention_ovis": launches["fused_dual_attention"],
+                       "hungarian_ovis": launches["hungarian"], "nms_ovis": n_ovis}
+    del pred, model, att, costs, sorted_in, first, loader
+    free_card(torch)
+
+    # one stage-2 step from stage 1's checkpoint
+    ckpt = os.path.join(HERE, STAGE1_DIR, STILL_EXP, "latest_ckpt.pth")
+    exp = ovis_exp(OVIS_EXP)
+    exp.output_dir = os.path.join(HERE, "build", "ovis_phase")
+    args = type("Args", (), {"ckpt": ckpt, "resume": False, "start_epoch": 0})()
+    trainer = exp.get_trainer(args, device=dev)
+    trainer.dataset = exp.get_train_dataset()
+    iters = len(trainer.dataset.res)
+    trainer._init_state(iters)
+    stage1 = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    loaded = [k for k, v in trainer.model.state_dict().items()
+              if k in stage1 and v.shape == stage1[k].shape and v.is_floating_point()]
+    same = all(torch.equal(trainer.model.state_dict()[k].cpu(), stage1[k]) for k in loaded)
+    it = iter(trainer._loader(0))
+    batch = next(it)
+    it.close()
+    frames, labels, te = trainer._upload(batch)
+    step_ms, step_losses = [], []
+    for _ in range(2):            # the first step, and a second from its state
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step_losses.append({k: float(v) for k, v in trainer.step(frames, labels, te).items()})
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    ok = same and len(loaded) > 300 and all(np.isfinite(v) for row in step_losses
+                                            for v in row.values())
+    emit({"phase": "ovis", "part": "stage2_step", "from": os.path.relpath(ckpt, HERE),
+          "tensors_from_stage1": len(loaded), "equal_to_stage1": same,
+          "windows": iters, "step_ms": step_ms, "losses": step_losses, "pass": ok})
+    if not ok:
+        raise AssertionError("ovis: stage 2 did not start from stage 1's weights, or its "
+                             f"losses are not finite: {step_losses}")
+    del trainer, frames, labels, te
+    free_card(torch)
+
+    # the selftest size through the eval CLI, card against CPU
+    sexp = ovis_exp(OVISSelftestExp)
+    build = os.path.join(HERE, "build", "ovis_phase")
+    os.makedirs(build, exist_ok=True)
+    weights = os.path.join(build, "ovis_selftest_seeded.pth")
+    torch.save(random_init_(sexp.get_model(device="cpu"), sexp.seed).state_dict(), weights)
+    opts = ["data_dir", sexp.data_dir, "ovis_name", sexp.ovis_name,
+            "ovis_val_json", sexp.ovis_val_json, "ovis_train_json", sexp.ovis_train_json]
+    out = []
+    for d in ("cpu", str(card(torch))):
+        rows_d = []
+        out.append((eval_cli(["--exp", "ovis_selftest", "--dataset", "ovis", "-c", weights,
+                              "--device", d, *opts], rows_d), rows_d))
+    os.remove(weights)
+    worst, n = match_rows(out[0][1], out[1][1], 1e-4, 1e-4)
+    stats_err = float(np.abs(np.subtract(out[0][0]["stats"], out[1][0]["stats"])).max())
+    emit({"phase": "ovis", "part": "selftest_card_against_cpu",
+          "config": "ovis_selftest: depth 0.33, width 0.125, P=6, 2+6 frames, 128 px",
+          "windows": len(out[1][1]), "detections": n, "max_abs_err": worst,
+          "stats_max_abs_err": stats_err, "tolerance": {"detections": 1e-4, "stats": 1e-4},
+          "pass": stats_err <= 1e-4})
+    if stats_err > 1e-4:
+        raise AssertionError(f"ovis selftest: the card's stats differ from the CPU's by {stats_err}")
+    emit({"phase": "ovis", "seconds": time.time() - t_phase,
+          "rows": {n: {k: v for k, v in r.items() if "ms" in k} for n, r in rows.items()}})
+    return {"rows": rows, "launches": recipe_launches}
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
-          "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads")
+          "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
+          "ovis", "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
+
+
+def below_bound(rows):
+    """Each time in the kernels line's rows (and in the records nested in
+    them) that is less than its own `bound_ms`: a reading the card cannot
+    give, so a lost or miscounted record."""
+    out = []
+
+    def walk(path, rec):
+        if not isinstance(rec, dict):
+            return
+        if "ms" in rec and "bound_ms" in rec and rec["ms"] < rec["bound_ms"]:
+            out.append(f"{path}: ms {rec['ms']} < bound_ms {rec['bound_ms']}")
+        for k, v in rec.items():
+            walk(f"{path}.{k}", v)
+
+    for name, row in rows.items():
+        walk(name, row)
+    return out
 
 
 def kernel_counters():
@@ -4159,6 +4985,8 @@ def phase_main(torch, name):
     emit = lambda obj: plain({"tree": HERE, **obj})   # noqa: E731
     for part in PHASE_PARTS.get(name, (name,)):
         globals()[f"{part}_phase"](torch, kernel_counters())
+    emit({"phase": "trace", "traces_losing_lead_in_records": len(LEAD_IN_LOST),
+          "lead_in_records_lost": LEAD_IN_LOST})
 
 
 def main() -> int:
@@ -4222,6 +5050,9 @@ def main() -> int:
     heads = heads_phase(torch, counters)
     rows["nms_prenms"] = heads["nms_prenms"]
     launches.update(heads["launches"])
+    for recipe in (still_phase(torch, counters), ovis_phase(torch, counters)):
+        rows.update(recipe["rows"])
+        launches.update(recipe["launches"])
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}
@@ -4239,9 +5070,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in HEAD_ROWS.items()}}
-    for name, (_, shape) in HEAD_ROWS.items():
+    shaped = {**HEAD_ROWS, **RECIPE_ROWS}
+    sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in shaped.items()}}
+    for name, (_, shape) in shaped.items():
         rows[name]["shape"] = shape
+    below = below_bound(rows)
+    if below:
+        raise AssertionError(f"times under their bound: {below}")
+    emit({"phase": "trace", "traces_losing_lead_in_records": len(LEAD_IN_LOST),
+          "lead_in_records_lost": LEAD_IN_LOST})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **rows[name]}

@@ -20,7 +20,9 @@ train-mode-BN selftest steps on the card against the CPU, at chip_smoke.py's
 bounds; the proposal-patch towers against the dense ones at the selftest
 size (features at JAX's tolerances of the dense path with fp64 convs,
 detections 1e-4 as sets); the NMS at
-the pre-NMS call's shape (32, 750), exactly.
+the pre-NMS call's shape (32, 750), exactly; postprocess_dense at (8,
+2048) exactly, and the OVIS fixture's warps equal to cv2's recorded
+pixels.
 """
 
 import numpy as np
@@ -619,3 +621,38 @@ def test_cuda_pre_nms_shape_equals_plain(card):
     want = pnms.batched_class_aware_nms(*args, 0.75)
     assert torch.equal(got.cpu(), want)
     assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.65, 0.5])
+def test_cuda_postprocess_dense_at_8x2048_equals_plain(card, thr):
+    """postprocess_dense on 8 images of 4200 anchors (so that its top 2048
+    candidates enter NMS, 25 classes) at yolox_l's and yoloxl_ovis's IoU:
+    one launch of the NMS kernels, whose detections equal the plain
+    version's on a host copy, element for element."""
+    from tscd_torch.ops.postprocess import postprocess_dense
+    rng = np.random.default_rng(16)
+    B, A, C = 8, 4200, 25
+    centres = rng.uniform(40, 560, (B, 60, 2))
+    xy = np.take_along_axis(centres, rng.integers(0, 60, (B, A))[..., None], 1) \
+        + rng.normal(0, 8, (B, A, 2))
+    dec = np.concatenate([xy, rng.uniform(20, 160, (B, A, 2)),
+                          rng.uniform(0, 1, (B, A, 1 + C)) ** 2], -1).astype(np.float32)
+    x = torch.from_numpy(dec)
+    n0 = pkn.nms_sorted.launches
+    got = postprocess_dense(x.to(card), C, 0.01, thr, 100)
+    assert pkn.nms_sorted.launches == n0 + 1
+    want = postprocess_dense(x, C, 0.01, thr, 100)
+    assert int(want.mask.sum()) == B * 100
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_machine_warps_the_fixture_as_cv2(card):
+    """The port's warp (host C++) of each OVIS fixture frame's mosaic
+    canvas equals cv2.warpAffine's recorded pixels (sha256), on the card's
+    machine, which has no cv2."""
+    import chip_smoke
+    rec = chip_smoke.warp_checks()
+    assert rec["pass"] and rec["sha256_match"] == rec["frames"] == 32, rec["mismatched"]

@@ -1,1 +1,2 @@
-"""The streaming eval step of the port's models."""
+"""The streaming eval step and the trainers (still-image YOLOX, stage-2
+TSCD) of the port."""

@@ -8,6 +8,8 @@
 //   tscd_resize_linear            cv2.resize(INTER_LINEAR), uint8 HWC
 //   tscd_resize_linear_f32        the same on the image cast to float32
 //                                 (IPP's path in OpenCV), float32 out
+//   tscd_warp_affine              cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT),
+//                                 uint8 HWC, 3 channels
 //   tscd_jpeg_info / _decode      cv2.imread(path): baseline JPEG -> BGR uint8
 //                                 (libjpeg-turbo's islow IDCT, fancy
 //                                 upsampling and YCbCr -> RGB arithmetic)
@@ -908,6 +910,65 @@ void to_bgr(const Jpeg& j, uint8_t* out) {
   }
 }
 
+// ---------------------------------------------------------- warpAffine ----
+// cv2 5.0.0's warpAffine, INTER_LINEAR, BORDER_CONSTANT, uint8 with 3
+// channels (imgproc/src/warp_kernels.simd.hpp, the AVX2 build): the matrix
+// inverted in double as warpAffine inverts it, then rounded to float. Each
+// output pixel reads the source at (sx, sy) in float: in blocks of 16
+// pixels a row (the vector loop) sx = fma(M0, x, row_x) with row_x =
+// y * M1 + M2 rounded once; the last width % 16 pixels (the scalar tail,
+// whose x * M0 + y * M1 + M2 the compiler contracted) sx = fma(x, M0,
+// y * M1) + M2. The 4 neighbours (the border value outside the source) are
+// blended in float, across with fma(alpha, p01 - p00, p00), then down, and
+// rounded half to even.
+void warp_affine_linear(const uint8_t* src, int sh, int sw, int64_t sstride, uint8_t* dst,
+                        int dh, int dw, const double* Mf, int border) {
+  double D = Mf[0] * Mf[4] - Mf[1] * Mf[3];
+  D = D != 0 ? 1. / D : 0;
+  const double a11 = Mf[4] * D, a22 = Mf[0] * D, a12 = Mf[1] * -D, a21 = Mf[3] * -D;
+  const double b1 = -a11 * Mf[2] - a12 * Mf[5];
+  const double b2 = -a21 * Mf[2] - a22 * Mf[5];
+  const float m[6] = {static_cast<float>(a11), static_cast<float>(a12), static_cast<float>(b1),
+                      static_cast<float>(a21), static_cast<float>(a22), static_cast<float>(b2)};
+  const int vec_end = dw - dw % 16;
+  const float bv = static_cast<float>(border);
+  auto at = [&](int yy, int xx, int c) -> float {
+    if (yy < 0 || yy >= sh || xx < 0 || xx >= sw) return bv;
+    return static_cast<float>(src[static_cast<int64_t>(yy) * sstride + 3 * xx + c]);
+  };
+  for (int y = 0; y < dh; y++) {
+    const float fy = static_cast<float>(y);
+    const float row_x = fy * m[1] + m[2], row_y = fy * m[4] + m[5];
+    uint8_t* o = dst + static_cast<int64_t>(y) * dw * 3;
+    for (int x = 0; x < dw; x++) {
+      const float fx = static_cast<float>(x);
+      float sx, sy;
+      if (x < vec_end) {
+        sx = std::fmaf(m[0], fx, row_x);
+        sy = std::fmaf(m[3], fx, row_y);
+      } else {
+        sx = std::fmaf(fx, m[0], fy * m[1]) + m[2];
+        sy = std::fmaf(fx, m[3], fy * m[4]) + m[5];
+      }
+      const float flx = std::floor(sx), fly = std::floor(sy);
+      if (!(flx >= -2.f && flx <= sw + 1.f && fly >= -2.f && fly <= sh + 1.f)) {
+        o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = sat_u8(border);   // every neighbour outside
+        continue;
+      }
+      const int ix = static_cast<int>(flx), iy = static_cast<int>(fly);
+      const float alpha = sx - flx, beta = sy - fly;
+      for (int c = 0; c < 3; c++) {
+        const float p00 = at(iy, ix, c), p01 = at(iy, ix + 1, c);
+        const float p10 = at(iy + 1, ix, c), p11 = at(iy + 1, ix + 1, c);
+        const float q0 = std::fmaf(alpha, p01 - p00, p00);
+        const float q1 = std::fmaf(alpha, p11 - p10, p10);
+        const float v = std::nearbyint(std::fmaf(beta, q1 - q0, q0));
+        o[3 * x + c] = static_cast<uint8_t>(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+      }
+    }
+  }
+}
+
 int report(const std::string& msg, char* err, int errlen) {
   if (err && errlen > 0) std::snprintf(err, static_cast<size_t>(errlen), "%s", msg.c_str());
   return 1;
@@ -965,6 +1026,16 @@ int tscd_resize_linear_f32(const uint8_t* src, int sh, int sw, int64_t sstride,
                            float* dst, int dh, int dw, int cn) {
   if (sh < 2 || sw < 2 || dh <= 0 || dw <= 0 || cn <= 0 || dw > 8 * sw) return 1;
   resize_linear_f32(src, sh, sw, sstride, dst, dh, dw, cn);
+  return 0;
+}
+
+// cv2.warpAffine(src (sh, sw, 3), M (2 x 3, row major), (dw, dh),
+// borderValue=(border,) * 3) -> dst (dh, dw, 3); 1 for an empty size or a
+// border outside 0..255.
+int tscd_warp_affine(const uint8_t* src, int sh, int sw, int64_t sstride, uint8_t* dst, int dh,
+                     int dw, const double* M, int border) {
+  if (sh <= 0 || sw <= 0 || dh <= 0 || dw <= 0 || border < 0 || border > 255) return 1;
+  warp_affine_linear(src, sh, sw, sstride, dst, dh, dw, M, border);
   return 0;
 }
 

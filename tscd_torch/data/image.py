@@ -6,10 +6,13 @@
     resize_linear_float(img, h, w) the same on img.astype(float32): float32
     bgr2hsv(img) / hsv2bgr(img)    cv2.cvtColor(COLOR_BGR2HSV / _HSV2BGR)
     augment_hsv(img, gains)        transforms.py:augment_hsv with given gains
+    warp_affine(img, M, (w, h))    cv2.warpAffine(img, M, (w, h), INTER_LINEAR,
+                                   borderValue=(114, 114, 114))
+    rotation_matrix_2d(...)        cv2.getRotationMatrix2D, in numpy
 
 Each equals the cv2 5.0.0 call bit for bit, as the x86-64 wheel computes it
 (libjpeg-turbo 3.1.2; resize's SSE loops, and IPP's for float32; the HSV
-inverse's AVX2 loop):
+inverse's AVX2 loop; warpAffine's float kernels):
 tests/test_torch_port_image.py holds them to cv2. The decoder reads
 baseline JPEGs (8-bit, Huffman, one scan; grayscale or YCbCr at 4:4:4,
 4:2:2 or 4:2:0) and raises on any other kind, on an EXIF orientation
@@ -18,7 +21,8 @@ truncated file in). Every call releases the GIL.
 """
 
 import ctypes
-from typing import Sequence
+import math
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +43,7 @@ _NATIVE = HostLibrary(
         "tscd_hsv_jitter": ([_P, _L, _L, _I, _I, _I], _I),
         "tscd_resize_linear": ([_P, _I, _I, _L, _P, _I, _I, _I], _I),
         "tscd_resize_linear_f32": ([_P, _I, _I, _L, _P, _I, _I, _I], _I),
+        "tscd_warp_affine": ([_P, _I, _I, _L, _P, _I, _I, _P, _I], _I),
         "tscd_jpeg_info": ([_P, _L, _P, _P, ctypes.c_char_p, _I], _I),
         "tscd_jpeg_decode": ([_P, _L, _P, _I, _I, ctypes.c_char_p, _I], _I),
     })
@@ -140,3 +145,29 @@ def augment_hsv(img: np.ndarray, gains: Sequence[int]) -> None:
                          f"uint8 image, got {img.dtype} {img.shape}")
     h, s, v = (int(g) for g in gains)
     load_library().tscd_hsv_jitter(_ptr(img), img.shape[0], img.shape[1], h, s, v)
+
+
+def warp_affine(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int],
+                border: int = 114) -> np.ndarray:
+    """cv2.warpAffine(img, M, dsize=(w, h), borderValue=(border,) * 3) for
+    an (H, W, 3) uint8 image and a (2, 3) matrix: bilinear, constant border,
+    the output pixel (x, y) read at M^-1 (x, y)."""
+    img = _bgr(img, "warp_affine")
+    m = np.ascontiguousarray(np.asarray(M, np.float64).reshape(2, 3))
+    w, h = (int(v) for v in dsize)
+    out = np.empty((h, w, 3), np.uint8)
+    if load_library().tscd_warp_affine(_ptr(img), img.shape[0], img.shape[1], img.strides[0],
+                                       _ptr(out), h, w, _ptr(m), int(border)):
+        raise ValueError(f"warp_affine {img.shape} -> {(h, w)}, border {border}")
+    return out
+
+
+def rotation_matrix_2d(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center, angle, scale): the (2, 3) float64
+    matrix of a rotation by `angle` degrees (counter-clockwise) about
+    `center` (a float32 point, as cv2's Point2f), scaled by `scale`."""
+    a = angle * (math.pi / 180)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = (float(np.float32(c)) for c in center)
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)

@@ -6,8 +6,9 @@ frame index as time, the HSV jitter and horizontal flip), and the
 multiscale resize.
 
 Frames are read, letterboxed and jittered by `data.image`, whose host C++
-gives cv2's pixels bit for bit without OpenCV. Not ported yet: the OVIS
-and Argoverse datasets.
+gives cv2's pixels bit for bit without OpenCV. OVIS and Argoverse-HD
+video (`OVISVideoDataset`, `ArgoverseVideoDataset`) read per-frame COCO
+json grouped into videos by `sid`.
 """
 
 import os
@@ -216,6 +217,75 @@ class VIDDataset:
 
     def frame_index(self, rel_path: str) -> int:
         return frame_index(rel_path)
+
+
+class OVISVideoDataset:
+    """OVIS per-frame COCO-json video dataset (counterpart of JAX's
+    OVISVideoDataset, tscd_tpu/data/vid.py:259; reference OVIS, vid.py:560):
+    the json's images grouped into videos by their `sid` (0 where absent),
+    each video's file names sorted, a video shorter than lframe + gframe
+    padded by repeating its last frame, and windows built as JAX builds
+    them (`build_sequences`, uncapped). Labels are each frame's boxes
+    clipped to the image and kept where their area is positive, scaled by
+    the letterbox ratio for img_size. Frames load from
+    data_dir/name/file_name. Every annotation is read up front, so
+    `load_frame` is thread-safe."""
+
+    def __init__(self, json_path: str, data_dir: str, name: str = "",
+                 img_size=(576, 576), lframe=4, gframe=12, val=False,
+                 mode="random", training=False):
+        from ..eval.coco_api import COCO
+        from .coco import load_coco_labels
+        self.img_size = tuple(img_size)
+        self.data_dir = data_dir
+        self.name = name
+        self.val = val
+        self.training = training
+        self.coco = COCO(json_path)
+        raw = self.coco.dataset
+        self.class_ids = sorted(self.coco.getCatIds())
+        videos: List[List[str]] = [[] for _ in range(max(len(raw.get("videos", [])), 1))]
+        self.name_id = {}
+        for im in raw["images"]:
+            videos[im.get("sid", 0)].append(im["file_name"])
+            self.name_id[im["file_name"]] = im["id"]
+        for v in videos:
+            v.sort()
+            while 0 < len(v) < lframe + gframe:
+                v.append(v[-1])
+        self.annotations = {}
+        for im in raw["images"]:
+            res, (h, w), file_name = load_coco_labels(self.coco, im["id"], self.class_ids)
+            res[:, :4] *= min(self.img_size[0] / h, self.img_size[1] / w)
+            self.annotations[im["id"]] = res, (h, w), file_name
+        label_counts = {fn: len(self.annotations[i][0]) for fn, i in self.name_id.items()}
+        self.res = build_sequences([v for v in videos if v], lframe, gframe, mode=mode,
+                                   training=training, label_counts=label_counts, val=val,
+                                   total_cap=10 ** 9)
+        self.lframe, self.gframe = lframe, gframe
+
+    def __len__(self):
+        return len(self.res)
+
+    def load_frame(self, file_name: str):
+        """-> (resized HWC uint8 BGR image, scaled (N, 5) labels, (h, w) of
+        the source), as VIDDataset.load_frame."""
+        annos, img_info, img_path = self.annotations[self.name_id[file_name]]
+        img = image.imread(os.path.join(self.data_dir, self.name, img_path))
+        h, w = img.shape[:2]
+        r = min(self.img_size[0] / h, self.img_size[1] / w)
+        return image.resize_linear(img, int(h * r), int(w * r)), annos.copy(), img_info
+
+    def frame_index(self, file_name: str) -> int:
+        return frame_index(file_name)
+
+
+class ArgoverseVideoDataset(OVISVideoDataset):
+    """Argoverse-HD video (reference Arg_VID, vid.py:345): OVIS's container,
+    per-frame COCO json grouped by `sid`, with 8 classes."""
+
+    ARGOVERSE_CLASSES = ("person", "bicycle", "car", "motorcycle", "bus",
+                         "truck", "traffic_light", "stop_sign")
 
 
 def multiscale_resize(imgs: np.ndarray, labels: np.ndarray,

@@ -66,7 +66,10 @@ class TSCDExp(BaseExp):
         self.val_seq_path = "./yolox/data/datasets/val_seq.npy"
         self.train_seq_path = "./yolox/data/datasets/train_seq.npy"
         self.anno_cache = ""
-        self.dataset_name = "vid"       # vid (OVIS: ROADMAP queue 1 item 4)
+        self.dataset_name = "vid"       # vid | ovis (tscd_base.py:129-132)
+        self.ovis_train_json = ""
+        self.ovis_val_json = ""
+        self.ovis_name = ""
         # stage-2 training (tscd_base.py:97-120, yolox_base.py:56-80)
         self.lframe = 4
         self.gframe = 12
@@ -243,18 +246,29 @@ class TSCDExp(BaseExp):
                           stem_lr_prefixes=self.stem_lr_prefixes(),
                           stem_lr_ratio=self.stem_lr_ratio)
 
-    def get_train_dataset(self):
-        """The training windows (tscd_base.py:_vid_dataset, training)."""
-        from ..data.vid import VIDDataset
+    def _vid_dataset(self, val: bool, lframe: int, gframe: int):
+        """The train (val False) or val windows (tscd_base.py:196-216): an
+        OVISVideoDataset on the OVIS json where dataset_name is "ovis",
+        else a VIDDataset on the seq lists."""
+        from ..data.vid import OVISVideoDataset, VIDDataset
+        size = self.test_size if val else self.input_size
+        if self.dataset_name == "ovis":
+            return OVISVideoDataset(
+                json_path=self.ovis_val_json if val else self.ovis_train_json,
+                data_dir=self.data_dir, name=self.ovis_name, img_size=size,
+                lframe=lframe, gframe=gframe, val=val, mode=self.mode, training=not val)
         if self.dataset_name != "vid":
-            raise NotImplementedError(
-                f"dataset {self.dataset_name!r}: the port reads ImageNet VID only")
+            raise ValueError(f"dataset_name {self.dataset_name!r}: 'vid' or 'ovis'")
         return VIDDataset(
-            file_path=self.train_seq_path, img_size=self.input_size,
-            lframe=self.lframe, gframe=self.gframe, val=False, mode=self.mode,
-            dataset_pth=self.data_dir, tnum=self.tnum,
-            local_stride=self.local_stride, cache_file=self.anno_cache,
-            training=True)
+            file_path=self.val_seq_path if val else self.train_seq_path, img_size=size,
+            lframe=lframe, gframe=gframe, val=val, mode=self.mode, dataset_pth=self.data_dir,
+            tnum=self.tnum, traj_linking=val and self.traj_linking,
+            local_stride=self.local_stride, cache_file=self.anno_cache, training=not val,
+            formal=val)
+
+    def get_train_dataset(self):
+        """The training windows."""
+        return self._vid_dataset(False, self.lframe, self.gframe)
 
     def get_data_loader(self, no_aug: bool = False, pin_memory: bool = False,
                         rng: Optional[np.random.Generator] = None,
@@ -280,20 +294,11 @@ class TSCDExp(BaseExp):
     def get_eval_loader(self, lframe: Optional[int] = None,
                         gframe: Optional[int] = None,
                         pin_memory: bool = False):
-        """The val windows (tscd_base.py:223). `pin_memory` for a CUDA
+        """The val windows (tscd_base.py:223), VID or OVIS as
+        `dataset_name` says. `pin_memory` for a CUDA
         predict device: windows arrive in pinned memory."""
-        from ..data.vid import VIDDataset, WindowLoader
-        if self.dataset_name != "vid":
-            raise NotImplementedError(
-                f"dataset {self.dataset_name!r}: the port reads ImageNet VID "
-                "only (ROADMAP queue 1 item 4)")
-        ds = VIDDataset(
-            file_path=self.val_seq_path, img_size=self.test_size,
-            lframe=lframe or self.lframe_val, gframe=gframe or self.gframe_val,
-            val=True, mode=self.mode, dataset_pth=self.data_dir,
-            tnum=self.tnum, traj_linking=self.traj_linking,
-            local_stride=self.local_stride, cache_file=self.anno_cache,
-            formal=True)
+        from ..data.vid import WindowLoader
+        ds = self._vid_dataset(True, lframe or self.lframe_val, gframe or self.gframe_val)
         dtype = np.uint8 if self.eval_uint8_transport else np.float32
         return WindowLoader(ds, img_dtype=dtype, pin_memory=pin_memory)
 

@@ -2,12 +2,14 @@
 tscd_tpu/ops/postprocess.py), batched over a leading frame axis.
 
 Detection row convention: (x1, y1, x2, y2, obj, score, cls).
+`postprocess_dense` is the still-image detector's (YOLOX).
 """
 
 from typing import NamedTuple
 
 import torch
 
+from .boxes import box_cxcywh_to_xyxy
 from .nms import batched_class_aware_nms, top_k
 
 
@@ -68,3 +70,32 @@ def postprocess_best_class(boxes: torch.Tensor, obj: torch.Tensor,
     return Detections(_take(boxes, pick), _take(obj, pick),
                       _take(cls_conf, pick), _take(cls_id, pick),
                       out_scores > -float("inf"))
+
+
+DENSE_CANDIDATES = 2048     # JAX's cap on the candidates that enter NMS
+
+
+def postprocess_dense(decoded: torch.Tensor, num_classes: int, conf_thre: float = 0.7,
+                      nms_thre: float = 0.45, out_k: int = 100) -> Detections:
+    """Still-image postprocess (tscd_tpu/ops/postprocess.py:postprocess_dense,
+    yolox/utils/boxes.py:33) on decoded (B, A, 5 + C) predictions: each
+    anchor's best class (the first maximum), the score obj x cls gate at
+    conf_thre, the top min(2048, A) scores (ties to the lower anchor),
+    class-aware NMS over them (the hand NMS kernels at (B, 2048)), then the
+    top out_k survivors. Fixed shapes: mask marks the real rows."""
+    boxes = box_cxcywh_to_xyxy(decoded[..., :4])
+    obj = decoded[..., 4]
+    cls_scores = decoded[..., 5:5 + num_classes]
+    cls_conf, cls_id = cls_scores.amax(-1), cls_scores.argmax(-1)
+    score = obj * cls_conf
+    ninf = torch.full_like(score, -float("inf"))
+    cand_scores, cand = top_k(torch.where(score >= conf_thre, score, ninf),
+                              min(DENSE_CANDIDATES, score.shape[1]))
+    cand_valid = cand_scores > -float("inf")
+    keep = batched_class_aware_nms(_take(boxes, cand), cand_scores, _take(cls_id, cand),
+                                   cand_valid, nms_thre)
+    surv = torch.where(keep, cand_scores, torch.full_like(cand_scores, -float("inf")))
+    out_scores, pick = top_k(surv, min(out_k, surv.shape[1]))
+    src = torch.gather(cand, 1, pick)
+    return Detections(_take(boxes, src), _take(obj, src), _take(cls_conf, src),
+                      _take(cls_id, src), out_scores > -float("inf"))

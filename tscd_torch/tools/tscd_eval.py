@@ -10,6 +10,8 @@ given) and prints mAP and AP50. `-c` takes the port's own state_dict
 `.msgpack` (variables, or a JAX training checkpoint's EMA weights); keys
 of reference modules the port has no counterpart for are skipped, a
 missing key raises. `--tnum N` evaluates the first N val windows only; -1 all.
+`--dataset ovis` reads the exp's OVIS json (`dataset_name`), as JAX's
+flag does.
 Exp overrides (`key value` pairs) go after every flag.
 """
 
@@ -26,8 +28,10 @@ def make_parser():
     src.add_argument("-f", "--exp_file", type=str, default=None,
                      help="exp file defining Exp (a tscd_torch.exp.TSCDExp)")
     src.add_argument("--exp", type=str, default=None,
-                     help="built-in exp: tscd_large (default), tscd_base or selftest")
+                     help="built-in exp: tscd_large (default), tscd_base, "
+                     "ovis_tscd_large, ovis_tscd_base or selftest")
     parser.add_argument("-c", "--ckpt", type=str, required=True)
+    parser.add_argument("--dataset", type=str, default=None, choices=["vid", "ovis"])
     parser.add_argument("--lframe", type=int, default=None)
     parser.add_argument("--gframe", type=int, default=None)
     parser.add_argument("--tnum", type=int, default=-1)
@@ -49,6 +53,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else "tscd_large"))
     exp.merge(args.opts)
+    if args.dataset:
+        exp.dataset_name = args.dataset
     if args.lframe is not None:
         exp.lframe_val = args.lframe
     if args.gframe is not None:

@@ -8,7 +8,9 @@ Trains on the card (or the device given) in fp32, as the exp sets it:
 `window_batch` windows a step and `grad_accum`, `fix_bn` (else train-mode
 BatchNorm), `stop_backbone_grad` and `remat_backbone` (e.g. the overrides
 `window_batch 2 fix_bn False`). `-c` loads initial weights, shape
-tolerant (a port or reference `.pth`, or a JAX `.msgpack`); `--resume`
+tolerant (a port or reference `.pth`, or a JAX `.msgpack`): the OVIS
+recipe's stage 2 starts from stage 1's YOLOX checkpoint (`tools/train.py`)
+so, taking the tensors JAX's shape-tolerant loader takes; `--resume`
 continues from `<output_dir>/<exp_name>/latest_ckpt.pth` (or `-c`, which
 may be a JAX trainer's `latest_ckpt.msgpack`), momentum included; `-e N`
 starts at epoch N. Exp overrides (`key value` pairs) go after
@@ -24,7 +26,8 @@ def make_parser():
     src.add_argument("-f", "--exp_file", type=str, default=None,
                      help="exp file defining Exp (a tscd_torch.exp.TSCDExp)")
     src.add_argument("--exp", type=str, default=None,
-                     help="built-in exp: tscd_large (default), tscd_base or selftest")
+                     help="built-in exp: tscd_large (default), tscd_base, "
+                     "ovis_tscd_large, ovis_tscd_base or selftest")
     parser.add_argument("-expn", "--experiment-name", type=str, default=None)
     parser.add_argument("-c", "--ckpt", type=str, default=None,
                         help="initial weights, or the checkpoint to resume")

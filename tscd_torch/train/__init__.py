@@ -1,2 +1,2 @@
-"""Stage-2 training: SimOTA losses, LR schedules, grouped SGD, EMA,
-checkpoints and the train step."""
+"""Training: SimOTA losses (YOLOX and stage-2 TSCD), LR schedules, grouped
+SGD, EMA, checkpoints and the train steps."""

@@ -1,5 +1,6 @@
-"""TSCD stage-2 losses (counterpart of tscd_tpu/train/losses.py:
-tscd_loss; reference yolo_head.py:267-433 and tscd_head.py:1008).
+"""YOLOX and TSCD stage-2 losses (counterpart of tscd_tpu/train/losses.py:
+yolox_loss and tscd_loss; reference yolo_head.py:267-433 and
+tscd_head.py:1008).
 
 A pure function of the head's outputs and the padded labels: SimOTA
 assigns targets (no gradient), then the base detector's IoU, objectness
@@ -144,5 +145,44 @@ def tscd_loss(head_out: Dict[str, Any], labels: torch.Tensor,
         "loss_refined_cls": loss_refined_cls,
         "loss_matched_obj": loss_matched_obj,
         "loss_matched_iou": IOU_MATCH_WEIGHT * loss_matched_iou,
+        "num_fg": tgt.num_fg.sum() / tgt.num_gt.sum().clamp(min=1.0),
+    }
+
+
+YOLOX_REG_WEIGHT = 5.0
+
+
+def yolox_loss(raw_outputs: torch.Tensor, labels: torch.Tensor,
+               hw: Sequence, strides: Sequence[int],
+               use_l1: bool = False) -> Dict[str, torch.Tensor]:
+    """Still-image YOLOX loss (losses.py:yolox_loss): total = 5 iou + obj +
+    cls (+ l1 on the raw reg outputs in grid units with `use_l1`), each
+    summed over the batch and divided by its SimOTA fg count, clamped at 1.
+    raw_outputs (B, A, 5 + C); labels (B, G, 5) [cls, cx, cy, w, h] padded
+    with zero rows."""
+    f32 = torch.float32
+    raw = raw_outputs.to(f32)
+    decoded = decode_outputs(raw, hw, strides)
+    bbox_preds = decoded[..., :4]
+    obj_logits = raw[..., 4]
+    cls_logits = raw[..., 5:]
+    gt_boxes, gt_classes, gt_valid = labels_to_padded(labels.to(f32))
+    tgt = simota_assign(bbox_preds, obj_logits, cls_logits, gt_boxes, gt_classes,
+                        gt_valid, *anchor_centers(hw, strides, raw.device))
+    num_fg = tgt.num_fg.sum().clamp(min=1.0)
+    fg = tgt.fg_mask.to(f32)
+    loss_iou = (iou_loss_cxcywh(bbox_preds, tgt.reg_target) * fg).sum() / num_fg
+    loss_obj = bce_with_logits(obj_logits, tgt.obj_target).sum() / num_fg
+    loss_cls = (bce_with_logits(cls_logits, tgt.cls_target).sum(-1) * fg).sum() / num_fg
+    if use_l1:
+        loss_l1 = ((raw[..., :4] - tgt.l1_target).abs().sum(-1) * fg).sum() / num_fg
+    else:
+        loss_l1 = torch.zeros((), device=raw.device)
+    return {
+        "total_loss": YOLOX_REG_WEIGHT * loss_iou + loss_obj + loss_cls + loss_l1,
+        "iou_loss": YOLOX_REG_WEIGHT * loss_iou,
+        "conf_loss": loss_obj,
+        "cls_loss": loss_cls,
+        "l1_loss": loss_l1,
         "num_fg": tgt.num_fg.sum() / tgt.num_gt.sum().clamp(min=1.0),
     }

@@ -1,18 +1,20 @@
-"""One stage-2 train step (counterpart of tscd_tpu/train/step.py:
-make_tscd_train_step and the step of tscd_tpu/core/tscd_trainer.py:
-149-252): forward, tscd_loss, backward, grouped SGD, EMA, over one
-window or a batch of B windows. The matcher starts each window from a
-fresh state (resume=False), and within a window its bank carries
-gradients across the local frames."""
+"""The train steps (counterpart of tscd_tpu/train/step.py): the still-image
+YOLOX step (`yolox_train_step`, make_yolox_train_step), and the stage-2
+step (`train_step`, make_tscd_train_step and the step of
+tscd_tpu/core/tscd_trainer.py:149-252): forward, loss, backward, grouped
+SGD, EMA. In the stage-2 step the matcher starts each window from a fresh
+state (resume=False), and within a window its bank carries gradients
+across the local frames."""
 
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Union
 
 import torch
 
 from ..models.tscd import TSCD
+from ..models.yolox import YOLOX
 from .ema import ModelEMA
-from .losses import tscd_loss
+from .losses import tscd_loss, yolox_loss
 from .optim import GroupedSGD
 
 
@@ -21,7 +23,7 @@ class TrainState:
     """The model (its parameters and buffers), the optimizer (its
     momentum, update count and the fp32 masters of a bf16 model) and the
     EMA."""
-    model: TSCD
+    model: Union[TSCD, YOLOX]
     optimizer: GroupedSGD
     ema: ModelEMA
 
@@ -37,7 +39,7 @@ class TrainState:
         return {**self.model.state_dict(), **self.optimizer.masters}
 
 
-def init_train_state(model: TSCD, optimizer: GroupedSGD,
+def init_train_state(model: Union[TSCD, YOLOX], optimizer: GroupedSGD,
                      ema_decay: float = 0.9998) -> TrainState:
     return TrainState(model, optimizer, ModelEMA(model, ema_decay, optimizer.masters))
 
@@ -98,3 +100,46 @@ def train_step(state: TrainState, frames: torch.Tensor, labels: torch.Tensor,
                 buffers[k].copy_(v / B)
     state.ema.update(model, state.step, state.optimizer.masters)
     return {k: v / B for k, v in sums.items()}
+
+
+def yolox_train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
+                     strides: Sequence[int] = (8, 16, 32), use_l1: bool = False,
+                     grad_accum: int = 1) -> Dict[str, torch.Tensor]:
+    """One still-image update (make_yolox_train_step): images (B, H, W, 3)
+    fp32 or uint8 and labels (B, G, 5) [cls, cx, cy, w, h] on the model's
+    device; BatchNorm in train mode (flax's), the new running statistics
+    written, grouped SGD, then the EMA of the parameters and statistics.
+    Returns the loss terms as device scalars.
+
+    `grad_accum` k splits the batch into k chunks in order, as
+    scan_accum_value_and_grad does: each chunk's forward (BN on the
+    chunk's statistics, from the same running ones) and its backward of
+    loss / k, one chunk live at a time; the gradients sum, and the losses
+    and new statistics are the chunks' means."""
+    model = state.model
+    B = images.shape[0]
+    if B % grad_accum:
+        raise ValueError(f"grad_accum({grad_accum}) must divide the batch ({B})")
+    n = B // grad_accum
+    model.train()
+    model.zero_grad(set_to_none=True)
+    sums: Dict[str, torch.Tensor] = {}
+    stats: Dict[str, torch.Tensor] = {}
+    for c in range(grad_accum):
+        out = model(images[c * n:(c + 1) * n], train=True, decode=False)
+        losses = yolox_loss(out["outputs"], labels[c * n:(c + 1) * n], out["hw"], strides,
+                            use_l1=use_l1)
+        total = losses["total_loss"]
+        (total / grad_accum if grad_accum > 1 else total).backward()
+        for k, v in losses.items():
+            sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        for k, v in out["batch_stats"].items():
+            stats[k] = stats[k] + v if k in stats else v
+        del out, losses, total
+    state.optimizer.step()
+    with torch.no_grad():
+        buffers = dict(model.named_buffers())
+        for k, v in stats.items():
+            buffers[k].copy_(v / grad_accum)
+    state.ema.update(model, state.step, state.optimizer.masters)
+    return {k: v / grad_accum for k, v in sums.items()}
