@@ -196,6 +196,27 @@ Phases, each of which raises on failure (so the run exits non-zero):
              eval CLI, card against the card machine's CPU (1e-4). The
              kernels line adds the attention at B 8, the solver's and the
              NMS pair's OVIS rows, on that window's own inputs.
+ 13. yolov   the YOLOV family: (a) at the selftest size (64 px, P = 8)
+             YOLOV, YOLOV++ msa + decouple_reg, v++_large's mca, v_plus_base's
+             localagg and TSCD's localagg, card against the card machine's
+             CPU (raw outputs 1e-4 of the largest, proposals exactly, the
+             refined outputs 1e-4, localagg's aggregation in float64 on the
+             CPU's inputs LOCALAGG_F64_TOL; the card's postprocess on the
+             CPU's outputs, detections 1e-4 as sets);
+             (b) yolov_l (0 + 32 frames at 576 px, P = 30: the attention at
+             q = k = 960), v++_base_decoupleReg and v++_large windows at full
+             width from seeded weights: 3 graph replays traced (each one's
+             stem, attention and NMS launches and the attention's split
+             grid from its own device trace), 5 back to back (window ms,
+             frames/s, busy share); (c) vid_eval on the 720p fixture's files
+             with yolov_l, then the evaluator again on its captured graph
+             (local frames/s, busy share); (d) a YOLOV step at the selftest
+             size card against CPU (losses 1e-4, updates 1e-3 of the
+             largest), then yolov_l steps of 0 + 16 frames (ms, frames/s,
+             peak memory). The kernels line adds the attention at q = k =
+             960 (d 64 and 32) with its backward at q = k = 480 and the NMS
+             at the refined postprocess's (32, 900), on yolov_l's window's
+             own inputs.
 On a card, `make_predict_fn(...).dispatch` runs each window as one
 replayed CUDA graph, which runs no Python: the launches of a path are
 counted in the device trace of torch.profiler (`traced_path`), with every
@@ -296,15 +317,17 @@ def cuda_ms(torch, fn, reps, warmup=2):
 # The lead-in's kernel (torch.cuda._sleep's spin), and its launches: on
 # some of the H100's machines a trace loses the kernel records of its
 # first moments (PERF.md §7), so every trace that counts or times kernels
-# starts with these, waited for, and leaves them out of its tables.
+# starts with these, waited for, and leaves them out of its tables. One
+# machine lost up to 16 records at a trace's start, another 19 (PERF.md
+# §6): 48 short spins and a long one.
 LEAD_IN = "spin_kernel"
-LEAD_IN_LAUNCHES = 17
+LEAD_IN_LAUNCHES = 49
 # each trace's lead-in records lost, where it lost some
 LEAD_IN_LOST = []
 
 
 def lead_in(torch):
-    """16 short spins and one of about 10 ms, waited for."""
+    """LEAD_IN_LAUNCHES - 1 short spins and one of about 10 ms, waited for."""
     for _ in range(LEAD_IN_LAUNCHES - 1):
         torch.cuda._sleep(1000)
     torch.cuda._sleep(20_000_000)
@@ -454,7 +477,7 @@ def window_launches(windows, lframe, bf16, nms=2):
     return want
 
 
-def traced_path(torch, counters, run, windows, lframe, bf16, nms=2, attempts=1):
+def traced_path(torch, counters, run, windows, lframe, bf16, nms=2, attempts=1, want=None):
     """Drives the main path, `run()` (`windows` windows, each dispatched
     as a replay of the window's CUDA graph), under torch.profiler, every
     wrapper's count set to 0 just before. Returns run()'s result, the
@@ -464,8 +487,10 @@ def traced_path(torch, counters, run, windows, lframe, bf16, nms=2, attempts=1):
     launch there would be an eager fallback. A trace that holds fewer
     launches of some row and more of none is torch.profiler losing records
     (PERF.md §7): `run()` is traced again, `attempts` times in all, and the
-    number of traces it took goes on `traced_path.attempts`."""
-    want = window_launches(windows, lframe, bf16, nms)
+    number of traces it took goes on `traced_path.attempts`. `want`, where
+    given, is the launches of each row expected in place of a TSCD
+    window's."""
+    want = want or window_launches(windows, lframe, bf16, nms)
     for attempt in range(1, attempts + 1):
         for c in counters.values():
             c.launches = 0
@@ -4373,7 +4398,7 @@ def trace_lead_in_phase(torch, counters, rounds=3):
     L = exp.lframe_val
     model = random_init_(exp.get_model(device=dev), exp.seed)
     pred = make_predict_fn(model, L, exp.gframe_val, exp.nmsthre, exp.test_conf)
-    loader = exp.get_eval_loader(pin_memory=True)
+    loader = exp.get_eval_loader(pin_memory=card(torch).type == "cuda")
     first = next(iter(loader))
     pred.materialize(pred.dispatch(first["imgs"], first["time_embedding"], False, None)[0])
     nw = len(loader.dataset.res)
@@ -4933,11 +4958,544 @@ def ovis_phase(torch, counters):
     return {"rows": rows, "launches": recipe_launches}
 
 
+
+# -- phase yolov: the YOLOV family (YOLOV, YOLOV++, TSCD's localagg) ---------
+
+YOLOV_CONFIG = ("yolov_l: YOLOV-L (depth 1.0, width 1.0), 30 classes, 4 heads, P=30, eval windows "
+                "of 0 + 32 frames at 576 px (the pre-NMS at 0.75 on, MSA over 960 proposals), "
+                "training windows of 0 + 16, fp32, seeded weights")
+# rows of the kernels line at the YOLOV family's shapes: {row: (its kernel's row, the shape)}
+YOLOV_ROWS = {
+    "fused_dual_attention_msa": ("fused_dual_attention",
+                                 "yolov_l window self-attention: B 1, h 4, q = k = 960 (32 "
+                                 "frames x 30 proposals), d 64, fp32"),
+    "fused_dual_attention_msa_d32": ("fused_dual_attention",
+                                     "v++_base_decoupleReg window self-attention: B 1, h 4, "
+                                     "q = k = 960, d 32, fp32 (agg and agg_iou)"),
+    "nms_yolov_refined": ("nms", "yolov_l postprocess_refined: 32 frames x K = 900 (30 "
+                                 "proposals x 30 classes, shifted), IoU 0.5"),
+}
+# each window's hand-kernel launches: {exp: (stem, attention, NMS walks)}
+YOLOV_WINDOWS = {"yolov_l": (1, 1, 2), "v++_base_decoupleReg": (1, 2, 1), "v++_large": (1, 2, 1)}
+
+
+def yolov_exp(name, **knobs):
+    from tscd_torch.exp import get_exp_by_name
+    return exp_with(get_exp_by_name(name), **knobs)
+
+
+def _yolov_window_out(torch, exp, model, x, te):
+    """The head's dict of one window and its refined detections (the
+    eval postprocess of the model's family)."""
+    from tscd_torch.core.yolov_trainer import yolov_forward
+    from tscd_torch.models.tscd import tscd_eval_postprocess
+    from tscd_torch.models.yolov import yolov_eval_postprocess
+    L, G = exp.lframe_val, exp.gframe_val
+    with torch.no_grad():
+        if hasattr(model, "refined_frames"):
+            out = yolov_forward(model, x, L, G, te)
+            post = lambda o: yolov_eval_postprocess(   # noqa: E731
+                o, model.refined_frames(L, G), exp.num_classes, exp.nmsthre, exp.test_conf)[0]
+        else:
+            out = model(x, te, L, G)
+            post = lambda o: tscd_eval_postprocess(    # noqa: E731
+                o, L, exp.num_classes, exp.nmsthre, exp.test_conf)[0]
+    return out, post
+
+
+def _moved(out, dev):
+    """The head dict's tensors (and its proposals') on `dev`."""
+    import torch
+    from tscd_torch.models.tscd_head import FrameProposals
+    res = {}
+    for k, v in out.items():
+        if isinstance(v, FrameProposals):
+            res[k] = FrameProposals(*(t.to(dev) for t in v))
+        elif isinstance(v, torch.Tensor):
+            res[k] = v.to(dev)
+    return res
+
+
+# A localagg head's relation bias enters its logits as log(relu(b) + 1e-6),
+# whose slope reaches 1e6 near b = 0: at random weights fp32 roundings move
+# those logits by up to 1.2% of their largest (v_plus_base_localagg's
+# refined cls logits, the card against the CPU, H100 80GB HBM3 at 700 W),
+# so its refined outputs are held to this share of their largest, and the
+# aggregation is compared in float64, on the same inputs (the CPU's), on
+# the card and on the CPU, to LOCALAGG_F64_TOL of its largest
+LOCALAGG_FP32_TOL = 2e-2
+LOCALAGG_F64_TOL = 1e-6
+
+
+def localagg_f64(torch, model, args, dev):
+    """`model`'s localagg aggregation (no hand kernel: tensor ops) on a
+    float64 copy, on `dev`, on the captured call's arguments."""
+    import copy
+    agg = copy.deepcopy(model.head.agg).to(dev).double()
+    args = [a.to(dev).double() if torch.is_tensor(a) and a.is_floating_point()
+            else a.to(dev) if torch.is_tensor(a) else a for a in args]
+    with torch.no_grad():
+        return [t.cpu() for t in agg(*args)]
+
+
+def yolov_small_part(torch):
+    """(a) At the selftest size (yolov_selftest: depth 0.33, width 0.125,
+    P = 8, 64 px): YOLOV, YOLOV++ msa + decouple_reg, v++_large's mca (1 +
+    3 frames), v_plus_base's localagg and TSCD's localagg (the selftest
+    exp), each from one seeded state, one window on the card machine's CPU
+    (plain versions) and on the card (kernels): the raw outputs 1e-4 of
+    their largest, the proposals (anchors, validity) exactly, every refined
+    output 1e-4 of its largest; for localagg, whose fp32 logits are
+    ill-conditioned, the refined outputs LOCALAGG_FP32_TOL of their
+    largest and the aggregation in float64 on the CPU's inputs on both
+    (LOCALAGG_F64_TOL); the card's
+    postprocess (the NMS kernels) on the CPU's head outputs equal to the
+    CPU's detections as sets, 1e-4. Then 2 windows through each model's
+    predict function on the card (the second a graph replay): finite rows."""
+    import numpy as np
+
+    from tscd_torch.exp.tscd_large import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    plus = dict(model_family="yolov_plus", reconf=True)
+    configs = {
+        "yolov": yolov_exp("yolov_selftest"),
+        "v++_msa_decoupleReg": yolov_exp("yolov_selftest", agg_type="msa", decouple_reg=True,
+                                         **plus),
+        "v++_large_mca": yolov_exp("yolov_selftest", agg_type="mca", decouple_reg=True,
+                                   lframe_val=1, gframe_val=3, **plus),
+        "v_plus_base_localagg": yolov_exp("yolov_selftest", agg_type="localagg",
+                                          decouple_reg=False, **plus),
+        "tscd_localagg": exp_with(selftest_exp(), agg_type="localagg"),
+    }
+    recs = {}
+    for name, exp in configs.items():
+        sd = random_init_(exp.get_model(device="cpu"), exp.seed).state_dict()
+        F = exp.lframe_val + exp.gframe_val
+        rng = np.random.default_rng(9)
+        x = torch.as_tensor(rng.uniform(0, 255, (F, *exp.test_size, 3)).astype(np.float32))
+        te = torch.as_tensor(get_timing_signal_1d(np.arange(F)))
+        localagg = exp.agg_type == "localagg"
+        res, agg_args = {}, []
+        for dev in ("cpu", card(torch)):
+            model = exp.get_model(device=dev)
+            model.load_state_dict(sd)
+            hook = (model.head.agg.register_forward_hook(lambda m, a, o: agg_args.append(a))
+                    if localagg else None)
+            res[str(dev)] = (model,) + _yolov_window_out(torch, exp, model, x.to(dev), te.to(dev))
+            if hook is not None:
+                hook.remove()
+        (cpu_model, cpu, post), (model, gpu, _) = res["cpu"], res[str(card(torch))]
+        errs = {}
+        for k, v in cpu.items():
+            if k in ("raw_outputs", "decoded") or k.startswith(("refined_", "matcher_")):
+                if k == "matcher_state":
+                    continue
+                err = float((gpu[k].cpu().double() - v.double()).abs().max())
+                errs[k] = err / max(1.0, float(v.abs().max()))
+                tol = (LOCALAGG_FP32_TOL if localagg and k not in ("raw_outputs", "decoded")
+                       else 1e-4)
+                if errs[k] > tol:
+                    raise AssertionError(f"{name}: {k} on the card {err} from the CPU's "
+                                         f"(of its largest: {errs[k]} > {tol})")
+        if localagg:
+            want = localagg_f64(torch, cpu_model, agg_args[0], "cpu")
+            got = localagg_f64(torch, model, agg_args[0], card(torch))
+            errs["aggregation_float64"] = max(
+                float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got, want))
+            if errs["aggregation_float64"] > LOCALAGG_F64_TOL:
+                raise AssertionError(f"{name}: the float64 aggregation on the card "
+                                     f"{errs['aggregation_float64']} from the CPU's")
+        for f in ("idx", "valid"):
+            if not torch.equal(getattr(gpu["proposals"], f).cpu(), getattr(cpu["proposals"], f)):
+                raise AssertionError(f"{name}: the card's proposals ({f}) differ from the CPU's")
+        pred = exp.get_predict_fn(model)
+        rows = lambda d: [pred.materialize(d)]          # noqa: E731
+        worst, n = match_rows(rows(post(_moved(cpu, card(torch)))), rows(post(cpu)), 1e-4, 1e-4)
+        dets, _, _ = run_windows(torch, pred, exp, 2, 9, False)
+        finite = all(np.isfinite(r).all() and r.shape[1] == 7 for d in dets
+                     for r in pred.materialize(d))
+        if not finite:
+            raise AssertionError(f"{name}: non-finite detections on the card")
+        recs[name] = {"max_err_of_largest": errs, "postprocess_detections": n,
+                      "postprocess_max_abs_err": worst}
+    emit({"phase": "yolov", "part": "small", "configs": recs,
+          "tolerance": {"outputs": "1e-4 of the largest (localagg's refined outputs "
+                        f"{LOCALAGG_FP32_TOL}; its aggregation in float64 on the CPU's "
+                        f"inputs {LOCALAGG_F64_TOL})", "proposals": "exact",
+                        "detections": {"atol": 1e-4, "rtol": 1e-4}}, "pass": True})
+
+
+def yolov_windows_part(torch, counters):
+    """(b) yolov_l, v++_base_decoupleReg and v++_large windows at full
+    width (seeded weights, fp32, uint8 frames): a warm-up window (eager,
+    then the graph captured), 3 streamed graph replays traced (each
+    window's hand-kernel launches from its own device trace: the stem, the
+    attention, the NMS walks, no solver; the attention's split grid, which
+    names its q and k), then 5 replays back to back untraced (window ms
+    from CUDA events, frames/s, busy share). yolov_l's pre-NMS and refined
+    NMS inputs are kept from one eager window. Returns {exp: record} and
+    yolov_l's NMS calls."""
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops import nms
+    recs, calls = {}, []
+    for name, (stem, attention, walks) in YOLOV_WINDOWS.items():
+        exp = yolov_exp(name)
+        torch.cuda.reset_peak_memory_stats()
+        model = random_init_(exp.get_model(device=card(torch)), exp.seed)
+        pred = exp.get_predict_fn(model)
+        run_windows(torch, pred, exp, 1, 100, True, uint8=True)          # warm-up, capture
+        if name == "yolov_l":
+            capture_window(torch, pred, exp, None, {(nms, "nms_sorted"): calls})
+        if name == "yolov_l":
+            H, W = exp.test_size
+            P, F = model.head.num_proposals, exp.lframe_val + exp.gframe_val
+            nms_shapes = sorted([(F, min(750, sum((H // st) * (W // st)
+                                                  for st in model.head.strides))),
+                                 (F, P * exp.num_classes)])
+            # key chunks of 32, 4 heads, query tiles of 64, at q = k = F P
+            grid = (-(-F * P // 32), exp.heads, -(-F * P // 64))
+        n = 3
+        want = dict.fromkeys(TRACE_NAMES, 0)
+        want.update(focus_stem=stem * n, fused_dual_attention=attention * n, nms=walks * n)
+        (dets, lat, _), launches, prof = traced_path(
+            torch, counters, lambda: run_windows(torch, pred, exp, n, 60, True, uint8=True),
+            n, 0, False, attempts=3, want=want)
+        grids = sorted({tuple(k["grid"]) for k in trace_kernels(trace_events(
+            prof, os.path.join(HERE, "build", f"trace_{name}.json")))
+            if "fused_dual_attention_split" in k["name"]})
+        import numpy as np
+        n_det = sum(len(r) for d in dets for r in pred.materialize(d)
+                    if r.ndim == 2 and r.shape[1] == 7 and np.isfinite(r).all())
+        loop = graph_loop(torch, pred, exp, None, n=5)
+        F = exp.lframe_val + exp.gframe_val
+        R = model.refined_frames(exp.lframe_val, exp.gframe_val)
+        loop["evaluated_frames_per_s"] = R * loop["windows"] / loop["wall_s"]
+        q = model.head.num_proposals * (F if exp.agg_type != "mca" else 1)
+        recs[name] = {"frames": F, "refined_frames": R, "P": model.head.num_proposals,
+                      "traced_window_ms": lat, "launches": launches,
+                      "traces": traced_path.attempts, "attention_split_grids": grids,
+                      "attention_q": q, "detections": n_det, **loop,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if n_det == 0:
+            raise AssertionError(f"{name}: no detections")
+        emit({"phase": "yolov", "part": "window", "exp": name, **recs[name], "pass": True})
+        del pred, model
+        free_card(torch)
+    g = recs["yolov_l"]["attention_split_grids"]
+    if g != [grid]:
+        raise AssertionError(f"yolov_l's attention grids {g}: {[grid]} (q = k = F P) expected")
+    shapes = sorted(tuple(c[0].shape[:2]) for c in calls)
+    if shapes != nms_shapes:
+        raise AssertionError(f"yolov_l's NMS calls {shapes}: the pre-NMS and the refined "
+                             f"postprocess, {nms_shapes}, expected")
+    return recs, calls
+
+
+def yolov_eval_part(torch):
+    """(c) vid_eval on the 720p fixture's files (1 video of 32 frames: one
+    0 + 32 window) with yolov_l from seeded weights saved as a port .pth;
+    then the evaluator again on the same predict function (its graph
+    captured): local frames/s and the busy share of the card (dispatch
+    spans from CUDA events over the evaluation's wall time)."""
+    import numpy as np
+
+    from tscd_torch.core import yolov_trainer
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.tools import vid_eval
+    exp = yolov_exp("yolov_l")
+    build = os.path.join(HERE, "build", "yolov_phase")
+    os.makedirs(build, exist_ok=True)
+    weights = os.path.join(build, "yolov_l_seeded.pth")
+    torch.save(random_init_(exp.get_model(device="cpu"), exp.seed).state_dict(), weights)
+    video = os.path.join(HERE, FILE_FIXTURE, "vid")
+    opts = ["data_dir", video, "val_seq_path", os.path.join(video, "val_seq.npy")]
+    kept, rows = [], []
+    real = yolov_trainer.make_predict_fn
+
+    def keep(*a, **k):
+        kept.append(real(*a, **k))
+        return recording(kept[-1], rows)
+    yolov_trainer.make_predict_fn = keep
+    try:
+        t0 = time.perf_counter()
+        res = vid_eval.main(["--exp", "yolov_l", "-c", weights, "--device", str(card(torch)),
+                             *opts])
+        cli_s = time.perf_counter() - t0
+    finally:
+        yolov_trainer.make_predict_fn = real
+    os.remove(weights)
+    exp.merge(opts)
+    times = {"events": [], "dispatch_s": [], "materialize_s": [], "marks": []}
+    rows2 = []
+    loader = exp.get_eval_loader(pin_memory=card(torch).type == "cuda")
+    t0 = time.perf_counter()
+    res2 = exp.get_evaluator(loader).evaluate(recording(kept[0], rows2, times),
+                                             log=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(a.elapsed_time(b) for a, b in times["events"]) / 1e3
+    frames = sum(len(w) for w in rows2)
+    ok = (len(rows) == WINDOW_FRAMES // exp.gframe_val and len(rows[0]) == exp.gframe_val
+          and np.isfinite(res["stats"]).all()
+          and all(r.ndim == 2 and r.shape[1] == 7 for w in rows + rows2 for r in w))
+    rec = {"config": YOLOV_CONFIG, "source": "tscd_torch/data/fixtures/vid: 32 JPEG frames "
+           "1280x720", "windows": len(rows), "cli_s": cli_s, "evaluate_s": wall,
+           "local_frames": frames, "local_frames_per_s": frames / wall,
+           "device_busy_share": busy / wall, "dispatch_ms": [1e3 * t for t in times["dispatch_s"]],
+           "stats": res["stats"], "stats_second_run": res2["stats"],
+           "detections": int(sum(len(r) for w in rows for r in w)), "pass": bool(ok)}
+    emit({"phase": "yolov", "part": "eval", **rec})
+    if not ok:
+        raise AssertionError("yolov_l on the fixture files: bad windows or detections")
+    del kept
+    free_card(torch)
+
+
+def yolov_train_window(torch, exp, seed, near=True):
+    """train_window of `exp` with each frame's first 3 gts near the
+    seeded model's first 3 proposals there (as boxes_near_proposals)."""
+    import numpy as np
+
+    from tscd_torch.core.yolov_trainer import yolov_forward
+    from tscd_torch.models.tscd import random_init_
+    x, lab, te = train_window(torch, exp, seed)
+    if not near:
+        return x, lab, te
+    model = random_init_(exp.get_model(device="cpu"), exp.seed)
+    with torch.no_grad():
+        b = yolov_forward(model, x, exp.lframe, exp.gframe, te)["proposals"].boxes[:, :3].numpy()
+    rng = np.random.default_rng(seed + 1)
+    cxcywh = np.concatenate([(b[..., :2] + b[..., 2:]) / 2, b[..., 2:] - b[..., :2]], -1)
+    cxcywh[..., :2] += rng.uniform(-2, 2, cxcywh[..., :2].shape)
+    cxcywh[..., 2:] *= rng.uniform(1.1, 1.4, cxcywh[..., 2:].shape)
+    lab = lab.clone()
+    lab[:, :3, 1:] = torch.from_numpy(cxcywh.astype(np.float32))
+    return x, lab, te
+
+
+def yolov_step_state(torch, exp, dev, iters, step0):
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.step import init_train_state
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    opt = exp.get_optimizer(model, iters)
+    opt.count = step0
+    return init_train_state(model, opt, exp.ema_decay)
+
+
+def yolov_step(torch, st, exp, window):
+    from tscd_torch.core.yolov_trainer import yolov_window_loss
+    from tscd_torch.train.step import train_step
+    return train_step(st, *window, exp.lframe, exp.gframe, fix_bn=exp.fix_bn,
+                      window_loss=yolov_window_loss)
+
+
+def yolov_train_part(torch):
+    """(d) One YOLOV step (YOLOVTrainer's: fix_bn, frozen backbone, SimOTA,
+    yolov_loss, grouped SGD, EMA) at the selftest size from the same
+    seeded weights and window past warm-up, on the card machine's CPU and
+    on the card: losses 1e-4 relative, updates and EMA 1e-3 of the largest
+    update beyond the fp32 spacing. Then yolov_l at 0 + 16 frames, 576 px:
+    2 warm-up and 3 timed steps (CUDA events), frames/s, peak memory, the
+    attention's forward and backward calls a step."""
+    import numpy as np
+
+    from tscd_torch.ops.kernels import fused_attention as fa
+    exp = yolov_exp("yolov_selftest")
+    iters, step0 = 4, 5
+    window = yolov_train_window(torch, exp, 43)
+    out = {}
+    for dev in ("cpu", card(torch)):
+        st = yolov_step_state(torch, exp, dev, iters, step0)
+        before = {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()}
+        losses = yolov_step(torch, st, exp, [t.to(dev) for t in window])
+        out[str(dev)] = ({k: float(v) for k, v in losses.items()}, before,
+                    {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()},
+                    {k: v.detach().cpu().clone() for k, v in st.ema.state_dict().items()})
+    cpu, gpu = out["cpu"], out[str(card(torch))]
+    loss_err = max(abs(gpu[0][k] - v) / max(abs(v), 1e-6) for k, v in cpu[0].items())
+    trained = [k for k, v in cpu[1].items() if not k.startswith("backbone")
+               and v.is_floating_point()]
+    dmax = max(float((cpu[2][k].double() - cpu[1][k].double()).abs().max()) for k in trained)
+    upd_err = max_err(gpu[2], cpu[2], trained)
+    ema_err = max_err(gpu[3], cpu[3], [k for k, v in gpu[3].items() if v.is_floating_point()])
+    ok = (loss_err <= TRAIN_LOSS_RTOL and dmax > 0 and upd_err <= TRAIN_UPDATE_TOL * dmax
+          and ema_err <= TRAIN_UPDATE_TOL * dmax and cpu[0]["loss_refined_cls"] > 0
+          and all(np.isfinite(v) for v in gpu[0].values()))
+    emit({"phase": "yolov", "part": "train_small", "config": "yolov_selftest 0+4 frames 64px P=8",
+          "losses_card": gpu[0], "loss_max_rel_err": loss_err, "max_update": dmax,
+          "update_max_err_beyond_spacing": upd_err, "ema_max_err_beyond_spacing": ema_err,
+          "tolerance": {"losses": TRAIN_LOSS_RTOL, "updates and EMA": TRAIN_UPDATE_TOL},
+          "pass": ok})
+    if not ok:
+        raise AssertionError("yolov train_small: the card's step departs from the CPU's")
+
+    exp = yolov_exp("yolov_l")
+    st = yolov_step_state(torch, exp, card(torch), iters, step0)
+    window = [t.to(card(torch)) for t in yolov_train_window(torch, exp, 44, near=False)]
+    b0, n0 = fa.fused_dual_attention.backward_calls, fa.fused_dual_attention.launches
+    losses = {}
+    ms, wall, peak = timed_steps(torch, lambda: losses.update(yolov_step(torch, st, exp, window)),
+                                 3, warmup=2)
+    calls = ((fa.fused_dual_attention.launches - n0) / 5,
+             (fa.fused_dual_attention.backward_calls - b0) / 5)
+    F = exp.lframe + exp.gframe
+    rec = {"config": YOLOV_CONFIG, "step_ms": ms, "frames_per_s": F * len(ms) / wall,
+           "peak_mem_gb": peak, "attention_calls_a_step": {"forward": calls[0],
+                                                           "backward": calls[1]},
+           "losses": {k: float(v) for k, v in losses.items()}}
+    ok = calls == (1.0, 1.0) and all(np.isfinite(v) for v in rec["losses"].values())
+    emit({"phase": "yolov", "part": "train", **rec, "pass": ok})
+    if not ok:
+        raise AssertionError(f"yolov_l step: attention calls {calls}, losses {rec['losses']}")
+    del st, window
+    free_card(torch)
+
+
+def yolov_attention_row(torch, dev, rng, h, n, d, reps=50):
+    """The attention at q = k = n, head dim d: random inputs (20% of the
+    keys invalid) and the joint projection's strided views (a
+    DualBranchAttention(cross=False)), against the plain version (1e-5),
+    then timed on the views, with its bound."""
+    import numpy as np
+
+    from tscd_torch.models.aggregation import DualBranchAttention
+    from tscd_torch.ops.kernels import fused_attention as fa
+    B = 1
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)   # noqa: E731
+    rand = [t(rng.normal(size=(B, h, n, d))) for _ in range(6)]
+    score = t(rng.uniform(0, 1, (B, n)))
+    valid = torch.as_tensor(rng.uniform(size=(B, n)) > 0.2, device=dev)
+    torch.manual_seed(0)
+    att = DualBranchAttention(h * d, h, cross=False).to(dev)
+    with torch.no_grad():
+        views = att.project(t(rng.normal(size=(B, n, h * d))), t(rng.normal(size=(B, n, h * d))),
+                            n)
+    errs = []
+    for case, a in (("20% invalid keys", (*rand, score, valid)),
+                    ("joint-projection views", (*views, score, valid))):
+        got, want = fa.fused_dual_attention(*a), fa.fused_dual_attention_plain(*a)
+        for part, g, w in zip(("out_cls", "out_reg", "attn"), got, want):
+            errs.append(check_close(f"fused_dual_attention q = k = {n}, d {d}: {case} {part}",
+                                    g, w, atol=1e-5, rtol=1e-4))
+    main = (*views, score, valid)
+    nbytes = 4 * (2 * B * h * n * d + 4 * B * h * n * d) + 4 * B * n + B * n \
+        + 4 * (2 * B * h * n * d + B * h * n * n)
+    half = B * h * 2 * 2 * n * n * d
+    b_ms, b_by = bound(nbytes, (half, H100_FP32_FLOPS), (half, H100_FP32_FLOPS))
+    return dict(max_abs_err=max(errs),
+                **timed(torch, lambda: fa.fused_dual_attention(*main), reps,
+                        "fused_dual_attention"),
+                plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*main), 10),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                scratch_bytes=4 * fa.scratch_floats(B, h, n, n, d),
+                launch_bytes=fa.launch_bytes(B, h, n, n, d))
+
+
+def yolov_backward_row(torch, dev, rng, h=4, n=480, d=64, reps=20):
+    """The attention's backward (the plain recompute's VJP) at a 16-frame
+    training window's q = k = 480: the six q/k/v gradients through the
+    wrapper's autograd path (one kernel launch and one backward, counted)
+    against autograd of the plain version (ATTN_BWD_TOL of each gradient's
+    max), then timed as attention_backward_phase times it."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tscd_torch.ops.kernels import fused_attention as fa
+    B = 1
+    mk = lambda *sh: torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+    qkv = [mk(B, h, n, d) for _ in range(6)]
+    score = torch.as_tensor(rng.uniform(0, 1, (B, n)).astype(np.float32), device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(B, n)) > 0.2, device=dev)
+    cot = [mk(B, h, n, d), mk(B, h, n, d), mk(B, h, n, n)]
+    ins = [t.clone().requires_grad_(True) for t in qkv]
+    ref = [t.clone().requires_grad_(True) for t in qkv]
+    n0, b0 = fa.fused_dual_attention.launches, fa.fused_dual_attention.backward_calls
+    got = torch.autograd.grad(fa.fused_dual_attention(*ins, score, valid), ins, cot)
+    if (fa.fused_dual_attention.launches - n0, fa.fused_dual_attention.backward_calls - b0) != (1, 1):
+        raise AssertionError(f"attention at q = k = {n}: the autograd path did not launch the "
+                             "kernel once and run its backward once")
+    want = torch.autograd.grad(fa.fused_dual_attention_plain(*ref, score, valid), ref, cot)
+    errs = {nm: float((g - w).abs().max() / w.abs().max())
+            for nm, g, w in zip(("qc", "kc", "vc", "qr", "kr", "vr"), got, want)}
+    ok = all(np.isfinite(v) and v <= ATTN_BWD_TOL for v in errs.values())
+    emit({"phase": "kernels", "check": f"fused_dual_attention backward (B 1, h {h}, q = k = {n}, "
+          f"d {d})", "max_rel_err": errs, "tolerance": f"{ATTN_BWD_TOL} of each gradient's max",
+          "pass": ok})
+    if not ok:
+        raise AssertionError(f"attention backward at q = k = {n}: {errs}")
+    outs = fa.fused_dual_attention(*ins, score, valid)
+    bwd = lambda: torch.autograd.grad(outs, ins, cot, retain_graph=True)   # noqa: E731
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            bwd()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and e.key != "Activity Buffer Request") / 1e3 / reps
+    nbytes = 4 * (2 * 2 * B * h * n * d + 4 * B * h * n * d + B * n + B * h * n * n) + B * n
+    b_ms, b_by = bound(nbytes, (B * h * 24 * n * n * d, H100_FP32_FLOPS))
+    return dict(route="plain PyTorch recompute: autograd of fused_dual_attention_plain",
+                replaces="tscd_tpu/ops/pallas/fused_attention.py:95-106 (_fused_bwd_rule: "
+                         "XLA's VJP of dual_attention_reference, no Pallas kernel)",
+                shape={"B": B, "h": h, "q": n, "k": n, "d": d}, max_rel_err=max(errs.values()),
+                ms=dev_ms, call_ms=cuda_ms(torch, bwd, reps),
+                plain_fwd_bwd_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                    fa.fused_dual_attention_plain(*ref, score, valid), ref, cot), reps),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def yolov_phase(torch, counters):
+    """The YOLOV family on the card: (a) card against CPU at the selftest
+    size (YOLOV, YOLOV++ msa + decouple_reg, mca, localagg, TSCD's
+    localagg); (b) yolov_l, v++_base_decoupleReg and v++_large windows,
+    traced and timed; (c) vid_eval on the fixture's files; (d) training
+    steps; (e) the kernels line's rows at the family's shapes: the
+    attention at q = k = 960 (d 64 and 32) with its backward at q = k =
+    480, on seeded random inputs and projections, and the NMS at the
+    refined postprocess's (32, 900), on yolov_l's own window's inputs.
+    Returns {"rows": ..., "launches": ...}."""
+    from tscd_torch.ops.kernels import library
+    from tscd_torch.ops.kernels import nms as kn
+    import numpy as np
+    t0 = time.time()
+    yolov_small_part(torch)
+    wins, calls = yolov_windows_part(torch, counters)
+    yolov_eval_part(torch)
+    yolov_train_part(torch)
+    dev = card(torch)
+    rng = np.random.default_rng(60)
+    rows = {"fused_dual_attention_msa": yolov_attention_row(torch, dev, rng, 4, 960, 64),
+            "fused_dual_attention_msa_d32": yolov_attention_row(torch, dev, rng, 4, 960, 32)}
+    rows["fused_dual_attention_msa"]["backward"] = yolov_backward_row(torch, dev, rng)
+    lat, clock = latencies(torch, library.load()), sm_clock_mhz()
+    exp = yolov_exp("yolov_l")
+    F, K = exp.gframe_val, exp.num_proposals * exp.num_classes
+    boxes_s, valid_s, thr = next(c for c in calls if tuple(c[0].shape[:2]) == (F, K))
+    err, want = check_nms(torch, f"yolov_l refined postprocess ({F}, {K})", boxes_s, valid_s, thr)
+    rows["nms_yolov_refined"] = dict(
+        max_abs_err=err, **timed(torch, lambda: kn.nms_sorted(boxes_s, valid_s, thr), 100, "nms_"),
+        plain_ms=cuda_ms(torch, lambda: kn.nms_sorted_plain(boxes_s, valid_s, thr), 3, 1),
+        **nms_bounds(F, K, lat, clock), bound_by="operations", bound_model=NMS_BOUND,
+        library_ms=None, kept=int(want.sum()), valid=int(valid_s.sum()))
+    launches = {"fused_dual_attention_msa": wins["yolov_l"]["launches"]["fused_dual_attention"],
+                "fused_dual_attention_msa_d32":
+                    wins["v++_base_decoupleReg"]["launches"]["fused_dual_attention"],
+                "nms_yolov_refined": wins["yolov_l"]["launches"]["nms"]}
+    bwd = rows["fused_dual_attention_msa"]["backward"]
+    emit({"phase": "yolov", "seconds": time.time() - t0,
+          "rows": {n: {k: v for k, v in r.items() if "ms" in k} for n, r in rows.items()},
+          "backward_q_k_480": {k: v for k, v in bwd.items() if "ms" in k},
+          "launches_in_3_traced_windows": launches})
+    return {"rows": rows, "launches": launches}
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
-          "ovis", "trace_lead_in")
+          "ovis", "yolov", "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
 
@@ -5050,7 +5608,8 @@ def main() -> int:
     heads = heads_phase(torch, counters)
     rows["nms_prenms"] = heads["nms_prenms"]
     launches.update(heads["launches"])
-    for recipe in (still_phase(torch, counters), ovis_phase(torch, counters)):
+    for recipe in (still_phase(torch, counters), ovis_phase(torch, counters),
+                   yolov_phase(torch, counters)):
         rows.update(recipe["rows"])
         launches.update(recipe["launches"])
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
@@ -5070,7 +5629,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    shaped = {**HEAD_ROWS, **RECIPE_ROWS}
+    shaped = {**HEAD_ROWS, **RECIPE_ROWS, **YOLOV_ROWS}
     sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in shaped.items()}}
     for name, (_, shape) in shaped.items():
         rows[name]["shape"] = shape

@@ -22,7 +22,10 @@ size (features at JAX's tolerances of the dense path with fp64 convs,
 detections 1e-4 as sets); the NMS at
 the pre-NMS call's shape (32, 750), exactly; postprocess_dense at (8,
 2048) exactly, and the OVIS fixture's warps equal to cv2's recorded
-pixels.
+pixels; the attention in the YOLOV family's self-attention form (q = k =
+960 and 480, some keys invalid) 1e-5 as above, the wrapper raising with
+the shape and bytes where the card cannot hold a launch, and the NMS at
+YOLOV-L's refined postprocess (32, 900) exactly.
 """
 
 import numpy as np
@@ -656,3 +659,59 @@ def test_cuda_machine_warps_the_fixture_as_cv2(card):
     import chip_smoke
     rec = chip_smoke.warp_checks()
     assert rec["pass"] and rec["sha256_match"] == rec["frames"] == 32, rec["mismatched"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,q,d", [(1, 4, 960, 64), (1, 4, 960, 32), (1, 4, 480, 64)])
+def test_cuda_attention_self_attention_form_matches_plain(card, B, h, q, d):
+    """The YOLOV family's MSA shapes, q = k = F x P (YOLOV-L's window of
+    32 x 30 proposals, v++_base_decoupleReg's at d 32, a 16-frame training
+    window), 20% of the keys invalid, on the joint projection's strided
+    views: 1e-5 as at the MCA shapes."""
+    ins = [torch.from_numpy(a).to(card)
+           for a in _attn_inputs(np.random.default_rng(21), B, h, q, q, d)]
+    want = pfa.fused_dual_attention_plain(*ins)
+    n0 = pfa.fused_dual_attention.launches
+    got = pfa.fused_dual_attention(*_as_aggregation_views(ins))
+    torch.cuda.synchronize()
+    assert pfa.fused_dual_attention.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_raises_where_the_card_cannot_hold_it(card):
+    """q = k = 24000 at d 64 needs 102.6 GB of scratch and outputs: the
+    wrapper raises with the shape and the bytes, and launches nothing."""
+    B, h, n, d = 1, 4, 24000, 64
+    mk = lambda m: torch.zeros(B, h, m, d, device=card)      # noqa: E731
+    args = [mk(n) for _ in range(6)] + [torch.ones(B, n, device=card),
+                                        torch.ones(B, n, dtype=torch.bool, device=card)]
+    n0 = pfa.fused_dual_attention.launches
+    with pytest.raises(ValueError, match=f"q {n}, k {n}, d {d}.* {pfa.launch_bytes(B, h, n, n, d)} bytes"):
+        pfa.fused_dual_attention(*args)
+    assert pfa.fused_dual_attention.launches == n0
+
+
+@pytest.mark.cuda
+def test_cuda_nms_at_the_yolov_refined_postprocess_equals_plain(card):
+    """postprocess_refined at YOLOV-L's window: 32 frames x 30 proposals x
+    30 classes (K = 900, class-shifted), IoU 0.5: one launch of the NMS
+    kernels, detections equal to the plain version's element for element."""
+    from tscd_torch.ops.postprocess import postprocess_refined
+    rng = np.random.default_rng(22)
+    Fr, Pp, C = 32, 30, 30
+    cxy = rng.uniform(40, 540, (Fr, Pp, 2))
+    wh = rng.uniform(20, 160, (Fr, Pp, 2))
+    boxes = torch.from_numpy(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32))
+    obj = torch.from_numpy(rng.uniform(0, 1, (Fr, Pp)).astype(np.float32))
+    cls = torch.from_numpy((rng.uniform(0, 1, (Fr, Pp, C)) ** 3).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(Fr, Pp)) > 0.1)
+    n0 = pkn.nms_sorted.launches
+    got = postprocess_refined(*(t.to(card) for t in (boxes, obj, cls, valid)), 0.001, 0.5)
+    assert pkn.nms_sorted.launches == n0 + 1
+    want = postprocess_refined(boxes, obj, cls, valid, 0.001, 0.5)
+    assert int(want.mask.sum()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

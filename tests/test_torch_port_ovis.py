@@ -42,7 +42,7 @@ from tscd_torch.models.yolox import YOLOX
 from tscd_torch.train.checkpoint import load_checkpoint, load_tolerant
 from tscd_torch.utils.convert import _BN_LEAVES, flax_module_path, flax_param_path
 from tscd_torch.utils.convert import state_dict_from_flax
-from torch_port_util import perturb, seeded_variables
+from torch_port_util import seeded_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tscd_torch", "data", "fixtures")
@@ -141,15 +141,23 @@ def _recording_pipelined(predict, out):
     return pipelined
 
 
-def test_tscd_eval_cli_on_ovis_matches_jax(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_tscd():
+    """JAX's TSCD at the OVIS selftest exp's size and one seeded tree of
+    its variables (jax.eval_shape of its init, no compile: the parameter
+    shapes do not depend on the window's frames), shared by the tests."""
+    exp = OVISSelftestExp()
+    jm = _jmodel(exp)
+    F = 4
+    return jm, seeded_variables(jm, 2, jnp.zeros((F, 128, 128, 3)), jnp.zeros((F, 256)),
+                                2, 2, False)
+
+
+def test_tscd_eval_cli_on_ovis_matches_jax(jax_tscd, tmp_path, monkeypatch):
     from tscd_torch.core import predict as ppredict
     from tscd_torch.tools import tscd_eval
     exp = OVISSelftestExp()
-    jm = _jmodel(exp)
-    F = exp.lframe_val + exp.gframe_val
-    init = jax.jit(lambda key: jm.init(key, jnp.zeros((F, 128, 128, 3)), jnp.zeros((F, 256)),
-                                       exp.lframe_val, exp.gframe_val, False))
-    variables = perturb(init(jax.random.PRNGKey(0)))
+    jm, variables = jax_tscd
     ckpt = tmp_path / "ovis_selftest.msgpack"
     ckpt.write_bytes(serialization.msgpack_serialize(variables))
     prows = []
@@ -194,13 +202,11 @@ def _flax_key(name, ndim):
     return "params", flax_param_path(name, ndim)
 
 
-def test_stage1_checkpoint_loads_into_tscd_as_jax(tmp_path):
+def test_stage1_checkpoint_loads_into_tscd_as_jax(jax_tscd, tmp_path):
     exp = OVISSelftestExp()
     jy = JYOLOX(num_classes=25, depth=exp.depth, width=exp.width)
     yvars = seeded_variables(jy, 1, jnp.zeros((1, 128, 128, 3)), False, False)
-    F = 4
-    tvars = seeded_variables(_jmodel(exp), 2, jnp.zeros((F, 128, 128, 3)), jnp.zeros((F, 256)),
-                             2, 2, False)
+    tvars = jax_tscd[1]
     taken_jax = set()
     for c in ("params", "batch_stats"):
         skipped = []

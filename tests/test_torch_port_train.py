@@ -563,10 +563,12 @@ def _set(**kw):
 def test_knobs_the_port_does_not_run_raise(knob):
     exp = selftest_exp()
     if knob == "agg_type":
-        exp.agg_type = "localagg"
-        with pytest.raises(NotImplementedError, match="agg_type = 'localagg'.*queue 1 item 6"):
+        # every agg_type of JAX's TSCD head runs ('localagg' since the YOLOV
+        # family's port); a YOLOV-only one raises
+        exp.agg_type = "msa"
+        with pytest.raises(ValueError, match="agg_type 'msa'"):
             exp.get_model(device="cpu")
-        with pytest.raises(NotImplementedError, match="agg_type"):
+        with pytest.raises(ValueError, match="agg_type"):
             exp.get_trainer(device="cpu")
     else:
         setattr(exp, knob, True)
@@ -624,15 +626,15 @@ def test_an_exp_file_that_sets_a_model_knob_raises(tmp_path, knob):
     """An exp file that sets a model knob in __init__: the knobs JAX's TSCD
     takes build their model, which runs one forward (and, for
     remat_backbone, the trainer recomputing the backbone); the six JAX's
-    exp never passes to its TSCD raise in get_model, saying why
-    (agg_type's 'localagg' is held in test_knobs_the_port_does_not_run_raise).
-    Each default is JAX's."""
+    exp never passes to its TSCD raise in get_model, saying why. Each
+    default is JAX's."""
     from tscd_tpu.exp.tscd_base import Exp as JExp
     from tscd_torch.exp import get_exp
     from tscd_torch.exp.tscd_base import MODEL_KNOBS
     jexp = JExp()
     assert {k: getattr(jexp, k) for k in MODEL_KNOBS} == {k: v[0] for k, (v, _) in MODEL_KNOBS.items()}
-    ported = {"use_pre_nms", "cat_ota_fg", "decouple_reg", "reconf", "sparse_vid_towers"}
+    ported = {"use_pre_nms", "cat_ota_fg", "decouple_reg", "reconf", "sparse_vid_towers",
+              "agg_type"}
     assert {k: getattr(selftest_exp(), k) for k in ported} == {k: getattr(jexp, k) for k in ported}
     assert set(MODEL_KNOBS) == set(_KNOB_VALUES) - ported - {"remat_backbone"}
     assert selftest_exp().remat_backbone == jexp.remat_backbone is False

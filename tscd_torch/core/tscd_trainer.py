@@ -29,7 +29,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.predict import make_predict_fn
 from ..data.vid import multiscale_resize
 from ..device import resolve_device
 from ..models.tscd import random_init_
@@ -198,9 +197,7 @@ class TSCDTrainer:
         model.eval()
         loader = self.val_loader or exp.get_eval_loader(
             pin_memory=self.device.type == "cuda")
-        predict = make_predict_fn(model, exp.lframe_val, exp.gframe_val,
-                                  exp.nmsthre, exp.test_conf)
-        res = exp.get_evaluator(loader).evaluate(predict)
+        res = exp.get_evaluator(loader).evaluate(exp.get_predict_fn(model))
         return float(res.get("AP50", 0.0))
 
     # -- ckpt ------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Exp loading by file path or built-in name (counterpart of
 tscd_tpu/exp/build.py). An exp file defines `Exp`, a subclass of one of
-the port's exps (`tscd_torch.exp.TSCDExp` for video, `YOLOXExp` for still
-images); the repo's `exps/*.py` build on the JAX package and do not load
+the port's exps (`tscd_torch.exp.TSCDExp` for video, `YOLOVExp` for the
+YOLOV family, `YOLOXExp` for still images); the repo's `exps/*.py` build on the JAX package and do not load
 here, and each of them has a built-in of the same name."""
 
 import importlib.util
@@ -14,12 +14,13 @@ from .ovis_tscd_base import OVISSelftestExp
 from .tscd_large import Exp as TSCDLargeExp
 from .tscd_large import SelftestExp
 from .vid_tscd_base import Exp as TSCDBaseExp
+from .yolov_base import YOLOV_EXPS
 from .yolox_base import STILL_EXPS
 
 BUILTIN = {"tscd_large": TSCDLargeExp, "tscd_base": TSCDBaseExp, "selftest": SelftestExp,
            "ovis_tscd_base": OVISTSCDBaseExp, "ovis_tscd_large": OVISTSCDLargeExp,
            "ovis_selftest": OVISSelftestExp,
-           **STILL_EXPS}
+           **STILL_EXPS, **YOLOV_EXPS}
 
 
 def get_exp_by_file(exp_file: str) -> BaseExp:

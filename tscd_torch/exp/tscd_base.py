@@ -18,14 +18,12 @@ from .base_exp import BaseExp
 
 # Model knobs of the JAX exp that `get_model` raises for: {knob: (the
 # values the port runs, the first JAX's default; why not the others)}.
-# JAX's exp never hands the last six to its TSCD (tscd_base.py:149-165),
+# JAX's exp never hands these six to its TSCD (tscd_base.py:149-165),
 # which leaves them at its head's defaults: another value in an exp has no
 # JAX counterpart. The head takes them (models/tscd_head.py: TSCDHead).
 _NOT_PASSED = ("JAX's exp does not pass it to its TSCD, so no other value has a JAX "
                "counterpart; TSCDHead takes it")
 MODEL_KNOBS = {
-    "agg_type": (("mca", "mca_aware"), "'localagg' needs the YOLOV family's "
-                 "LocalAggregation (ROADMAP queue 1 item 6)"),
     "ave": ((True,), _NOT_PASSED), "use_mask": ((False,), _NOT_PASSED),
     "vid_cls": ((True,), _NOT_PASSED), "vid_reg": ((True,), _NOT_PASSED),
     "pre_nms": ((0.75,), _NOT_PASSED), "defualt_pre": ((750,), _NOT_PASSED),
@@ -105,6 +103,7 @@ class TSCDExp(BaseExp):
         # model knobs of the JAX exp (tscd_base.py:53-70,99-101) at its
         # defaults: those JAX's TSCD takes, then those `get_model` raises
         # for at another value (MODEL_KNOBS)
+        self.agg_type = "mca"           # "mca" | "mca_aware" | "localagg"
         self.use_pre_nms = False
         self.cat_ota_fg = False
         self.decouple_reg = True
@@ -301,6 +300,13 @@ class TSCDExp(BaseExp):
         ds = self._vid_dataset(True, lframe or self.lframe_val, gframe or self.gframe_val)
         dtype = np.uint8 if self.eval_uint8_transport else np.float32
         return WindowLoader(ds, img_dtype=dtype, pin_memory=pin_memory)
+
+    def get_predict_fn(self, model):
+        """The streaming evaluator's predict function for `model` on the
+        exp's val windows (`core.predict.make_predict_fn`)."""
+        from ..core.predict import make_predict_fn
+        return make_predict_fn(model, self.lframe_val, self.gframe_val, self.nmsthre,
+                               self.test_conf)
 
     def get_evaluator(self, val_loader=None):
         """tscd_base.py:238."""

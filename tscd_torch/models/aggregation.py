@@ -1,12 +1,15 @@
 """Cross-frame attention aggregation (counterpart of
 tscd_tpu/models/aggregation.py: DualBranchAttention, MCACore, MCAg2l,
-MCAg2lAware; reference post_trans.py:366,550,1109).
+MCAg2lAware, MSAYolov; reference post_trans.py:366,550,717,1109,1227).
 
-Each local frame's P proposals attend to its own frame plus every
+MCA: each local frame's P proposals attend to its own frame plus every
 global frame. The JAX package vmaps over local frames; here the local
-frame is a batch axis written out. The fused branch (no score-window
-mask) goes through the hand kernel `ops.kernels.fused_attention`; the
-masked branch (`use_mask`) is plain tensor code.
+frame is a batch axis written out. MSA (YOLOV): every proposal of the
+window attends to every other, one batch of q = k = F x P rows, through
+the joint q/k/v projections (`cross=False`). The fused branch (no
+score-window mask) goes through the hand kernel
+`ops.kernels.fused_attention`; the masked branch (`use_mask`) is plain
+tensor code.
 
 Compute dtype (`dtype`) as in the JAX modules: the Linear layers run in
 it; logits, softmaxes and `attn @ V` are fp32 (the kernel upcasts bf16
@@ -52,20 +55,44 @@ class AttnPieces(NamedTuple):
 
 
 class DualBranchAttention(nn.Module):
-    """Shared attention core of Attention_mca_g2l (cross form): q from
-    the first n_query tokens, k/v over all tokens."""
+    """Shared attention core. `cross=True` (Attention_mca_g2l): q from
+    the first n_query tokens through q_cls_local / q_reg_local, k/v over
+    all tokens through kv_cls / kv_reg. `cross=False` (Attention_msa):
+    the joint projections qkv_cls / qkv_reg, split into q, k and v in
+    that order, q the first n_query rows (aggregation.py:82-91)."""
 
     def __init__(self, dim: int, num_heads: int = 4, scale: float = 25.0,
-                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32,
+                 cross: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.scale = scale
         self.dtype = dtype
+        self.cross = cross
         kw = dict(bias=qkv_bias, dtype=dtype)
-        self.q_cls_local = nn.Linear(dim, dim, **kw)
-        self.kv_cls = nn.Linear(dim, 2 * dim, **kw)
-        self.q_reg_local = nn.Linear(dim, dim, **kw)
-        self.kv_reg = nn.Linear(dim, 2 * dim, **kw)
+        if cross:
+            self.q_cls_local = nn.Linear(dim, dim, **kw)
+            self.kv_cls = nn.Linear(dim, 2 * dim, **kw)
+            self.q_reg_local = nn.Linear(dim, dim, **kw)
+            self.kv_reg = nn.Linear(dim, 2 * dim, **kw)
+        else:
+            self.qkv_cls = nn.Linear(dim, 3 * dim, **kw)
+            self.qkv_reg = nn.Linear(dim, 3 * dim, **kw)
+
+    def project(self, x_cls: torch.Tensor, x_reg: torch.Tensor, n_query: int):
+        """q, k, v of both branches (B, h, rows, d), q of the first
+        n_query tokens."""
+        h = self.num_heads
+        if self.cross:
+            k_cls, v_cls = self.kv_cls(x_cls).chunk(2, -1)
+            k_reg, v_reg = self.kv_reg(x_reg).chunk(2, -1)
+            q_cls = self.q_cls_local(x_cls[:, :n_query])
+            q_reg = self.q_reg_local(x_reg[:, :n_query])
+        else:
+            q_cls, k_cls, v_cls = self.qkv_cls(x_cls).chunk(3, -1)
+            q_reg, k_reg, v_reg = self.qkv_reg(x_reg).chunk(3, -1)
+            q_cls, q_reg = q_cls[:, :n_query], q_reg[:, :n_query]
+        return tuple(_split_heads(t, h) for t in (q_cls, k_cls, v_cls, q_reg, k_reg, v_reg))
 
     def attend(self, x_cls: torch.Tensor, x_reg: torch.Tensor,
                cls_score: Optional[torch.Tensor],
@@ -76,12 +103,7 @@ class DualBranchAttention(nn.Module):
         """x_*: (B, N, C); cls_score/fg_score/key_valid: (B, N)."""
         h = self.num_heads
         f32 = torch.float32
-        k_cls, v_cls = self.kv_cls(x_cls).chunk(2, -1)
-        k_reg, v_reg = self.kv_reg(x_reg).chunk(2, -1)
-        qc0 = _split_heads(self.q_cls_local(x_cls[:, :n_query]), h)
-        qr0 = _split_heads(self.q_reg_local(x_reg[:, :n_query]), h)
-        kc0, vc = _split_heads(k_cls, h), _split_heads(v_cls, h)
-        kr0, vr = _split_heads(k_reg, h), _split_heads(v_reg, h)
+        qc0, kc0, vc, qr0, kr0, vr = self.project(x_cls, x_reg, n_query)
         vcn, vrn = _l2norm(vc), _l2norm(vr)
         kv = key_valid[:, None, :]
 
@@ -232,3 +254,44 @@ class MCAg2lAware(nn.Module):
         every frame's proposals."""
         return self.mca(feat_cls, self.se(feat_reg, edge), cls_score,
                         fg_score, valid, lframe, **kw)
+
+
+class MSAYolov(nn.Module):
+    """MSA_yolov (post_trans.py:1227; aggregation.py:295-335): the joint
+    self-attention over every proposal of the window (one batch, q = k =
+    N), linear1 (2C -> 2C), round 2 pooling the projected features
+    (sim_round2 @ linear1) -> 4C -> linear2 to out_dim; with `reconf` the
+    same on the reg branch (linear1_obj, linear2_obj, obj_round2).
+    Parameters `msa.qkv_cls`, `linear1`, ... as the reference's. JAX's
+    `reg_score_guidance` (the online head's) is not ported."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
+                 scale: float = 25.0, reconf: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.reconf = reconf
+        self.msa = DualBranchAttention(in_dim, num_heads, scale, dtype=dtype, cross=False)
+        self.linear1 = nn.Linear(2 * in_dim, 2 * in_dim, dtype=dtype)
+        self.linear2 = nn.Linear(4 * in_dim, out_dim, dtype=dtype)
+        if reconf:
+            self.linear1_obj = nn.Linear(2 * in_dim, 2 * in_dim, dtype=dtype)
+            self.linear2_obj = nn.Linear(4 * in_dim, out_dim, dtype=dtype)
+
+    def forward(self, feat_cls: torch.Tensor, feat_reg: torch.Tensor,
+                cls_score: torch.Tensor, fg_score: torch.Tensor,
+                valid: torch.Tensor, sim_thresh: float = 0.75,
+                conf_sim_thresh: float = 0.99,
+                obj: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """feat_* (N, C) flattened across frames; scores and valid (N,).
+        Returns (cls (N, out_dim), obj (N, out_dim) or None); `obj` False
+        skips the reg branch's pooling where the caller drops it."""
+        N = feat_cls.shape[0]
+        p = self.msa.attend(feat_cls[None], feat_reg[None], cls_score[None],
+                            fg_score[None], valid[None], N, sim_thresh=sim_thresh,
+                            conf_sim_thresh=conf_sim_thresh)
+        lin1 = self.linear1(p.out_cls[0])
+        out = self.linear2(torch.cat([p.sim_round2[0] @ lin1, lin1], -1))
+        if not (self.reconf and obj):
+            return out, None
+        lin1_obj = self.linear1_obj(p.out_reg[0])
+        return out, self.linear2_obj(torch.cat([p.obj_round2[0] @ lin1_obj, lin1_obj], -1))

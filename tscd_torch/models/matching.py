@@ -51,8 +51,9 @@ def _l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """fp32 LayerNorm of x, cast back to x's dtype."""
-    return norm(x.float()).to(x.dtype)
+    """LayerNorm of x in its parameters' dtype (fp32 in every model),
+    cast back to x's dtype."""
+    return norm(x.to(norm.weight.dtype)).to(x.dtype)
 
 
 class SEGate(nn.Module):

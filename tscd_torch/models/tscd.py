@@ -18,7 +18,57 @@ from .pafpn import build_pafpn_backbone
 from .tscd_head import TSCDHead
 
 
-class TSCD(nn.Module):
+class WindowModel(nn.Module):
+    """The PAFPN backbone (`backbone`) and a head over a window of frames:
+    the train and BatchNorm rules TSCD and the YOLOV family share.
+    Subclasses build their `head` after this builds the backbone, then
+    `_place` the model on its device."""
+
+    def __init__(self, backbone_name: str, depth: float, width: float, act: str,
+                 depthwise: bool, stop_backbone_grad: bool, remat_backbone: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stop_backbone_grad = stop_backbone_grad
+        self.remat_backbone = remat_backbone
+        self.backbone = build_pafpn_backbone(backbone_name, depth, width, act=act,
+                                             depthwise=depthwise, dtype=dtype)
+
+    def _place(self, device: torch.device):
+        self.to(device)
+        self.eval()
+
+    def train(self, mode: bool = True):
+        """Train mode records the forward for autograd; every module stays
+        in torch's eval mode: BatchNorm's mode is the forward's `train`
+        argument, as in JAX."""
+        super().train(False)
+        self.training = mode
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _window(self, x: torch.Tensor, train: bool, head_call) -> Dict[str, Any]:
+        """The backbone on x, then head_call(fpn_outs, stats) (`stats` the BN
+        mode); with `train` the new running statistics in out["batch_stats"]."""
+        stats = {} if train else None
+        grad = self.training and torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and not self.stop_backbone_grad):
+            if self.remat_backbone and torch.is_grad_enabled():
+                fpn_outs = checkpoint(self.backbone, x, stats, use_reentrant=False)
+            else:
+                fpn_outs = self.backbone(x, stats)
+        with torch.set_grad_enabled(grad):
+            out = head_call(fpn_outs, stats)
+        if train:
+            out["batch_stats"] = {
+                f"{name}.running_{k}": v for name, bn in self.named_modules()
+                if bn in stats for k, v in zip(("mean", "var"), stats[bn])}
+        return out
+
+
+class TSCD(WindowModel):
     """TSCD (tscd.py:20). Built on `device`, the card unless the caller
     passes another; random init from the default torch initialisers until
     weights are loaded (see `random_init_`). The head knobs are the ones
@@ -56,17 +106,13 @@ class TSCD(nn.Module):
                  remat_backbone: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.float32):
-        super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype fp32 or bf16, not {dtype}")
         device = resolve_device(device)
+        super().__init__(backbone_name, depth, width, act, depthwise, stop_backbone_grad,
+                         remat_backbone, dtype)
         self.num_classes = num_classes
         self.dtype = dtype
-        self.stop_backbone_grad = stop_backbone_grad
-        self.remat_backbone = remat_backbone
-        self.backbone = build_pafpn_backbone(backbone_name, depth, width,
-                                             act=act, depthwise=depthwise,
-                                             dtype=dtype)
         self.head = TSCDHead(
             num_classes, width=width, act=act, depthwise=depthwise,
             heads=heads, agg_type=agg_type,
@@ -76,20 +122,7 @@ class TSCD(nn.Module):
             sim_thresh=sim_thresh, conf_sim_thresh=conf_sim_thresh,
             test_conf=test_conf, sparse_vid_towers=sparse_vid_towers,
             dtype=dtype)
-        self.to(device)
-        self.eval()
-
-    def train(self, mode: bool = True):
-        """Train mode records the forward for autograd; every module stays
-        in torch's eval mode: BatchNorm's mode is the forward's `train`
-        argument, as in JAX."""
-        super().train(False)
-        self.training = mode
-        return self
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.parameters()).device
+        self._place(device)
 
     def forward(self, x: torch.Tensor, time_embedding: torch.Tensor,
                 lframe: int, gframe: int,
@@ -117,22 +150,9 @@ class TSCD(nn.Module):
         SimOTA's foreground anchors into its proposals."""
         if x.shape[0] != lframe + gframe:
             raise ValueError(f"{x.shape[0]} frames != {lframe} + {gframe}")
-        stats = {} if train else None
-        grad = self.training and torch.is_grad_enabled()
-        with torch.set_grad_enabled(grad and not self.stop_backbone_grad):
-            if self.remat_backbone and torch.is_grad_enabled():
-                fpn_outs = checkpoint(self.backbone, x, stats, use_reentrant=False)
-            else:
-                fpn_outs = self.backbone(x, stats)
-        with torch.set_grad_enabled(grad):
-            out = self.head(fpn_outs, time_embedding, lframe,
-                            matcher_state=matcher_state, stats=stats,
-                            labels=labels)
-        if train:
-            out["batch_stats"] = {
-                f"{name}.running_{k}": v for name, bn in self.named_modules()
-                if bn in stats for k, v in zip(("mean", "var"), stats[bn])}
-        return out
+        return self._window(x, train, lambda fpn_outs, stats: self.head(
+            fpn_outs, time_embedding, lframe, matcher_state=matcher_state, stats=stats,
+            labels=labels))
 
 
 def tscd_eval_postprocess(head_out: Dict[str, Any], lframe: int,

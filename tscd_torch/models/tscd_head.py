@@ -1,7 +1,5 @@
 """TSCD head (counterpart of tscd_tpu/models/tscd_head.py; reference
-yolox/models/tscd_head.py:26): every branch of JAX's TSCDHead but
-`localagg`, which needs the YOLOV family's LocalAggregation (ROADMAP
-queue 1 item 6) and raises.
+yolox/models/tscd_head.py:26): every branch of JAX's TSCDHead.
 
 Fixed P proposal slots per frame with validity masks; every stage is a
 fixed-shape tensor op, so the eval forward takes no host sync and a
@@ -18,8 +16,11 @@ time with `labels`, `cat_ota_fg` (SimOTA's foreground anchors ranked
 first); the video towers dense, or on proposal patches with
 `sparse_vid_towers` where BN runs on its running statistics
 (`models/sparse_towers.py`), or the still towers' outputs where
-`vid_cls`/`vid_reg` are off; `agg_type` "mca" or "mca_aware" (the reg
-features SE-gated with the edge features of every frame); `ave`;
+`vid_cls`/`vid_reg` are off; `agg_type` "mca", "mca_aware" (the reg
+features SE-gated with the edge features of every frame) or "localagg"
+(the YOLOV family's LocalAggregation over every frame's proposals, then
+Linear cls, obj and reg preds on the local frames; no matcher, as JAX
+composes it, tscd_head.py:320-354); `ave`;
 `use_mask`; `decouple_reg` (the reg aggregation, the CAFM matcher and
 TaskAligned; without it no matcher_* or refined_boxes output) and
 `reconf` (the matcher's obj and offset heads).
@@ -161,11 +162,7 @@ class TSCDHead(nn.Module):
                  sparse_vid_towers: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if agg_type == "localagg":
-            raise NotImplementedError(
-                "agg_type 'localagg' needs the YOLOV family's LocalAggregation "
-                "(ROADMAP queue 1 item 6)")
-        if agg_type not in ("mca", "mca_aware"):
+        if agg_type not in ("mca", "mca_aware", "localagg"):
             raise ValueError(f"agg_type {agg_type!r}: 'mca', 'mca_aware' or 'localagg'")
         self.num_classes = num_classes
         self.strides = tuple(strides)
@@ -212,6 +209,15 @@ class TSCDHead(nn.Module):
             self.reg_convs2 = nn.ModuleList(tower() for _ in range(n))
         self.edge_enhance_reg = nn.ModuleList(
             nn.Sequential(WaveletsHFBlock(hidden, dtype)) for _ in range(n))
+        if agg_type == "localagg":
+            # imported here: yolov_heads builds on this module
+            from .yolov_heads import LocalAggregation
+            self.agg = LocalAggregation(hidden, heads, reconf=reconf, dtype=dtype)
+            self.cls_pred = nn.Linear(hidden, num_classes, dtype=dtype)
+            if reconf:
+                self.obj_pred = nn.Linear(hidden, 1, dtype=dtype)
+                self.reg_pred = nn.Linear(hidden, 4, dtype=dtype)
+            return
         Agg = MCAg2lAware if agg_type == "mca_aware" else MCAg2l
         self.agg = Agg(hidden, 4 * hidden, heads, reconf=False, ave=ave, dtype=dtype)
         if decouple_reg:
@@ -316,6 +322,8 @@ class TSCDHead(nn.Module):
         f_cls, f_reg, f_edge = self.vid_features(stem_feats, still, props.idx,
                                                  lframe, stats, sparse)
 
+        if self.agg_type == "localagg":
+            return self._local_agg(out, f_cls, f_reg, props, lframe, xin[0])
         kw = dict(sim_thresh=self.sim_thresh, use_mask=self.use_mask,
                   conf_sim_thresh=self.conf_sim_thresh)
         # the aggregators' inputs: with mca_aware the edge features of
@@ -343,6 +351,29 @@ class TSCDHead(nn.Module):
                 out["matcher_reg_offsets"] = self.matcher_reg_pred(matched4)
         out["refined_cls_logits"] = self.cls_pred(agg_cls)
         if "matcher_reg_offsets" in out:
+            out["refined_boxes"] = decode_reg_offsets(
+                out["matcher_reg_offsets"].to(torch.float32), props.boxes[:lframe])
+        return out
+
+    def _local_agg(self, out: Dict[str, Any], f_cls: torch.Tensor, f_reg: torch.Tensor,
+                   props: FrameProposals, lframe: int, x0: torch.Tensor) -> Dict[str, Any]:
+        """agg_type "localagg" (tscd_head.py:320-354): LocalAggregation over
+        every frame's proposals, refined cls on the local frames and with
+        `reconf` the obj logits and reg offsets as the matcher's outputs
+        (their decoded boxes `refined_boxes`); the matcher state passes
+        through."""
+        F_, P = props.boxes.shape[:2]
+        hid = self.hidden
+        agg_c, agg_r = self.agg(f_cls.reshape(-1, hid), f_reg.reshape(-1, hid),
+                                props.boxes.reshape(-1, 4), props.cls_conf.reshape(-1),
+                                props.obj.reshape(-1), props.valid.reshape(-1), F_, P,
+                                x0.shape[3] * self.strides[0], x0.shape[2] * self.strides[0])
+        agg_c = agg_c.reshape(F_, P, -1)[:lframe]
+        agg_r = agg_r.reshape(F_, P, -1)[:lframe]
+        out["refined_cls_logits"] = self.cls_pred(agg_c)
+        if self.reconf:
+            out["matcher_obj_logits"] = self.obj_pred(agg_r)[..., 0]
+            out["matcher_reg_offsets"] = self.reg_pred(agg_r)
             out["refined_boxes"] = decode_reg_offsets(
                 out["matcher_reg_offsets"].to(torch.float32), props.boxes[:lframe])
         return out

@@ -7,6 +7,11 @@ of both branches, lc = 25 q^c.k^c * score[k], lr = 25 q^r.k^r, -1e9 on
 invalid keys, attn = (softmax(lc) + softmax(lr)) / 2, and attn@Vc,
 attn@Vr. The kernel writes attn, which the round-2 pooling reads.
 
+Shapes: MCA's cross form (q = P = 50, k = 1600 at TSCD-Large) and
+YOLOV's self-attention form (q = k = F x P = 960 at YOLOV-L's window),
+whose scratch grows as q x k x d (`launch_bytes`); a launch the card
+cannot hold raises.
+
 Bound on an H100 at the main-path shape (B=1, h=4, q=50, k=1600, d=64):
 8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA (2.45 us
 at 67 TFLOP/s), so operations bound it, by a hair. The kernel splits the
@@ -40,6 +45,35 @@ def scratch_floats(B: int, h: int, q: int, k: int, d: int) -> int:
     nch = -(-k // KEY_CHUNK)
     dp = -(-d // 4) * 4
     return B * h * q * (4 * nch + 4 * nch * dp + 2 * k)
+
+
+def launch_bytes(B: int, h: int, q: int, k: int, d: int) -> int:
+    """Device bytes one launch allocates: its scratch, `attn` and the two
+    outputs, fp32. The scratch grows as q x k x d: 149 MB at YOLOV-L's
+    self-attention (1, 4, 960, 960, 64), 41.5 GB at
+    ovis_v++_large_decoupleReg's (1, 4, 16000, 16000, 64)."""
+    return 4 * (scratch_floats(B, h, q, k, d) + B * h * q * k + 2 * B * h * q * d)
+
+
+def _buffers(B: int, h: int, q: int, k: int, d: int, device: torch.device):
+    """The launch's outputs and scratch on `device`; raises with the shape
+    and the bytes where the card cannot hold them (more than its memory,
+    or an allocation that fails): there is no other route to fall back to."""
+    need = launch_bytes(B, h, q, k, d)
+    total = torch.cuda.get_device_properties(device).total_memory
+    what = (f"fused_dual_attention at (B {B}, h {h}, q {q}, k {k}, d {d}) needs {need} "
+            f"bytes of scratch and outputs")
+    if need > total:
+        raise ValueError(f"{what}, more than the card's {total} bytes")
+    f32 = dict(device=device, dtype=torch.float32)
+    try:
+        out_c = torch.empty(B, h, q, d, **f32)
+        out_r = torch.empty_like(out_c)
+        attn = torch.empty(B, h, q, k, **f32)
+        scratch = torch.empty(scratch_floats(B, h, q, k, d), **f32)
+    except torch.cuda.OutOfMemoryError as e:
+        raise ValueError(f"{what}, which the card cannot hold now") from e
+    return out_c, out_r, attn, scratch
 
 
 def _rows(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -151,11 +185,7 @@ def _launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, scale):
     if any(t.device != qc.device for t in qkv + [score, valid]):
         raise ValueError("all inputs must be on one device")
     strides = (ctypes.c_longlong * 18)(*(s for t in qkv for s in t.stride()[:3]))
-    f32 = dict(device=qc.device, dtype=torch.float32)
-    out_c = torch.empty(B, h, q, d, **f32)
-    out_r = torch.empty_like(out_c)
-    attn = torch.empty(B, h, q, k, **f32)
-    scratch = torch.empty(scratch_floats(B, h, q, k, d), **f32)
+    out_c, out_r, attn, scratch = _buffers(B, h, q, k, d, qc.device)
     lib = library.load()
     with torch.cuda.device(qc.device):
         stream = torch.cuda.current_stream().cuda_stream

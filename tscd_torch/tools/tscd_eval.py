@@ -22,14 +22,14 @@ import random
 import numpy as np
 
 
-def make_parser():
-    parser = argparse.ArgumentParser("TSCD eval (PyTorch port)")
+def make_parser(prog="TSCD eval (PyTorch port)",
+                exps="tscd_large (default), tscd_base, ovis_tscd_large, ovis_tscd_base or "
+                     "selftest"):
+    parser = argparse.ArgumentParser(prog)
     src = parser.add_mutually_exclusive_group()
     src.add_argument("-f", "--exp_file", type=str, default=None,
                      help="exp file defining Exp (a tscd_torch.exp.TSCDExp)")
-    src.add_argument("--exp", type=str, default=None,
-                     help="built-in exp: tscd_large (default), tscd_base, "
-                     "ovis_tscd_large, ovis_tscd_base or selftest")
+    src.add_argument("--exp", type=str, default=None, help=f"built-in exp: {exps}")
     parser.add_argument("-c", "--ckpt", type=str, required=True)
     parser.add_argument("--dataset", type=str, default=None, choices=["vid", "ovis"])
     parser.add_argument("--lframe", type=int, default=None)
@@ -44,14 +44,18 @@ def make_parser():
 
 
 def main(argv=None):
-    from tscd_torch.core.predict import make_predict_fn
+    return run(make_parser().parse_args(argv), "tscd_large")
+
+
+def run(args, default_exp: str):
+    """The evaluation the parsed `args` ask for, `default_exp` the
+    built-in exp without -f or --exp; the exp's predict function."""
     from tscd_torch.device import resolve_device
     from tscd_torch.exp import get_exp
     from tscd_torch.train.checkpoint import load_checkpoint
     from tscd_torch.utils.convert import load_reference_pth
 
-    args = make_parser().parse_args(argv)
-    exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else "tscd_large"))
+    exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else default_exp))
     exp.merge(args.opts)
     if args.dataset:
         exp.dataset_name = args.dataset
@@ -79,10 +83,7 @@ def main(argv=None):
               f"has no module for")
 
     loader = exp.get_eval_loader(pin_memory=device.type == "cuda")
-    evaluator = exp.get_evaluator(loader)
-    predict = make_predict_fn(model, exp.lframe_val, exp.gframe_val,
-                              exp.nmsthre, exp.test_conf)
-    result = evaluator.evaluate(predict)
+    result = exp.get_evaluator(loader).evaluate(exp.get_predict_fn(model))
     print(result.get("mAP"), result.get("AP50"))
     if args.output:
         with open(args.output, "w") as f:

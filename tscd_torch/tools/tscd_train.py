@@ -20,14 +20,14 @@ every flag.
 import argparse
 
 
-def make_parser():
-    parser = argparse.ArgumentParser("TSCD train (PyTorch port)")
+def make_parser(prog="TSCD train (PyTorch port)",
+                exps="tscd_large (default), tscd_base, ovis_tscd_large, ovis_tscd_base or "
+                     "selftest"):
+    parser = argparse.ArgumentParser(prog)
     src = parser.add_mutually_exclusive_group()
     src.add_argument("-f", "--exp_file", type=str, default=None,
                      help="exp file defining Exp (a tscd_torch.exp.TSCDExp)")
-    src.add_argument("--exp", type=str, default=None,
-                     help="built-in exp: tscd_large (default), tscd_base, "
-                     "ovis_tscd_large, ovis_tscd_base or selftest")
+    src.add_argument("--exp", type=str, default=None, help=f"built-in exp: {exps}")
     parser.add_argument("-expn", "--experiment-name", type=str, default=None)
     parser.add_argument("-c", "--ckpt", type=str, default=None,
                         help="initial weights, or the checkpoint to resume")
@@ -40,9 +40,14 @@ def make_parser():
 
 
 def main(argv=None):
+    return run(make_parser().parse_args(argv), "tscd_large")
+
+
+def run(args, default_exp: str):
+    """The training the parsed `args` ask for, `default_exp` the built-in
+    exp without -f or --exp, through the exp's trainer."""
     from tscd_torch.exp import get_exp
-    args = make_parser().parse_args(argv)
-    exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else "tscd_large"))
+    exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else default_exp))
     exp.merge(args.opts)
     if args.experiment_name:
         exp.exp_name = args.experiment_name

@@ -1,6 +1,7 @@
-"""YOLOX and TSCD stage-2 losses (counterpart of tscd_tpu/train/losses.py:
-yolox_loss and tscd_loss; reference yolo_head.py:267-433 and
-tscd_head.py:1008).
+"""YOLOX, TSCD stage-2 and YOLOV losses (counterpart of
+tscd_tpu/train/losses.py: yolox_loss, tscd_loss and yolov_loss; reference
+yolo_head.py:267-433, tscd_head.py:1008, yolovp_msa.py get_losses and
+v_plus_head.py's ota_mode path).
 
 A pure function of the head's outputs and the padded labels: SimOTA
 assigns targets (no gradient), then the base detector's IoU, objectness
@@ -145,6 +146,58 @@ def tscd_loss(head_out: Dict[str, Any], labels: torch.Tensor,
         "loss_refined_cls": loss_refined_cls,
         "loss_matched_obj": loss_matched_obj,
         "loss_matched_iou": IOU_MATCH_WEIGHT * loss_matched_iou,
+        "num_fg": tgt.num_fg.sum() / tgt.num_gt.sum().clamp(min=1.0),
+    }
+
+
+def yolov_loss(head_out: Dict[str, Any], labels: torch.Tensor,
+               strides: Sequence[int], num_refined_frames: int) -> Dict[str, torch.Tensor]:
+    """YOLOV / YOLOV++ losses (losses.py:206-268): total = 3 iou + obj +
+    cls (the base detector on every frame) + refined cls + refined obj
+    (with the head's obj logits) at the proposal anchors of the first
+    `num_refined_frames` frames, the refined targets from the same SimOTA
+    assignment (fg where the anchor is SimOTA's fg and the slot valid; the
+    obj BCE over every valid slot), the refined terms normalised by those
+    frames' fg count."""
+    f32 = torch.float32
+    raw = head_out["raw_outputs"].to(f32)
+    hw = head_out["hw"]
+    props = head_out["proposals"]
+    decoded = decode_outputs(raw, hw, strides)
+    bbox_preds = decoded[..., :4]
+    obj_logits = raw[..., 4]
+    cls_logits = raw[..., 5:]
+    gt_boxes, gt_classes, gt_valid = labels_to_padded(labels.to(f32))
+    tgt = simota_assign(bbox_preds, obj_logits, cls_logits, gt_boxes, gt_classes, gt_valid,
+                        *anchor_centers(hw, strides, raw.device))
+    num_fg = tgt.num_fg.sum().clamp(min=1.0)
+    fg = tgt.fg_mask.to(f32)
+    loss_iou = (iou_loss_cxcywh(bbox_preds, tgt.reg_target) * fg).sum() / num_fg
+    loss_obj = bce_with_logits(obj_logits, tgt.obj_target).sum() / num_fg
+    loss_cls = (bce_with_logits(cls_logits, tgt.cls_target).sum(-1) * fg).sum() / num_fg
+
+    R = num_refined_frames
+    num_fg_r = tgt.num_fg[:R].sum().clamp(min=1.0)
+    r_idx, r_valid = props.idx[:R], props.valid[:R]
+    refined_fg = (_rows(tgt.fg_mask[:R], r_idx) & r_valid).to(f32)
+    loss_refined_cls = (bce_with_logits(
+        head_out["refined_cls_logits"][:R].to(f32), _rows(tgt.cls_target[:R], r_idx)
+    ).sum(-1) * refined_fg).sum() / num_fg_r
+    if "refined_obj_logits" in head_out:
+        loss_refined_obj = (bce_with_logits(
+            head_out["refined_obj_logits"][:R].to(f32), refined_fg
+        ) * r_valid.to(f32)).sum() / num_fg_r
+    else:
+        loss_refined_obj = torch.zeros((), device=raw.device)
+    total = (REG_WEIGHT * loss_iou + loss_obj + loss_cls + loss_refined_cls
+             + loss_refined_obj)
+    return {
+        "total_loss": total,
+        "iou_loss": REG_WEIGHT * loss_iou,
+        "conf_loss": loss_obj,
+        "cls_loss": loss_cls,
+        "loss_refined_cls": loss_refined_cls,
+        "loss_refined_obj": loss_refined_obj,
         "num_fg": tgt.num_fg.sum() / tgt.num_gt.sum().clamp(min=1.0),
     }
 

@@ -30,7 +30,7 @@ from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.convert import flax_param_path
+from ..utils.convert import flax_param_path, yolov_towers
 
 FROZEN = "frozen"
 CLIP_GRAD_NORM = 35.0     # build_sgd's default, the recipe's value
@@ -41,9 +41,11 @@ def label_params(named_params: Iterable[Tuple[str, torch.Tensor]],
                  stem_lr_prefixes: Sequence[str] = ()) -> Dict[str, str]:
     """{port name: 'frozen' | 'weight' | 'no_decay' | 'stem_weight' |
     'stem_no_decay'}, as `_label_params` labels each flax path."""
+    named_params = list(named_params)
+    towers = yolov_towers(n for n, _ in named_params)
     labels = {}
     for name, p in named_params:
-        path = flax_param_path(name, p.dim())
+        path = flax_param_path(name, p.dim(), towers)
         spath = "/".join(path)
         leaf, parent = path[-1], (path[-2] if len(path) > 1 else "")
         no_decay = leaf == "bias" or parent == "bn" or leaf == "scale"

@@ -7,7 +7,7 @@ state (resume=False), and within a window its bank carries gradients
 across the local frames."""
 
 from dataclasses import dataclass
-from typing import Dict, Sequence, Union
+from typing import Callable, Dict, Sequence, Union
 
 import torch
 
@@ -44,10 +44,21 @@ def init_train_state(model: Union[TSCD, YOLOX], optimizer: GroupedSGD,
     return TrainState(model, optimizer, ModelEMA(model, ema_decay, optimizer.masters))
 
 
+def tscd_window_loss(model: TSCD, frames: torch.Tensor, labels: torch.Tensor,
+                     time_emb: torch.Tensor, lframe: int, gframe: int, train: bool,
+                     strides: Sequence[int], ota_mode: bool):
+    """One window's forward and TSCD losses: (losses, the head's dict)."""
+    # labels ride into the forward as JAX's fix_bn and train-mode steps
+    # pass them (a cat_ota_fg head runs SimOTA there, once a window)
+    out = model(frames, time_emb, lframe, gframe, train=train, labels=labels)
+    return tscd_loss(out, labels, strides, lframe, ota_mode=ota_mode), out
+
+
 def train_step(state: TrainState, frames: torch.Tensor, labels: torch.Tensor,
                time_emb: torch.Tensor, lframe: int, gframe: int,
                strides: Sequence[int] = (8, 16, 32), ota_mode: bool = True,
-               fix_bn: bool = True) -> Dict[str, torch.Tensor]:
+               fix_bn: bool = True,
+               window_loss: Callable = tscd_window_loss) -> Dict[str, torch.Tensor]:
     """One update on one window, frames (F, H, W, 3) fp32 or uint8, labels
     (F, G, 5) [cls, cx, cy, w, h], time_emb (F, 256), or on a batch of B
     windows with a leading B axis on each; all on the model's device.
@@ -68,7 +79,12 @@ def train_step(state: TrainState, frames: torch.Tensor, labels: torch.Tensor,
     scans its vmapped loss over chunks of windows to cut peak memory, with
     the one-big-batch result (`scan_accum_value_and_grad`); this step
     holds one window at a time whatever the chunking and gives that
-    result, so it takes no grad_accum."""
+    result, so it takes no grad_accum.
+
+    `window_loss(model, frames, labels, time_emb, lframe, gframe, train,
+    strides, ota_mode)` -> (losses, the head's dict) is one window's
+    forward and loss: the TSCD one, or the YOLOV family's
+    (`core.yolov_trainer.yolov_window_loss`)."""
     model = state.model
     batched = frames.dim() == 5
     if not batched:
@@ -79,11 +95,8 @@ def train_step(state: TrainState, frames: torch.Tensor, labels: torch.Tensor,
     sums: Dict[str, torch.Tensor] = {}
     stats: Dict[str, torch.Tensor] = {}
     for b in range(B):
-        # labels ride into the forward as JAX's fix_bn and train-mode steps
-        # pass them (a cat_ota_fg head runs SimOTA there, once a window)
-        out = model(frames[b], time_emb[b], lframe, gframe, train=not fix_bn,
-                    labels=labels[b])
-        losses = tscd_loss(out, labels[b], strides, lframe, ota_mode=ota_mode)
+        losses, out = window_loss(model, frames[b], labels[b], time_emb[b], lframe, gframe,
+                                  not fix_bn, strides, ota_mode)
         total = losses["total_loss"]
         (total / B if B > 1 else total).backward()
         state.optimizer.accumulate()

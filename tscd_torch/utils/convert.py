@@ -10,9 +10,16 @@ HWIO kernel -> OIHW conv weight, (in, out) kernel -> (out, in) linear
 weight (or (out, in, 1, 1) for the reference's 1x1 conv that JAX runs as
 a Dense), BN scale/bias/mean/var -> weight/bias/running_mean/running_var,
 LayerNorm scale -> weight. `flax_from_state_dict` is the inverse.
+
+The YOLOV family's heads hold their stems, towers and per-level preds
+under JAX's `towers` module (yolov_heads.py:_VideoTowers), where TSCD
+and YOLOX hold them on the head itself. The names do not say which:
+a state_dict whose head has a video cls tower and no edge block
+(`yolov_towers`) is a YOLOV family model's, and its tower names map
+under `head/towers`.
 """
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,9 +114,17 @@ def _translate_video(parts):
             else:
                 out.append(f"layer_{j}")
                 i += 2
-        elif p == "multihead_attn":
+        elif p in ("multihead_attn", "self_attn"):
             out.append("attn")
             i += 1
+        elif p == "transBlocks":
+            # LocalAggregation's blocks (post_trans.py:972)
+            out.append(f"block_{parts[i + 1]}")
+            i += 2
+        elif p == "net" and i + 1 < len(parts) and parts[i + 1] in ("0", "3"):
+            # FFN Sequential(Linear, GELU, Dropout, Linear, Dropout) -> fc1/fc2
+            out.append("fc1" if parts[i + 1] == "0" else "fc2")
+            i += 2
         elif p == "fc" and i + 1 < len(parts) and parts[i + 1] in ("0", "2"):
             # SEModule Sequential(Linear, ReLU, Linear) -> fc1/fc2
             out.append("fc1" if parts[i + 1] == "0" else "fc2")
@@ -120,30 +135,54 @@ def _translate_video(parts):
     return out
 
 
-def flax_module_path(name: str) -> Tuple[str, ...]:
+_TOWER_PREFIXES = ("stem_", "cls_conv_", "reg_conv_", "cls_conv2_", "reg_conv2_",
+                   "cls_pred_", "reg_pred_", "obj_pred_")
+
+
+def yolov_towers(names: Iterable[str]) -> Optional[str]:
+    """The head's prefix ("head." in a model, "" in a bare head) where the
+    state_dict names are a YOLOV family head's: a video cls tower
+    (`cls_convs2`) and no edge block, which every TSCD head has (and
+    YOLOX has neither); else None."""
+    names = list(names)
+    for pre in ("head.", ""):
+        if (any(n.startswith(pre + "cls_convs2.") for n in names)
+                and not any(n.startswith(pre + "edge_enhance_reg.") for n in names)):
+            return pre
+    return None
+
+
+def flax_module_path(name: str, towers: Optional[str] = None) -> Tuple[str, ...]:
     """Port / reference parameter name without its leaf -> flax module
     path, e.g. 'head.agg.mca.kv_cls.weight' -> ('head', 'agg', 'mca',
-    'attn', 'kv_cls')."""
+    'attn', 'kv_cls'); with `towers` the prefix of a YOLOV family head
+    (`yolov_towers`), its stems, towers and preds go under 'towers'."""
     parts = name.split(".")[:-1]
-    return tuple(_translate_video(_translate_head(_translate_backbone(parts))))
+    path = tuple(_translate_video(_translate_head(_translate_backbone(parts))))
+    if towers is not None and name.startswith(towers):
+        i = len(towers.split(".")) - 1
+        if len(path) > i and path[i].startswith(_TOWER_PREFIXES):
+            path = path[:i] + ("towers",) + path[i:]
+    return path
 
 
 # 1x1 convs of the reference that JAX applies as a Dense on the last axis
 # (PositionMHAttention.position_embedding, tscd_matching.py:27;
-# tscd_tpu/utils/convert.py:168-175)
-_DENSE_AS_CONV = ("position_embedding",)
+# SelfAttentionLocal.loc2feature over the 64-dim relation embedding,
+# post_trans.py:86; tscd_tpu/utils/convert.py:168-175): a 4-d weight there
+_DENSE_AS_CONV = ("position_embedding", "loc2feature")
 
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
 
 
-def flax_param_path(name: str, ndim: int) -> Tuple[str, ...]:
+def flax_param_path(name: str, ndim: int, towers: Optional[str] = None) -> Tuple[str, ...]:
     """A port parameter's flax `params` path, leaf included: the module
     path of `flax_module_path` and the leaf flax names it by (`kernel` for
     a conv or Linear weight of `ndim` 4 or 2, `scale` for a BatchNorm or
     LayerNorm weight)."""
-    path = flax_module_path(name)
+    path = flax_module_path(name, towers)
     leaf = name.split(".")[-1]
     if path and path[-1] == "bn":
         return path + (_BN_LEAVES[leaf][1],)
@@ -172,13 +211,14 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
     `strict` False a key the tree lacks, or holds at another shape, is left
     out (for a shape-tolerant load) instead of raising."""
     coll = {c: flatten_tree(variables.get(c, {})) for c in ("params", "batch_stats")}
+    towers = yolov_towers(template)
     out: Dict[str, torch.Tensor] = {}
     for name, ref in template.items():
         leaf = name.split(".")[-1]
         if leaf == "num_batches_tracked":
             out[name] = ref.clone()
             continue
-        path = flax_module_path(name)
+        path = flax_module_path(name, towers)
         if path and path[-1] == "bn":
             c, key = _BN_LEAVES[leaf]
         elif leaf == "weight":
@@ -188,7 +228,7 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
         if not strict and path + (key,) not in coll[c]:
             continue
         arr = np.asarray(coll[c][path + (key,)])
-        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV:
+        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV and ref.dim() == 4:
             arr = arr.T[:, :, None, None]               # (in,out) -> (out,in,1,1)
         elif leaf == "weight" and ref.dim() == 4:       # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
@@ -211,17 +251,18 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
     value keeps its dtype; a bfloat16 one stays a torch tensor, which
     `utils.flax_msgpack` writes as flax's bfloat16 ndarray."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    towers = yolov_towers(state)
     for name, t in state.items():
         leaf = name.split(".")[-1]
         if leaf == "num_batches_tracked":
             continue
-        path = flax_module_path(name)
+        path = flax_module_path(name, towers)
         if path and path[-1] == "bn":
             c, key = _BN_LEAVES[leaf]
         else:
             c, key = "params", flax_param_path(name, t.dim())[-1]
         t = t.detach().cpu()
-        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV:
+        if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV and t.dim() == 4:
             t = t[:, :, 0, 0].t()                       # (out,in,1,1) -> (in,out)
         elif leaf == "weight" and t.dim() == 4:         # OIHW -> HWIO
             t = t.permute(2, 3, 1, 0)
