@@ -23,9 +23,14 @@ detections 1e-4 as sets); the NMS at
 the pre-NMS call's shape (32, 750), exactly; postprocess_dense at (8,
 2048) exactly, and the OVIS fixture's warps equal to cv2's recorded
 pixels; the attention in the YOLOV family's self-attention form (q = k =
-960 and 480, some keys invalid) 1e-5 as above, the wrapper raising with
-the shape and bytes where the card cannot hold a launch, and the NMS at
-YOLOV-L's refined postprocess (32, 900) exactly.
+960 and 480, some keys invalid) 1e-5 as above, and its streaming route
+(q > 128: 960 at d 64 and 32, 200, 8000; with and without the online
+MSA's fg score; fp32 and bf16 q/k/v; all keys but one invalid) 1e-5 from
+the plain version and bit-identical across calls, the wrapper raising
+with the shape and bytes where the card cannot hold a launch, the NMS at
+YOLOV-L's refined postprocess (32, 900) exactly, and the online YOLOV
+stream (graph replays) against the CPU's eager stream at the selftest
+size, detections and bank 1e-4.
 """
 
 import numpy as np
@@ -54,6 +59,8 @@ def _attn_inputs(rng, B, h, q, k, d, p_valid=0.8):
            rng.uniform(0, 1, (B, k)).astype(np.float32))
     if p_valid == "last 3":
         return ins + (np.arange(k)[None].repeat(B, 0) >= k - 3,)
+    if p_valid == "tile 1":     # the streaming route's second key tile invalid, the rest valid
+        return ins + (np.arange(k)[None].repeat(B, 0) // pfa.STREAM_TILE != 1,)
     return ins + (rng.uniform(size=(B, k)) < p_valid,)
 
 
@@ -682,16 +689,125 @@ def test_cuda_attention_self_attention_form_matches_plain(card, B, h, q, d):
 
 @pytest.mark.cuda
 def test_cuda_attention_raises_where_the_card_cannot_hold_it(card):
-    """q = k = 24000 at d 64 needs 102.6 GB of scratch and outputs: the
-    wrapper raises with the shape and the bytes, and launches nothing."""
-    B, h, n, d = 1, 4, 24000, 64
+    """q = k = 80000 at h 4, d 64 needs 102.6 GB of attn and outputs on the
+    streaming route: the wrapper raises with the shape and the bytes, and
+    launches nothing."""
+    B, h, n, d = 1, 4, 80000, 64
+    need = pfa.launch_bytes(B, h, n, n, d)
+    assert pfa.route(n) == "stream" and need > torch.cuda.get_device_properties(card).total_memory
     mk = lambda m: torch.zeros(B, h, m, d, device=card)      # noqa: E731
     args = [mk(n) for _ in range(6)] + [torch.ones(B, n, device=card),
                                         torch.ones(B, n, dtype=torch.bool, device=card)]
     n0 = pfa.fused_dual_attention.launches
-    with pytest.raises(ValueError, match=f"q {n}, k {n}, d {d}.* {pfa.launch_bytes(B, h, n, n, d)} bytes"):
+    with pytest.raises(ValueError, match=f"q {n}, k {n}, d {d}.* {need} bytes"):
         pfa.fused_dual_attention(*args)
     assert pfa.fused_dual_attention.launches == n0
+
+
+def _stream_inputs(card, rng, h, n, d, fg, dtype, p_valid=0.8):
+    """Inputs at q = k = n on the joint projection's views, 1 - p_valid of
+    the keys invalid (or the mask `_attn_inputs` names), with the
+    reg-branch score or without."""
+    ins = [torch.from_numpy(a).to(card) for a in _attn_inputs(rng, 1, h, n, n, d, p_valid)]
+    fg_score = (torch.from_numpy(rng.uniform(0.05, 1, (1, n)).astype(np.float32)).to(card)
+                if fg else None)
+    views = _as_aggregation_views(ins)
+    views[:6] = [t.to(dtype) for t in views[:6]]
+    return views, fg_score
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,fg,dtype,valid", [
+    (960, 64, False, torch.float32, 0.8), (960, 64, True, torch.float32, 0.8),
+    (960, 32, True, torch.float32, 0.8), (960, 64, True, torch.bfloat16, 0.8),
+    (200, 16, True, torch.float32, 0.8),      # a ragged last key tile and query tile
+    (150, 8, True, torch.float32, 0.8),       # 150 = 2 x 64 + 22 keys
+    (200, 16, True, torch.float32, "tile 1"),  # a whole key tile invalid between valid ones
+    (8000, 32, False, torch.float32, 0.8)])
+def test_cuda_attention_stream_matches_plain(card, n, d, fg, dtype, valid):
+    """The streaming route (q > 128) at the self-attention form's shapes,
+    with and without the online MSA's fg score, fp32 and bf16 q/k/v,
+    ragged tiles and an invalid tile: one launch, 1e-5 from the plain
+    version on the same inputs."""
+    ins, fg_score = _stream_inputs(card, np.random.default_rng(31), 4, n, d, fg, dtype, valid)
+    want = pfa.fused_dual_attention_plain(*ins, 25.0, fg_score)
+    n0 = pfa.fused_dual_attention.launches
+    got = pfa.fused_dual_attention(*ins, 25.0, fg_score)
+    torch.cuda.synchronize()
+    assert pfa.route(n) == "stream" and pfa.fused_dual_attention.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_stream_with_all_but_one_key_invalid(card):
+    """Every row's mass on the one valid key; a row of all-invalid keys
+    (a second batch element) uniform, as the plain version."""
+    rng = np.random.default_rng(32)
+    n = 300
+    ins = [torch.from_numpy(a).to(card) for a in _attn_inputs(rng, 2, 2, n, n, 32)]
+    ins[7] = torch.zeros(2, n, dtype=torch.bool, device=card)
+    ins[7][0, 17] = True
+    got = pfa.fused_dual_attention(*ins)
+    want = pfa.fused_dual_attention_plain(*ins)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[2][0, :, :, 17], torch.ones(2, n, device=card))
+    torch.testing.assert_close(got[2][1], torch.full((2, n, n), 1.0 / n, device=card))
+
+
+@pytest.mark.cuda
+def test_cuda_attention_stream_is_bit_identical_across_calls(card):
+    ins, fg_score = _stream_inputs(card, np.random.default_rng(33), 4, 960, 64, True,
+                                   torch.float32)
+    first = pfa.fused_dual_attention(*ins, 25.0, fg_score)
+    second = pfa.fused_dual_attention(*ins, 25.0, fg_score)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_online_stream_graph_replays_match_cpu(fp32_card):
+    """The online path at the selftest size (P 8, a bank of 3 frames, 10
+    frames: both rings wrap): the card's stream (CUDA graph replays after
+    the first step) against the CPU's eager stream, frame by frame: the
+    detections (masks and classes exactly, boxes 1e-4 of the frame's
+    largest coordinate, the rest 1e-4) and every bank field (1e-4;
+    pointers, counts and masks exactly)."""
+    from tscd_torch.core.online import OnlineStream
+    from tscd_torch.exp import get_exp_by_name
+    from tscd_torch.models.tscd import random_init_
+    exp = get_exp_by_name("yolov_selftest")
+    sd = random_init_(exp.get_online_model(device="cpu"), exp.seed).state_dict()
+    rng = np.random.default_rng(34)
+    frames = rng.uniform(0, 255, (10, 64, 64, 3)).astype(np.float32)
+    streams = {}
+    for dev in ("cpu", fp32_card):
+        model = exp.get_online_model(device=dev)
+        model.load_state_dict(sd)
+        streams[str(dev)] = OnlineStream(model, bank_frames=3)
+    cpu, gpu = streams["cpu"], streams[str(fp32_card)]
+    n0 = pfa.fused_dual_attention.launches
+    for f, x in enumerate(frames):
+        (want, use_want), (got, use_got) = cpu.step(x), gpu.step(x)
+        assert bool(use_got) == bool(use_want) == (f >= 2), f
+        assert torch.equal(got.mask.cpu(), want.mask) and torch.equal(got.cls_id.cpu(), want.cls_id), f
+        # boxes 1e-4 of the frame's largest coordinate: x1 = cx - w / 2 cancels
+        box_atol = 1e-4 * max(1.0, float(want.boxes.abs().max()))
+        torch.testing.assert_close(got.boxes.cpu(), want.boxes, atol=box_atol, rtol=1e-4)
+        for g, w in list(zip(got, want))[1:]:
+            torch.testing.assert_close(g.cpu().float(), w.float(), atol=1e-4, rtol=1e-4)
+        for name, g, w in zip(cpu.bank._fields, gpu.bank, cpu.bank):
+            if w.is_floating_point():
+                torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4, msg=name)
+            else:
+                assert torch.equal(g.cpu(), w), (f, name)
+    # the first step runs eagerly and is captured (two wrapper calls); the
+    # other nine are replays, which run no Python
+    assert pfa.fused_dual_attention.launches == n0 + 2
+    assert len(gpu._graphs) == 1
 
 
 @pytest.mark.cuda

@@ -68,6 +68,15 @@ class WindowGraph:
         return _clone(self.out)
 
 
+def detection_rows(refined: Detections) -> List[np.ndarray]:
+    """Detections copied to the host as per-frame [x1, y1, x2, y2, obj,
+    score, cls] rows, one array a frame."""
+    r = Detections(*(t.cpu().numpy() for t in refined))
+    return [np.concatenate([r.boxes[f], r.obj[f][:, None], r.score[f][:, None],
+                            r.cls_id[f][:, None].astype(np.float32)], -1)[r.mask[f]]
+            for f in range(r.mask.shape[0])]
+
+
 def window_predict_fn(run: Callable, inputs: Callable, device: torch.device):
     """The streaming evaluator's step around one window's program:
     inputs(imgs, te, resume, state) gives the window's host-side tensors
@@ -104,19 +113,13 @@ def window_predict_fn(run: Callable, inputs: Callable, device: torch.device):
             return graph.first
         return graph.replay(*tensors)
 
-    def materialize(refined: Detections) -> List[np.ndarray]:
-        r = Detections(*(t.cpu().numpy() for t in refined))
-        return [np.concatenate([r.boxes[f], r.obj[f][:, None], r.score[f][:, None],
-                                r.cls_id[f][:, None].astype(np.float32)], -1)[r.mask[f]]
-                for f in range(r.mask.shape[0])]
-
     def predict(imgs, te, resume: bool, state):
         refined, new_state = dispatch(imgs, te, resume, state)
-        return materialize(refined), new_state
+        return detection_rows(refined), new_state
 
     predict.dispatch = dispatch
     predict.dispatch_eager = dispatch_eager
-    predict.materialize = materialize
+    predict.materialize = detection_rows
     return predict
 
 

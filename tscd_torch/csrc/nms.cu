@@ -59,9 +59,10 @@
 // as torch casts a Python scalar; the compare is `>`. Do not build this
 // file with --use_fast_math.
 //
-// Resources: K <= 8192 (nb <= 256); the walk's shared memory is two slots
-// of up to 8 rows (fewer past nb = 100, at most 200 KB): 98.5 KB at
-// K = 1500. No atomics: the same result every run.
+// Resources: K <= 16384 (nb <= 512: OVIS YOLOV++'s refined postprocess
+// takes K = 500 proposals x 25 classes = 12500); the walk's shared memory
+// is two slots of up to 8 rows (fewer past nb = 100, one past nb = 400;
+// at most 205 KB): 98.5 KB at K = 1500, 200.4 KB at K = 12500. No atomics: the same result every run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,7 +72,7 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int KMAX = 8192;
+constexpr int KMAX = 16384;
 constexpr int PACK_WARPS = 8;
 constexpr int PACK_ROWS = 8;                // rows of a tile a warp packs: 4 warps a tile
 constexpr int BATCH_ROWS = 8;               // row blocks a bulk copy brings, at most

@@ -29,7 +29,7 @@ class VIDEvaluator:
         if traj_linking:
             raise NotImplementedError(
                 "traj_linking needs postprocess/linking.py, which the port "
-                "does not have yet (ROADMAP queue 1 item 14)")
+                "does not have yet (ROADMAP queue 1 item 9)")
         self.dataloader = dataloader
         self.img_size = img_size
         self.confthre = confthre

@@ -62,6 +62,16 @@ class YOLOVExp(TSCDExp):
     def num_proposals(self) -> int:
         return self.maximal_limit or self.minimal_limit or self.defualt_p
 
+    def get_online_model(self, device: Optional[Union[str, torch.device]] = None):
+        """YOLOVOnline on `device` (the card unless the caller asks for
+        another) as the online demo builds it from a YOLOV exp
+        (tools/yolov_demo_online.py:56-61): num_classes, depth, width,
+        P = minimal_limit, heads, sim_thresh; random weights until loaded."""
+        from ..models.yolov import YOLOVOnline
+        return YOLOVOnline(num_classes=self.num_classes, depth=self.depth, width=self.width,
+                           num_proposals=self.minimal_limit, heads=self.heads,
+                           sim_thresh=self.sim_thresh, device=device)
+
     def get_model(self, device: Optional[Union[str, torch.device]] = None):
         """YOLOV or YOLOV++ on `device` (the card unless the caller asks for
         another), with the knobs JAX's get_model passes; raises for the
@@ -260,10 +270,9 @@ class OVISVPlusBaseDecoupleRegExp(YOLOVExp):
 
 class OVISVPlusLargeDecoupleRegExp(OVISVPlusBaseDecoupleRegExp):
     """exps/ovis_yolov_plus/ovis_v++_large_decoupleReg.py: depth and width
-    1.0. Its window (32 frames x 500 slots: the attention at q = k =
-    16000, d = 64) needs 41.5 GB of attention scratch a launch, twice a
-    window (ROADMAP queue 2: a kernel whose scratch does not grow as
-    q x k x d)."""
+    1.0. Its window (32 frames x 500 slots) runs the attention at q = k =
+    16000, d 64, twice, on the kernel's streaming route (about 4.1 GB a
+    launch: `attn` and the outputs)."""
 
     def __init__(self):
         super().__init__()

@@ -6,10 +6,12 @@ MCA: each local frame's P proposals attend to its own frame plus every
 global frame. The JAX package vmaps over local frames; here the local
 frame is a batch axis written out. MSA (YOLOV): every proposal of the
 window attends to every other, one batch of q = k = F x P rows, through
-the joint q/k/v projections (`cross=False`). The fused branch (no
-score-window mask) goes through the hand kernel
-`ops.kernels.fused_attention`; the masked branch (`use_mask`) is plain
-tensor code.
+the joint q/k/v projections (`cross=False`); the online MSA
+(`reg_score_guidance`) also weights the reg logits by the keys' fg score
+(aggregation.py:68,125-126). The fused branch (no score-window mask) goes
+through the hand kernel `ops.kernels.fused_attention`, the guidance too
+(JAX computes that form outside Pallas, in XLA); the masked branch
+(`use_mask`) is plain tensor code.
 
 Compute dtype (`dtype`) as in the JAX modules: the Linear layers run in
 it; logits, softmaxes and `attn @ V` are fp32 (the kernel upcasts bf16
@@ -59,16 +61,19 @@ class DualBranchAttention(nn.Module):
     the first n_query tokens through q_cls_local / q_reg_local, k/v over
     all tokens through kv_cls / kv_reg. `cross=False` (Attention_msa):
     the joint projections qkv_cls / qkv_reg, split into q, k and v in
-    that order, q the first n_query rows (aggregation.py:82-91)."""
+    that order, q the first n_query rows (aggregation.py:82-91).
+    `reg_score_guidance` (Attention_msa_online, post_trans.py:950): the
+    reg logits times each key's fg score, where one is passed."""
 
     def __init__(self, dim: int, num_heads: int = 4, scale: float = 25.0,
                  qkv_bias: bool = False, dtype: torch.dtype = torch.float32,
-                 cross: bool = True):
+                 cross: bool = True, reg_score_guidance: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.scale = scale
         self.dtype = dtype
         self.cross = cross
+        self.reg_score_guidance = reg_score_guidance
         kw = dict(bias=qkv_bias, dtype=dtype)
         if cross:
             self.q_cls_local = nn.Linear(dim, dim, **kw)
@@ -108,17 +113,20 @@ class DualBranchAttention(nn.Module):
         kv = key_valid[:, None, :]
 
         cls_mask = None
+        fg = fg_score if self.reg_score_guidance else None
         if not use_mask:
             score = (cls_score.to(f32) if cls_score is not None
                      else torch.ones_like(key_valid, dtype=f32))
             x, xr, attn = fused_dual_attention(qc0, kc0, vc, qr0, kr0, vr,
-                                               score, key_valid, self.scale)
+                                               score, key_valid, self.scale, fg)
         else:
             qc, kc, qr, kr = (_l2norm(t).to(f32) for t in (qc0, kc0, qr0, kr0))
             logits_cls = torch.einsum("bhqd,bhkd->bhqk", qc, kc) * self.scale
             logits_reg = torch.einsum("bhqd,bhkd->bhqk", qr, kr) * self.scale
             if cls_score is not None:
                 logits_cls = logits_cls * cls_score.to(f32)[:, None, None, :]
+            if fg is not None:
+                logits_reg = logits_reg * fg.to(f32)[:, None, None, :]
             if cls_score is not None and fg_score is not None:
                 # score-window mask on the CLS logits only; fg_mask joins
                 # the round-2 sim_mask (post_trans.py:778,818)
@@ -262,15 +270,17 @@ class MSAYolov(nn.Module):
     N), linear1 (2C -> 2C), round 2 pooling the projected features
     (sim_round2 @ linear1) -> 4C -> linear2 to out_dim; with `reconf` the
     same on the reg branch (linear1_obj, linear2_obj, obj_round2).
-    Parameters `msa.qkv_cls`, `linear1`, ... as the reference's. JAX's
-    `reg_score_guidance` (the online head's) is not ported."""
+    Parameters `msa.qkv_cls`, `linear1`, ... as the reference's.
+    `reg_score_guidance` (the online head's MSA, MSA_yolov_online): the
+    reg logits times the keys' fg score."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 4,
                  scale: float = 25.0, reconf: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, reg_score_guidance: bool = False):
         super().__init__()
         self.reconf = reconf
-        self.msa = DualBranchAttention(in_dim, num_heads, scale, dtype=dtype, cross=False)
+        self.msa = DualBranchAttention(in_dim, num_heads, scale, dtype=dtype, cross=False,
+                                       reg_score_guidance=reg_score_guidance)
         self.linear1 = nn.Linear(2 * in_dim, 2 * in_dim, dtype=dtype)
         self.linear2 = nn.Linear(4 * in_dim, out_dim, dtype=dtype)
         if reconf:

@@ -1,8 +1,10 @@
 """YOLOV family top models of the port (counterpart of
-tscd_tpu/models/yolov.py: YOLOV, YOLOVPlus, yolov_eval_postprocess;
-reference yolox/models/myolox.py:8, yolov_plus.py:8): YOLOPAFPN and a
-YOLOV head over a window of frames. The forward is the eval forward; in
-train mode it is the training forward, which autograd records.
+tscd_tpu/models/yolov.py: YOLOV, YOLOVPlus, YOLOVOnline,
+yolov_eval_postprocess; reference yolox/models/myolox.py:8,
+yolov_plus.py:8, yolov_online.py:8): YOLOPAFPN and a YOLOV head over a
+window of frames, or for YOLOVOnline over one frame and a carried bank.
+The forward is the eval forward; in train mode it is the training
+forward, which autograd records.
 
 As `models.tscd.TSCD` (`WindowModel`): built on `device` (the card
 unless the caller passes another), fp32, BatchNorm's mode the forward's
@@ -21,7 +23,8 @@ import torch
 from ..device import resolve_device
 from ..ops.postprocess import Detections, postprocess_refined
 from .tscd import WindowModel
-from .yolov_heads import YOLOVHead, YOLOVPlusHead
+from .tscd_head import FrameProposals
+from .yolov_heads import OnlineBank, YOLOVHead, YOLOVOnlineHead, YOLOVPlusHead, init_online_bank
 
 
 class YOLOV(WindowModel):
@@ -87,6 +90,56 @@ class YOLOVPlus(WindowModel):
                 train: bool = False) -> Dict[str, Any]:
         return self._window(x, train, lambda fpn_outs, stats: self.head(
             fpn_outs, lframe, gframe, time_embedding, stats))
+
+
+class YOLOVOnline(WindowModel):
+    """Streaming YOLOV (yolov.py:84-137) with the device-resident
+    `OnlineBank`, evaluated (no online trainer exists in either package):
+    `forward(x, bank)` runs one frame (x (1, H, W, 3)) and returns the
+    head's dict with the new bank in out["bank"]; `window(xs, bank)` runs
+    K frames, the backbone batched over them and the head once a frame
+    with the bank threaded through, the same as K single calls."""
+
+    def __init__(self, num_classes: int = 30, depth: float = 1.0, width: float = 1.0,
+                 act: str = "silu", depthwise: bool = False, num_proposals: int = 30,
+                 heads: int = 4, sim_thresh: float = 0.75, backbone_name: str = "MCSP",
+                 device: Optional[Union[str, torch.device]] = None):
+        device = resolve_device(device)
+        super().__init__(backbone_name, depth, width, act, depthwise, False, False)
+        self.num_classes = num_classes
+        self.head = YOLOVOnlineHead(num_classes, width=width, act=act, depthwise=depthwise,
+                                    heads=heads, num_proposals=num_proposals,
+                                    sim_thresh=sim_thresh)
+        self._place(device)
+
+    def init_bank(self, bank_frames: int = 31) -> OnlineBank:
+        """An empty bank of `bank_frames` frames' proposals on the model's
+        device (the demo's init_online_bank(bank_frames x P, hidden))."""
+        return init_online_bank(bank_frames * self.head.num_proposals, self.head.hidden,
+                                device=self.device)
+
+    def forward(self, x: torch.Tensor, bank: OnlineBank) -> Dict[str, Any]:
+        return self._window(x, False, lambda fpn_outs, stats: self.head(fpn_outs, bank, stats))
+
+    def window(self, xs: torch.Tensor, bank: OnlineBank) -> Tuple[Dict[str, Any], OnlineBank]:
+        """K frames xs (K, H, W, 3): (the head's outputs stacked with a
+        leading K, `use_refined` (K,), one `hw`; the bank after the K
+        frames)."""
+        def frames(fpn_outs, stats):
+            nonlocal bank
+            outs = []
+            for f in range(xs.shape[0]):
+                o = self.head([lvl[f:f + 1] for lvl in fpn_outs], bank, stats)
+                bank = o.pop("bank")
+                outs.append(o)
+            stacked = {k: torch.cat([o[k] for o in outs], 0)
+                       for k in ("raw_outputs", "decoded", "refined_cls_logits")}
+            stacked["proposals"] = FrameProposals(*(torch.cat(t, 0) for t in zip(
+                *(o["proposals"] for o in outs))))
+            stacked["use_refined"] = torch.stack([o["use_refined"] for o in outs])
+            stacked["hw"] = outs[0]["hw"]
+            return stacked
+        return self._window(xs, False, frames), bank
 
 
 def yolov_eval_postprocess(head_out: Dict[str, Any], num_frames: int, num_classes: int,

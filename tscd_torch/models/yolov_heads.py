@@ -22,11 +22,17 @@ Parameters are the reference's state_dict names (`stems.0`,
 `cls_convs2.0.1`, `agg.msa.qkv_cls`, `agg.transBlocks.0.self_attn.qkv`,
 `agg.transBlocks.0.mlp.net.0`, ...); `utils.convert` maps them to JAX's
 (`towers/stem_0`, `agg/block_0/attn/qkv`, `agg/block_0/mlp/fc1`).
-The online head (OnlineBank, YOLOVOnlineHead) is not ported.
+
+The online head (yolov_heads.py:583-796; reference yolov_msa_online.py:27):
+one frame a call, its P proposals and an `OnlineBank` carried between
+calls (ring buffers with pointers and validity masks on the device, and
+no host read of them), the square MSA over current ++ bank through the
+hand attention kernel with the reg branch's fg-score guidance, the merge
+against the local msa memory (`local_agg_merge`), refined cls logits.
 """
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +42,7 @@ from torch import nn
 from ..ops.boxes import pairwise_iou_xyxy
 from ..ops.decode import decode_outputs
 from ..ops.position import get_timing_signal_1d
-from .aggregation import MCAg2l, MSAYolov, _merge_heads, _split_heads
+from .aggregation import MCAg2l, MSAYolov, _l2norm, _merge_heads, _split_heads
 from .blocks import BaseConv, BNStats, conv_cls, run
 from .matching import LN_EPS, _layer_norm, extract_position_embedding, extract_position_matrix
 from .tscd_head import FrameProposals, _gather_rows, select_frame_proposals
@@ -461,3 +467,150 @@ class YOLOVPlusHead(_VideoTowers):
         if self.has_obj:
             out["refined_obj_logits"] = self.obj_pred(agg_obj)[..., 0]
         return out
+
+
+class OnlineBank(NamedTuple):
+    """The online head's rolling proposal banks (yolov_heads.py:584-614:
+    the reference's `other_result` and the demo's local bank as fixed
+    FIFOs): the MAIN bank of past frames' proposal features and scores,
+    and the LOCAL bank of past frames' MSA outputs and boxes, each a ring
+    buffer with its write pointer; `frames` counts the frames pushed. The
+    same 13 fields and dtypes as JAX's (int32 scalars as 0-d tensors)."""
+    cls_feat: torch.Tensor     # (B, h)
+    reg_feat: torch.Tensor     # (B, h)
+    cls_score: torch.Tensor    # (B,)
+    fg_score: torch.Tensor     # (B,)
+    valid: torch.Tensor        # (B,) bool
+    ptr: torch.Tensor          # () int32: the next write slot
+    msa_feat: torch.Tensor     # (Bl, 4h) MSA outputs of past frames
+    boxes: torch.Tensor        # (Bl, 4) xyxy
+    l_cls_score: torch.Tensor  # (Bl,)
+    l_fg_score: torch.Tensor   # (Bl,)
+    l_valid: torch.Tensor      # (Bl,) bool
+    l_ptr: torch.Tensor        # () int32
+    frames: torch.Tensor       # () int32: frames pushed so far
+
+
+def init_online_bank(capacity: int, hidden: int, device=None) -> OnlineBank:
+    """An empty fp32 bank (yolov_heads.py:617-629) on `device`: `capacity`
+    main slots of `hidden` features and as many local slots of 4 x
+    `hidden`, as the demo sizes it."""
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+    n, i32, b = capacity, torch.int32, torch.bool
+    return OnlineBank(z(n, hidden), z(n, hidden), z(n), z(n), z(n, dt=b), z(dt=i32),
+                      z(n, 4 * hidden), z(n, 4), z(n), z(n), z(n, dt=b), z(dt=i32), z(dt=i32))
+
+
+def _ring_slots(ptr: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    return (ptr + torch.arange(n, device=ptr.device)) % size
+
+
+def bank_push(bank: OnlineBank, cls_feat: torch.Tensor, reg_feat: torch.Tensor,
+              cls_score: torch.Tensor, fg_score: torch.Tensor,
+              valid: torch.Tensor) -> OnlineBank:
+    """One frame's P proposals into the MAIN bank's ring at its pointer
+    (yolov_heads.py:632-651): the pointer moves P slots, `frames` one."""
+    idx = _ring_slots(bank.ptr, cls_feat.shape[0], bank.cls_feat.shape[0])
+
+    def put(buf, new):
+        return buf.index_copy(0, idx, new.to(buf.dtype))
+
+    return bank._replace(
+        cls_feat=put(bank.cls_feat, cls_feat), reg_feat=put(bank.reg_feat, reg_feat),
+        cls_score=put(bank.cls_score, cls_score), fg_score=put(bank.fg_score, fg_score),
+        valid=put(bank.valid, valid),
+        ptr=(bank.ptr + cls_feat.shape[0]) % bank.cls_feat.shape[0],
+        frames=bank.frames + 1)
+
+
+def bank_push_local(bank: OnlineBank, msa: torch.Tensor, boxes: torch.Tensor,
+                    cls_score: torch.Tensor, fg_score: torch.Tensor, valid: torch.Tensor,
+                    ran: torch.Tensor) -> OnlineBank:
+    """The LOCAL bank's insert where `ran` (a 0-d bool: the MSA ran on a
+    bank this step), else the bank unchanged (yolov_heads.py:654-672): the
+    choice is made on the device."""
+    n, size = msa.shape[0], bank.msa_feat.shape[0]
+    idx = _ring_slots(bank.l_ptr, n, size)
+
+    def put(buf, new):
+        return torch.where(ran, buf.index_copy(0, idx, new.to(buf.dtype)), buf)
+
+    return bank._replace(
+        msa_feat=put(bank.msa_feat, msa), boxes=put(bank.boxes, boxes),
+        l_cls_score=put(bank.l_cls_score, cls_score),
+        l_fg_score=put(bank.l_fg_score, fg_score), l_valid=put(bank.l_valid, valid),
+        l_ptr=torch.where(ran, (bank.l_ptr + n) % size, bank.l_ptr))
+
+
+def local_agg_merge(features: torch.Tensor, boxes: torch.Tensor, cls_score: torch.Tensor,
+                    fg_score: torch.Tensor, local_feat: torch.Tensor,
+                    local_boxes: torch.Tensor, l_cls_score: torch.Tensor,
+                    l_fg_score: torch.Tensor, l_valid: torch.Tensor) -> torch.Tensor:
+    """MSA_yolov_online.local_agg (post_trans.py:1324-1345;
+    yolov_heads.py:675-713): the current frame's features (P, D) merged
+    with the local bank's by softmax(25 cos-sim x score-threshold map) x
+    box IoU, rows normalised, then averaged with the input. The threshold
+    map zeroes logits (not -inf); invalid bank slots leave the softmax; a
+    row that overlaps no bank box keeps its own features (JAX's guard of
+    the reference's unguarded division)."""
+    f32 = torch.float32
+    feats = features.to(f32)
+    cos = _l2norm(feats) @ _l2norm(local_feat.to(f32)).T               # (P, M)
+    iou = pairwise_iou_xyxy(boxes.to(f32), local_boxes.to(f32))
+    pre = (cls_score * fg_score).to(f32)[:, None]
+    other = (l_cls_score * l_fg_score).to(f32)[None, :]
+    thresh = ((other - pre) > -0.3).to(f32)
+    logits = torch.where(l_valid[None, :], 25.0 * cos * thresh, NEG)
+    w = torch.softmax(logits, -1) * iou * l_valid[None, :].to(f32)
+    row_sum = w.sum(-1, keepdim=True)
+    w = w / row_sum.clamp(min=1e-12)
+    merged = torch.where(row_sum > 1e-8, w @ local_feat.to(f32), feats)
+    return ((merged + feats) * 0.5).to(features.dtype)
+
+
+class YOLOVOnlineHead(_VideoTowers):
+    """The streaming YOLOV head (yolov_heads.py:716-796; reference
+    yolov_msa_online.py:27), the fields JAX's model sets, in fp32 with
+    strides (8, 16, 32): ONE frame a call (xin: 3 FPN levels (1, c, h,
+    w)); its P proposals (always through the pre-NMS, the head's default)
+    and the square MSA over [current ++ main
+    bank] (MSA_yolov_online: `trans`, reg logits guided by the fg score;
+    the bank's rows join only from the third frame on, `use_refined` =
+    bank.frames >= 2, as the reference takes the still result until two
+    frames are banked), `cur` its first P rows, merged against the local
+    bank where it holds any row, then `cls_pred`. The refined logits are
+    computed every call (one fixed program); the new bank comes back in
+    out["bank"]."""
+
+    def __init__(self, num_classes: int, width: float = 1.0, act: str = "silu",
+                 depthwise: bool = False, heads: int = 4, num_proposals: int = 30,
+                 sim_thresh: float = 0.75):
+        super().__init__(num_classes, width, (256, 512, 1024), act, depthwise, False,
+                         torch.float32)
+        self.num_proposals = num_proposals
+        self.sim_thresh = sim_thresh
+        hid = self.hidden
+        self.trans = MSAYolov(hid, 4 * hid, heads, reg_score_guidance=True)
+        self.cls_pred = nn.Linear(4 * hid, num_classes)
+
+    def forward(self, xin: Sequence[torch.Tensor], bank: OnlineBank,
+                stats: Optional[BNStats] = None) -> Dict[str, Any]:
+        P = self.num_proposals
+        raw, hw, cls_feat, reg_feat = self.dense(xin, stats)
+        decoded, props = self.select(raw, hw, (8, 16, 32), P, True)
+        f_cls = _gather_rows(cls_feat, props.idx)[0]                  # (P, hid)
+        f_reg = _gather_rows(reg_feat, props.idx)[0]
+        cs, fs, vl, boxes = props.cls_conf[0], props.obj[0], props.valid[0], props.boxes[0]
+        ran = bank.frames >= 2
+        cat = lambda cur, old: torch.cat([cur, old.to(cur.dtype)], 0)   # noqa: E731
+        out, _ = self.trans(cat(f_cls, bank.cls_feat), cat(f_reg, bank.reg_feat),
+                            cat(cs, bank.cls_score), cat(fs, bank.fg_score),
+                            torch.cat([vl, bank.valid & ran], 0), sim_thresh=self.sim_thresh)
+        cur = out[:P]                                                 # (P, 4 hid)
+        merged = local_agg_merge(cur, boxes, cs, fs, bank.msa_feat, bank.boxes,
+                                 bank.l_cls_score, bank.l_fg_score, bank.l_valid)
+        refined = self.cls_pred(torch.where(bank.l_valid.any(), merged, cur))
+        new_bank = bank_push(bank, f_cls, f_reg, cs, fs, vl)
+        new_bank = bank_push_local(new_bank, cur, boxes, cs, fs, vl & ran, ran)
+        return {"raw_outputs": raw, "hw": hw, "decoded": decoded, "proposals": props,
+                "refined_cls_logits": refined[None], "use_refined": ran, "bank": new_bank}

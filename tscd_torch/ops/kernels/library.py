@@ -28,8 +28,10 @@ _F = ctypes.c_float
 # C signature of every kernel entry point; each returns a cudaError_t
 _SIGNATURES = {
     "tscd_fused_dual_attention":
-        [_P] * 8 + [_P] * 3 + [_P, ctypes.c_size_t, ctypes.POINTER(ctypes.c_longlong)]
+        [_P] * 9 + [_P] * 3 + [_P, ctypes.c_size_t, ctypes.POINTER(ctypes.c_longlong)]
         + [_I] * 5 + [_F, _I, _P],
+    "tscd_fused_dual_attention_stream":
+        [_P] * 9 + [_P] * 3 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5 + [_F, _I, _P],
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_linear_sum_assignment_block": [_P, _P, _I, _I, _P],
     "tscd_nms_pack": [_P, _P, _P, _I, _I, _F, _P],

@@ -28,7 +28,7 @@ import torch
 from ..boxes import pairwise_iou_xyxy
 from . import library
 
-KMAX = 8192
+KMAX = 16384
 _CHECK_EVERY = 8
 
 
@@ -163,7 +163,7 @@ def nms_sorted(boxes_s: torch.Tensor, valid_s: torch.Tensor,
                iou_threshold: float) -> torch.Tensor:
     """boxes (B, K, 4) fp32 xyxy and valid (B, K) bool, both in score
     order -> keep (B, K) bool in that order. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (K <= 8192) and never
+    version; a CUDA tensor launches the kernels (K <= KMAX) and never
     reads the host."""
     _check(boxes_s, valid_s, "nms_sorted")
     if boxes_s.device.type == "cpu":

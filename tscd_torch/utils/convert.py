@@ -16,7 +16,10 @@ under JAX's `towers` module (yolov_heads.py:_VideoTowers), where TSCD
 and YOLOX hold them on the head itself. The names do not say which:
 a state_dict whose head has a video cls tower and no edge block
 (`yolov_towers`) is a YOLOV family model's, and its tower names map
-under `head/towers`.
+under `head/towers`. The online head's MSA sits under `head/trans`
+(`head.trans.msa.qkv_cls`, `head.trans.linear1`, ...) in both, as its
+`cls_pred` on the head: the same rules carry JAX's YOLOVOnline
+variables.
 """
 
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
