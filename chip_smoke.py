@@ -248,7 +248,10 @@ The kernels phase also checks the attention's streaming route (q > 128)
 against its plain version: masks (all keys but one invalid, all
 invalid), bit-identical calls, q = k = 960 at d 64 (fp32 and bf16 q/k/v,
 with the online MSA's fg score; the split route timed beside it) and d 32,
-8000 at d 32, 16000 at d 64 and 32, each timed with its bound.
+8000 at d 32, 16000 at d 64 and 32, each timed with its bound (the
+tensor cores' at 3 TF32 products a product, beside the fp32 FMA bound
+and the design's floor) and the kernel's registers, spills and shared
+memory at that shape.
 On a card, `make_predict_fn(...).dispatch` runs each window as one
 replayed CUDA graph, which runs no Python: the launches of a path are
 counted in the device trace of torch.profiler (`traced_path`), with every
@@ -284,6 +287,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # TF32 tensor cores, dense, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # bf16 tensor cores, dense
 
 KERNELS = {
@@ -5239,8 +5243,8 @@ def yolov_windows_part(torch, counters):
             nms_shapes = sorted([(F, min(750, sum((H // st) * (W // st)
                                                   for st in model.head.strides))),
                                  (F, P * exp.num_classes)])
-            # the streaming route: query tiles of 32 rows x B h, at q = k = F P
-            grid = (-(-F * P // 32), exp.heads, 1)
+            # the streaming route: query tiles of stream_plan's rows x B h, at q = k = F P
+            grid = stream_grid(torch, exp.heads, F * P)
         n = 3
         want = dict.fromkeys(TRACE_NAMES, 0)
         want.update({row: k * n for row, k in per_window.items()})
@@ -5469,6 +5473,49 @@ def split_route(torch, args, scale=25.0):
     return out_c, out_r, attn
 
 
+def stream_grid(torch, h, q, d=64):
+    """The streaming kernel's grid at B 1, h heads, q = k: query tiles of
+    `stream_plan`'s rows x h (the YOLOV family's head dims, 32 and 64, take
+    the same rows)."""
+    from tscd_torch.ops.kernels import fused_attention as fa
+    rows, _ = fa.stream_plan(1, h, q, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    return (-(-q // rows), h, 1)
+
+
+def stream_resources(torch, lib, B, h, n, d, bf16=False):
+    """The streaming kernel as launched at (B, h, q = n, d): the instance's
+    ptxas registers and spills (build/kernels/build.log), and from the
+    runtime its block (query rows, key slices, threads, blocks), dynamic
+    shared memory, blocks a SM, registers and local bytes a thread; the
+    block the wrapper's `stream_plan` mirrors must be the one launched."""
+    import ctypes
+
+    from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.ops.kernels import library
+    out = (ctypes.c_int * 8)()
+    library.check(lib, lib.tscd_fused_dual_attention_stream_config(B, h, n, d, int(bf16), out),
+                  "fused_dual_attention_stream config")
+    rec = dict(rows=out[0], key_slices=out[7], threads=out[1], blocks=out[2] * B * h,
+               smem_bytes=out[3], blocks_per_sm=out[4], registers=out[5], local_bytes=out[6])
+    plan = fa.stream_plan(B, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan != (rec["rows"], rec["key_slices"]):
+        raise AssertionError(f"stream_plan {plan} at (B {B}, h {h}, q {n}, d {d}) is not the "
+                             f"launched block {rec}")
+    dpad = 32 if d <= 32 else 64 if d <= 64 else 128
+    name = (f"fused_dual_attention_stream{'I13__nv_bfloat16' if bf16 else 'If'}Li{dpad}ELi"
+            f"{rec['key_slices']}E")
+    ptxas, keep = [], False
+    for line in open(os.path.join(HERE, "build", "kernels", "build.log")).read().splitlines():
+        if "Compiling entry function" in line:
+            keep = name in line
+        if keep and ("spill" in line or "Used" in line):
+            ptxas.append(line.strip())
+    if not ptxas:
+        raise AssertionError(f"no ptxas record of {name} in build/kernels/build.log")
+    rec["ptxas"] = ptxas
+    return rec
+
+
 def stream_attention_row(torch, dev, rng, h, n, d, fg=False, reps=50, plain_reps=10,
                          cases=("random", "views"), split=False):
     """The attention's streaming route at q = k = n, head dim d, with the
@@ -5478,14 +5525,18 @@ def stream_attention_row(torch, dev, rng, h, n, d, fg=False, reps=50, plain_reps
     strided views, a DualBranchAttention(cross=False) on seeded features,
     the same keys invalid; "bf16": those views in bf16), then timed on the
     views: `ms` (device), `call_ms`, the plain version's ms, its bound (8 q
-    k d flops a head at the fp32 rate against the bytes: q/k/v, the scores
-    and the mask read once, attn and the outputs written once) and the
-    design's own floor (1.5x the operations: pass 2 recomputes the
-    logits); with `split`, the split route's ms on the same views."""
+    k d flops a head, each done as 3 TF32 products on the tensor cores,
+    against the bytes: q/k/v, the scores and the mask read once, attn and
+    the outputs written once), the same work's fp32 FMA bound, the
+    design's own floor (1.5x the tensor cores' operations: pass 2
+    recomputes the logits) and the kernel's resources at this shape
+    (`stream_resources`); with `split`, the split route's ms on the same
+    views."""
     import numpy as np
 
     from tscd_torch.models.aggregation import DualBranchAttention
     from tscd_torch.ops.kernels import fused_attention as fa
+    from tscd_torch.ops.kernels import library
     B = 1
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)   # noqa: E731
     score = t(rng.uniform(0, 1, (B, n)))
@@ -5512,16 +5563,20 @@ def stream_attention_row(torch, dev, rng, h, n, d, fg=False, reps=50, plain_reps
     main = (*views, score, valid)
     nbytes = 4 * 6 * B * h * n * d + 4 * B * n * (2 if fg else 1) + B * n \
         + 4 * (2 * B * h * n * d + B * h * n * n)
-    half = B * h * 2 * 2 * n * n * d
-    b_ms, b_by = bound(nbytes, (half, H100_FP32_FLOPS), (half, H100_FP32_FLOPS))
+    flops = B * h * 2 * 2 * 2 * n * n * d          # q.k of both branches, attn @ v_c, v_r
+    b_ms, b_by = bound(nbytes, (3 * flops, H100_TF32_FLOPS))
     row = dict(max_abs_err=max(errs.values()), max_abs_err_by_case=errs,
                **timed(torch, lambda: fa.fused_dual_attention(*main, 25.0, fgs), reps,
                        "fused_dual_attention_stream"),
                plain_ms=cuda_ms(torch, lambda: fa.fused_dual_attention_plain(*main, 25.0, fgs),
                                 plain_reps, 1),
-               bound_ms=b_ms, bound_by=b_by, design_floor_ms=1.5 * 2 * half / H100_FP32_FLOPS * 1e3,
+               bound_ms=b_ms, bound_by=b_by,
+               bound_model="3 TF32 tensor-core products a product (3xTF32) at 495 TFLOP/s",
+               fp32_fma_bound_ms=bound(nbytes, (flops, H100_FP32_FLOPS))[0],
+               design_floor_ms=1.5 * 3 * flops / H100_TF32_FLOPS * 1e3,
                library_ms=None, route=fa.route(n), fg_score=fg,
                shape={"B": B, "h": h, "q": n, "k": n, "d": d},
+               resources=stream_resources(torch, library.load(), B, h, n, d),
                scratch_bytes=4 * fa.scratch_floats(B, h, n, n, d),
                launch_bytes=fa.launch_bytes(B, h, n, n, d))
     if split:
@@ -5768,7 +5823,7 @@ def ovis_plus_windows_part(torch, counters):
         grids = sorted({tuple(k["grid"]) for k in trace_kernels(trace_events(
             prof, os.path.join(HERE, "build", f"trace_{name}.json")))
             if "fused_dual_attention_stream" in k["name"]})
-        if grids != [(-(-F * P // 32), exp.heads, 1)]:
+        if grids != [stream_grid(torch, exp.heads, F * P)]:
             raise AssertionError(f"{name}: streaming attention grids {grids} at q = k = {F * P}")
         n_det = sum(len(r) for d in dets for r in pred.materialize(d)
                     if r.ndim == 2 and r.shape[1] == 7 and np.isfinite(r).all())

@@ -165,3 +165,138 @@ def test_route_rule_and_launch_bytes():
     assert 4.09e9 < pfa.launch_bytes(1, 4, 16000, 16000, 64) < 4.14e9
     nch = 1600 // pfa.KEY_CHUNK
     assert pfa.scratch_floats(1, 4, 50, 1600, 64) == 4 * 50 * (4 * nch + 4 * nch * 64 + 2 * 1600)
+
+
+# -- the streaming kernel's arithmetic, modelled on the CPU ------------------
+# csrc/fused_attention.cu's streaming route runs both products on the
+# tensor cores in the 3xTF32 split and its softmaxes in exp2. The model
+# below repeats that arithmetic in fp32 torch: cvt.rna.tf32.f32 by bit
+# operations, each product as lo.hi' + hi.lo' + hi.hi' added to fp32
+# accumulators k-step by k-step (8 values a step, as mma.m16n8k8), the
+# logits as (q.k / |q|) * (25 log2(e) score / |k|) + mask log2(e), each
+# row's max and sum of exp2 over key tiles of 32 (pass 1), then attn =
+# exp2(l - M) 0.5 / S of both branches and attn @ v (pass 2).
+
+LOG2E = 1.4426950408889634
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as cvt.rna.tf32.f32: 10 mantissa bits, to nearest,
+    ties away from zero (half of the dropped 13 bits' weight added to the
+    magnitude, then those bits cleared); kept in fp32."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """a @ b (..., m, k) x (k, n) as the kernel's mma.sync k-steps of 8:
+    terms = 3 the split (hi = tf32(x), lo = tf32(x - hi); lo.hi', hi.lo',
+    hi.hi' in that order), terms = 1 hi.hi' alone."""
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        s = slice(k0, k0 + 8)
+        if terms == 3:
+            acc = acc + al[..., s] @ bh[s]
+            acc = acc + ah[..., s] @ bl[s]
+        acc = acc + ah[..., s] @ bh[s]
+    return acc
+
+
+def stream_model(qkv, score, fg, valid, scale=25.0, terms=3, tile=32):
+    """The streaming kernel's arithmetic on one batch element: qkv
+    (h, n, d) fp32 arrays, score / fg (k,) (fg None: ones), valid (k,)
+    bool. Returns out_cls, out_reg (h, q, d) and attn (h, q, k)."""
+    qc, kc, vc, qr, kr, vr = (torch.as_tensor(a, dtype=torch.float32) for a in qkv)
+    k = kc.shape[1]
+    inv = lambda x: 1.0 / torch.linalg.vector_norm(x, dim=-1).clamp(min=1e-12)   # noqa: E731
+    neg = torch.where(torch.as_tensor(valid), 0.0, -1e9 * LOG2E).to(torch.float32)
+    kscale = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    ones = torch.ones(k, dtype=torch.float32)
+    factors = [torch.as_tensor(s, dtype=torch.float32) if s is not None else ones
+               for s in (score, fg)]
+    logits = []
+    for (q_, k_), f in zip(((qc, kc), (qr, kr)), factors):
+        raw = torch.stack([tf32_product(q_[i], k_[i].T, terms) for i in range(q_.shape[0])])
+        kf = inv(k_) * kscale * f
+        logits.append((raw * inv(q_)[..., None]) * kf[:, None, :] + neg)
+    probs = []
+    for l2 in logits:
+        m = torch.full(l2.shape[:-1], -torch.inf)
+        s = torch.zeros(l2.shape[:-1])
+        for k0 in range(0, k, tile):
+            lt = l2[..., k0:k0 + tile]
+            mn = torch.maximum(m, lt.amax(-1))
+            s = s * torch.exp2(m - mn) + torch.exp2(lt - mn[..., None]).sum(-1)
+            m = mn
+        probs.append((torch.exp2(l2 - m[..., None]), 0.5 / s))
+    (ec, hc), (er, hr) = probs
+    attn = ec * hc[..., None] + er * hr[..., None]
+    outs = [torch.stack([tf32_product(attn[i], v[i], terms) for i in range(attn.shape[0])])
+            for v in (vc, vr)]
+    return outs[0], outs[1], attn
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Rounding to 10 mantissa bits: to nearest, ties away from zero, the
+    sign kept; exact for values with 10 bits or fewer (bf16's 7)."""
+    x = np.array([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11),
+                  1.0 + 2 ** -11 - 2 ** -23, 0.0, 3.5], np.float32)
+    got = tf32_rna(torch.as_tensor(x)).numpy()
+    want = np.array([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10),
+                     1.0, 0.0, 3.5], np.float32)
+    np.testing.assert_array_equal(got, want)
+    bf = torch.as_tensor(np.random.default_rng(9).normal(size=64).astype(np.float32))
+    bf = bf.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(tf32_rna(bf), bf)
+
+
+def _stream_case(d, with_fg):
+    rng = np.random.default_rng(40 + d)
+    qkv, score, fg, mask = _inputs(rng, 2, 960, 960, d)
+    if with_fg:
+        want = _jax_guided(*map(jnp.asarray, (*qkv, score, fg, mask)))
+    else:
+        want = dual_attention_reference(*map(jnp.asarray, (*qkv, score, mask)))
+    return qkv, score, fg if with_fg else None, mask, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("d,with_fg", [(64, True), (32, False)])
+def test_stream_model_3xtf32_matches_jax(d, with_fg):
+    """The kernel's arithmetic (3xTF32, exp2, two passes over tiles of 32)
+    at q = k = 960, h 2, against JAX's reference at the card check's own
+    tolerance (1e-5 absolute, 1e-4 relative)."""
+    qkv, score, fg, mask, want = _stream_case(d, with_fg)
+    got = stream_model(qkv, score, fg, mask)
+    for name, g, w in zip(("out_cls", "out_reg", "attn"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=1e-4, err_msg=name)
+
+
+def test_stream_model_one_tf32_product_misses_the_tolerance():
+    """The same case with one TF32 product (hi.hi' alone) misses that
+    tolerance: the split's lo terms are what keep the kernel at fp32's
+    accuracy."""
+    qkv, score, fg, mask, want = _stream_case(64, True)
+    got = stream_model(qkv, score, fg, mask, terms=1)
+    assert not all(np.allclose(g.numpy(), w, atol=1e-5, rtol=1e-4) for g, w in zip(got, want))
+
+
+def test_stream_plan_rule():
+    """The streaming route's block (the CUDA source's rule, which the
+    card's launch grid shows): 32 rows x 4 key slices at YOLOV-L's q = 960
+    (120 blocks of 8 warps on an H100's 132 SMs), 128 x 1 at OVIS YOLOV++'s
+    8000 and 16000, 32 past a head dim of 64; never more than 8 warps."""
+    sms = 132
+    assert pfa.stream_plan(1, 4, 960, 64, sms) == (32, 4)
+    assert pfa.stream_plan(1, 4, 129, 64, sms) == (16, 4)
+    assert pfa.stream_plan(1, 4, 8000, 32, sms) == (128, 1)
+    assert pfa.stream_plan(1, 4, 16000, 64, sms) == (128, 1)
+    assert pfa.stream_plan(1, 4, 16000, 128, sms) == (32, 4)
+    assert pfa.stream_plan(2, 4, 960, 64, sms) == (64, 2)       # 15 x 8 blocks
+    assert pfa.stream_plan(1, 4, 3000, 64, sms) == (64, 2)      # 47 x 4 blocks
+    for q in (129, 300, 1000, 4000):
+        for d in (8, 64, 100, 128):
+            rows, kw = pfa.stream_plan(1, 2, q, d, sms)
+            assert rows in (16, 32, 64, 128) and (rows <= 32 or d <= 64)
+            assert rows // 16 * kw in (4, 8) and 4 % kw == 0

@@ -24,9 +24,10 @@ the pre-NMS call's shape (32, 750), exactly; postprocess_dense at (8,
 2048) exactly, and the OVIS fixture's warps equal to cv2's recorded
 pixels; the attention in the YOLOV family's self-attention form (q = k =
 960 and 480, some keys invalid) 1e-5 as above, and its streaming route
-(q > 128: 960 at d 64 and 32, 200, 8000; with and without the online
-MSA's fg score; fp32 and bf16 q/k/v; all keys but one invalid) 1e-5 from
-the plain version and bit-identical across calls, the wrapper raising
+(q > 128: 960 at d 64 and 32, 129, 200, 1000 at d 64 and 128, 8000; with
+and without the online MSA's fg score; fp32 and bf16 q/k/v; all keys but
+one invalid) 1e-5 from the plain version and bit-identical across calls,
+its block the one `stream_plan` reckons, the wrapper raising
 with the shape and bytes where the card cannot hold a launch, the NMS at
 YOLOV-L's refined postprocess (32, 900) exactly, and the online YOLOV
 stream (graph replays) against the CPU's eager stream at the selftest
@@ -723,7 +724,12 @@ def _stream_inputs(card, rng, h, n, d, fg, dtype, p_valid=0.8):
     (200, 16, True, torch.float32, 0.8),      # a ragged last key tile and query tile
     (150, 8, True, torch.float32, 0.8),       # 150 = 2 x 64 + 22 keys
     (200, 16, True, torch.float32, "tile 1"),  # a whole key tile invalid between valid ones
-    (8000, 32, False, torch.float32, 0.8)])
+    (8000, 32, False, torch.float32, 0.8),
+    (129, 64, True, torch.float32, 0.8),      # the smallest streaming q: a block of 16 rows, 1 real
+    (1000, 64, True, torch.float32, 0.8),     # ragged for a 32- and 128-row block and a 32-key tile
+    (1000, 128, True, torch.float32, 0.8),    # d 128: its own instance (32 rows at most)
+    (1000, 128, False, torch.bfloat16, 0.8),
+    (960, 32, True, torch.bfloat16, 0.8)])
 def test_cuda_attention_stream_matches_plain(card, n, d, fg, dtype, valid):
     """The streaming route (q > 128) at the self-attention form's shapes,
     with and without the online MSA's fg score, fp32 and bf16 q/k/v,
@@ -738,6 +744,26 @@ def test_cuda_attention_stream_matches_plain(card, n, d, fg, dtype, valid):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,n,d,bf16", [(1, 4, 960, 64, 0), (1, 4, 960, 32, 1),
+                                          (1, 4, 8000, 32, 0), (1, 4, 16000, 64, 0),
+                                          (1, 4, 1000, 128, 0), (2, 2, 129, 8, 0)])
+def test_cuda_attention_stream_plan_is_the_launched_block(card, B, h, n, d, bf16):
+    """The block `stream_plan` reckons (rows, key slices) is the one the
+    CUDA entry point launches on this card, and at least one fits a SM."""
+    import ctypes
+
+    from tscd_torch.ops.kernels import library
+    out = (ctypes.c_int * 8)()
+    lib = library.load()
+    library.check(lib, lib.tscd_fused_dual_attention_stream_config(B, h, n, d, bf16, out),
+                  "stream config")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert pfa.stream_plan(B, h, n, d, sms) == (out[0], out[7])
+    assert out[1] == 32 * out[0] // 16 * out[7] and out[2] == -(-n // out[0])
+    assert out[4] >= 1
 
 
 @pytest.mark.cuda

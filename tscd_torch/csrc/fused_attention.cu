@@ -61,11 +61,14 @@
 // Deterministic: no atomics, and every sum across threads or chunks has
 // a fixed order, so two calls give bit-identical outputs.
 //
-// fp32 FMA throughout, accurate expf. TF32, the tensor cores' only route
-// for fp32 inputs, keeps about 3 decimal digits: at a logit scale of 25
-// that moves the probabilities by about 1% relative, against the 1e-5
-// the port is checked to, and the matcher after it is sensitive to the
-// last digit. The whole product work takes 2.45 us on the CUDA cores.
+// The split route stays on fp32 FMA with accurate expf. Its work at the
+// main path is 0.164 GFLOP (2.45 us on the CUDA cores) in a launch that
+// takes 26 us: what holds it back is parallelism and latency over 50
+// query rows, not the product rate, so the tensor cores' 3xTF32 split
+// (the streaming route's, below) would add its conversions and buy
+// nothing. One TF32 product alone keeps about 3 decimal digits: at a
+// logit scale of 25 that moves the probabilities by about 1% relative,
+// against the 1e-5 the port is checked to.
 //
 // Resources (nvcc -Xptxas -v, build/kernels/build.log): split 127
 // registers, combine 32, no spills; dynamic shared memory 85 KiB a split
@@ -75,6 +78,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
 #include <mutex>
 #include <type_traits>
 
@@ -414,36 +418,130 @@ fused_dual_attention_combine(const Args a) {
 
 // ---------------------------------------------------------------------------
 // The streaming route: the self-attention form (NQ > 128), whose split
-// scratch would grow as NQ x NK x D. One block owns a (batch, head, tile
-// of SQT query rows) and streams the keys through shared memory twice:
-//   pass 1  per key tile of SKT keys, both branches' logits of the tile,
-//           then the online softmax's running max and sum of each row and
-//           branch (kept in registers, the same in the 16 lanes of a row);
-//   pass 2  the logits again; with the final statistics p = exp(l - M) / S
-//           of both branches into shared memory, attn = (p_c + p_r) / 2
-//           written once to device memory, and attn @ v_c, attn @ v_r
-//           accumulated in registers over the tiles.
-// The rows' (M, S) of both branches stay in registers from pass 1 into
-// pass 2: the route needs no scratch.
-// Each half of the block takes one branch in the logits (a thread 4 rows x
-// 4 keys; q and k dim-major in shared memory, so a dim is one float4 of
-// each) and in the products (a thread NG/4 rows x 4 dims of its branch's
-// values). fp32 FMA throughout, accurate expf, no atomics, every sum in a
-// fixed order: deterministic. Pass 2's recompute of the logits makes its
-// work 12 q k d flops a head against the 8 the function needs.
+// scratch would grow as NQ x NK x D. A block owns a (batch, head, tile of
+// `rows` query rows) and streams the keys through shared memory twice:
+//   pass 1  per key tile of KT = 32 keys, both branches' logits, then each
+//           row's running max and sum of exp2 of both softmaxes (each lane
+//           its own keys' partials, combined over the quad and the warps
+//           that share the rows at the end);
+//   pass 2  the logits again; p = exp2(l - M) / S of both branches, attn =
+//           (p_c + p_r) / 2 written once to device memory, and attn @ v_c,
+//           attn @ v_r accumulated in registers over the tiles.
+// Each row's (M, S) stays on chip from pass 1 into pass 2: no scratch.
+//
+// Work: 8 q k d flops a head for the function, 12 with pass 2's recompute.
 // Bound on an H100 at OVIS YOLOV++'s q = k = 16000, h 4, d 64: 5.24e11
-// flops (7.8 ms at 67 TFLOP/s fp32) against 4.1 GB of attn written (1.22
-// ms at 3.35 TB/s), so operations bound it; the design's own floor is 1.5x
-// that (11.7 ms). Shared memory 71.5 KiB a block at D <= 64 (45.5 KiB at
-// D <= 32, 123.5 KiB past 64); a grid of ceil(NQ / 32) x B H blocks (120 at YOLOV-L's
-// q = 960, 2000 at 16000).
-constexpr int SQT = 32;                 // query rows of a streaming block
-constexpr int SKT = 64;                 // keys of a tile
-constexpr int STHREADS = 256;           // streaming block: a half a branch
-constexpr int SHALF = STHREADS / 2;
-constexpr int SQLD = SQT + 4;           // row stride of the dim-major q tile
-constexpr int SKLD = SKT + 4;           // row stride of the dim-major k tile
-constexpr int SALD = SQT + 4;           // row stride of the key-major probabilities
+// flops, each product done as 3 TF32 products on the tensor cores (below):
+// 3.18 ms at 495 TFLOP/s, against 4.1 GB of attn written (1.22 ms at 3.35
+// TB/s) and 4.1e9 exp2 (about 1 ms at 16 a clock a SM): the tensor cores
+// bound it. The design's own floor, with the recompute, is 1.5x that:
+// 4.77 ms. (The fp32 FMA bound of the same work is 7.8 ms.)
+//
+// The design, by what held the earlier FMA kernel back:
+//  1. Tensor cores, 3xTF32. Both products (q.k of both passes, attn @ v)
+//     run as mma.sync.m16n8k8 .tf32 with fp32 accumulators. Each fp32
+//     operand x splits into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+//     hi), and a product is lo.hi' + hi.lo' + hi.hi' (small terms first);
+//     lo.lo' (2^-22 relative) is dropped. The split keeps about 2^-21 of
+//     each product, against fp32's 2^-24: modelled on the CPU at q = k =
+//     960, d 64, its outputs sit 2.4e-6 from float64 (attn 3.9e-7), as
+//     fp32 FMA's do (2.3e-6), where one TF32 product is 1.8e-3 off and
+//     misses the port's 1e-5 (tests/test_torch_port_attention_stream.py,
+//     which holds the model to JAX's reference). The tensor cores round
+//     their sums toward zero, which over the 2000 k-steps of attn @ v at
+//     16000 keys drifts by 1e-4: each tile's attn @ v is summed from zero
+//     and added to the running output by an fp32 add (round to nearest).
+//     bf16 q/k/v are exact in TF32 (lo = 0): their logits take one product
+//     and attn @ v two.
+//     mma.sync rather than wgmma: the logits' accumulators are attn @ v's
+//     A operand as they stand (the key order below), where wgmma's TF32
+//     needs both operands K-major in shared memory, so attn and v (whose
+//     copy cannot transpose) would go through shared memory each tile, and
+//     the split would need hi and lo copies of every tile there.
+//  2. Reuse and residency. A warp owns 16 query rows of both branches (so
+//     attn combines in registers) and, of each key tile, NT / KW of its 4
+//     n-tiles: a block is rows / 16 row groups x KW key slices, the
+//     slices' sums combined in shared memory in slice order. The rule, a
+//     function of the shape (stream_plan): rows the largest of 128 (32
+//     past d 64, for shared memory), 64, 32, 16 whose blocks still cover
+//     9 in 10 SMs (10 B H ceil(NQ / rows) >= 9 x the SM count), else 16;
+//     KW = min(4, 128 / rows). 128 rows x 1 slice at 8000 and 16000 (a key
+//     tile feeds 8 warps, each key read from L2 once a 128 rows); 32 rows
+//     x 4 slices at YOLOV-L's 960 (120 blocks of 8 warps, which the card
+//     ran faster than 240 blocks of 16 rows x 4: a tile's copy and key
+//     factors are shared by twice the warps).
+//  3. Asynchronous copies. Key tiles (and value tiles in pass 2) of both
+//     branches in a ring of 2 stages filled by cp.async (16 bytes fp32, 8
+//     bf16) where `vec` allows, row4's plain loads where it does not; tile
+//     i + 1 is in flight while tile i is multiplied. Key rows are stored
+//     permuted (key_row) so that the fragments' loads (ldmatrix for fp32
+//     keys) are free of bank conflicts and a lane's logits are 4
+//     consecutive keys. The queries are split into hi and lo once, into
+//     shared memory, and read by ldmatrix.
+//  4. Exponentials. ex2.approx with log2(e) folded into each key's factor
+//     (25 log2(e) score / |k|) and into the mask; the two branches'
+//     probabilities combine in the registers that hold them, and attn
+//     leaves as 16-byte streaming stores (st.global.cs) of 4 keys a lane
+//     (8 bytes where a warp owns one n-tile of a tile), behind which the
+//     next products run. Each key's factor takes 2 or 4 threads (shuffle
+//     sums) between the tile's two barriers.
+//  5. What the route guarantees. No scratch; no atomics; every sum across
+//     lanes, warps and tiles in a fixed order and the tensor cores' sums
+//     fixed, so two calls are bit-identical. A row whose keys are all
+//     invalid sees equal logits (-1e9 log2(e) absorbs the q.k term) and is
+//     uniform; one valid key takes all the mass; keys past NK get p = 0
+//     (factor 0, mask -inf, rows of zeros).
+// The inverse norms, the x 25, the score or fg and the mask stay an fp32
+// epilogue on the raw q.k: l2 = (q.k / |q|) * f[k] + mask[k].
+// Shared memory (fp32): the split queries 2 x 2 x rows x (DPAD + 4)
+// floats, the ring 2 x 4 x KT x (DPAD + 4): 206.4 KiB at 128 rows, d 64
+// (1 block a SM); 104.4 KiB at 32 rows, d 64; 200.4 KiB at 32 rows, d 128.
+// Registers (ptxas, build/kernels/build.log): 237 at d 64 with one key
+// slice, 166 with four, 128 at d 32 (a 48-byte stack frame), 254 at d 128;
+// no spills.
+constexpr int KT = 32;                  // keys of a streamed tile
+constexpr int NT = KT / 8;              // mma n-tiles of a tile's logits
+constexpr int STAGES = 2;               // the ring: tiles of 2 keys and 2 values a stage
+constexpr int MAX_ROWS = 128;           // query rows of the largest block
+constexpr int MAX_WARPS = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct StreamPlan {
+  int rows, kw;                         // query rows a block, key slices (warps a row group)
+};
+
+int stream_max_rows(int DPAD) { return DPAD > 64 ? 32 : MAX_ROWS; }
+
+// The block's rows and key slices at this shape (the rule of note 2).
+StreamPlan stream_plan(int B, int H, int NQ, int DPAD, int sms) {
+  int rows = stream_max_rows(DPAD);
+  while (rows > 16 && 10 * static_cast<long long>((NQ + rows - 1) / rows) * B * H < 9 * sms)
+    rows /= 2;
+  return {rows, std::min(4, MAX_ROWS / rows)};
+}
+
+// dynamic shared memory: [queries: 2 branches x hi (, lo) x rows x (DPAD +
+// 4) words][ring: STAGES x 4 x KT x LD of T][key factors 2 KT][masks
+// KT][per-warp row statistics warps x 2 x 16 float2]; after pass 2 the
+// front holds each warp's outputs, warps x 2 x 16 x (DPAD + 8) floats
+template <typename T>
+size_t stream_smem(int DPAD, int rows, int kw) {
+  const size_t ld = DPAD + 16 / sizeof(T), warps = rows / 16 * kw;
+  const size_t parts = std::is_same<T, float>::value ? 2 : 1;
+  const size_t main = 4 * (DPAD + 4) * 2 * parts * rows + sizeof(T) * ld * STAGES * 4 * KT +
+                      4 * 3 * KT + 8 * warps * 2 * 16;
+  return std::max(main, 4 * warps * 2 * 16 * (DPAD + 8));
+}
+
+// Shared row of key r of a tile: row 8 j + n holds col_key(j, n), the key
+// whose logit lands in column n of n-tile j. Lane t of a quad then holds
+// keys 4t .. 4t + 3 (n-tiles 0, 1) and 16 + 4t .. 19 + 4t (2, 3) of a row.
+__host__ __device__ constexpr int key_row(int r) {
+  return 8 * (2 * (r / 16) + (r % 4) / 2) + 2 * ((r % 16) / 4) + r % 2;
+}
+__device__ __forceinline__ int col_key(int j, int n) {
+  return 16 * (j / 2) + 4 * (n / 2) + 2 * (j % 2) + n % 2;
+}
 
 template <typename T> __device__ __forceinline__ float4 get4(const T* p);
 template <> __device__ __forceinline__ float4 get4<float>(const float* p) {
@@ -455,8 +553,8 @@ template <> __device__ __forceinline__ float4 get4<__nv_bfloat16>(const __nv_bfl
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-__device__ __forceinline__ float get1(const float* p) { return *p; }
-__device__ __forceinline__ float get1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // values t .. t + 3 of row r (row stride rs), zeros past n rows or D columns;
 // with vec (D and the strides multiples of 4, aligned) one 4-value load
@@ -467,248 +565,480 @@ __device__ __forceinline__ float4 row4(const T* src, long long rs, int r, int t,
   if (r >= n || t >= D) return o;
   const T* p = src + r * rs + t;
   if (vec) return get4(p);
-  o.x = get1(p);
-  if (t + 1 < D) o.y = get1(p + 1);
-  if (t + 2 < D) o.z = get1(p + 2);
-  if (t + 3 < D) o.w = get1(p + 3);
+  o.x = ldf(p);
+  if (t + 1 < D) o.y = ldf(p + 1);
+  if (t + 2 < D) o.z = ldf(p + 2);
+  if (t + 3 < D) o.w = ldf(p + 3);
   return o;
 }
 
-// rows x DPAD values of src, transposed: dst[d * ld + r] (rows fastest, so
-// the stores of a warp fall on distinct banks)
+__device__ __forceinline__ void store4(float* d, float4 v) {
+  *reinterpret_cast<float4*>(d) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* d, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(d) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// 4 values by cp.async: 16 bytes of fp32, 8 of bf16; zeros where !in
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 8 : 0) : "memory");
+}
+
+// the KT rows of a key or value tile (row stride rs; rows >= n and columns
+// >= D as zeros) into dst, row r at key_row(r) (row stride DPAD + 16
+// bytes); by cp.async where vec allows, else by plain loads
 template <typename T, int DPAD>
-__device__ __forceinline__ void load_cols(float* dst, int ld, const T* src, long long rs,
-                                          int rows, int n, int D, bool vec) {
-  for (int i = threadIdx.x; i < rows * (DPAD / 4); i += STHREADS) {
-    const int r = i % rows, t = (i / rows) * 4;
-    const float4 v = row4(src, rs, r, t, n, D, vec);
-    dst[t * ld + r] = v.x;
-    dst[(t + 1) * ld + r] = v.y;
-    dst[(t + 2) * ld + r] = v.z;
-    dst[(t + 3) * ld + r] = v.w;
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, long long rs, int n, int D,
+                                          bool vec) {
+  constexpr int LD = DPAD + 16 / static_cast<int>(sizeof(T)), G = DPAD / 4;
+  for (int i = threadIdx.x; i < KT * G; i += blockDim.x) {
+    const int r = i / G, c = 4 * (i - r * G);
+    T* d = dst + key_row(r) * LD + c;
+    if (vec) {
+      const bool in = r < n && c < D;
+      cp_async4(d, in ? src + r * rs + c : src, in);
+    } else {
+      store4(d, row4(src, rs, r, c, n, D, false));
+    }
   }
 }
 
-// rows x DPAD values of src as they are: dst[r * DPAD + d]
-template <typename T, int DPAD>
-__device__ __forceinline__ void load_rows_as_is(float* dst, const T* src, long long rs,
-                                                int rows, int n, int D, bool vec) {
-  constexpr int G = DPAD / 4;
-  for (int i = threadIdx.x; i < rows * G; i += STHREADS) {
-    const int r = i / G, t = (i - r * G) * 4;
-    *reinterpret_cast<float4*>(dst + r * DPAD + t) = row4(src, rs, r, t, n, D, vec);
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// x = hi + lo, both TF32 (rounded to nearest, ties away); EXACT (x from
+// bf16, 8 mantissa bits): hi = x, lo = 0
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  if (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32(x);
+    lo = tf32(x - __uint_as_float(hi));
   }
 }
 
-// 1 / max(|x|, 1e-12) of the vector x[0], x[ld], ..., x[(DPAD - 1) ld]
-template <int DPAD>
-__device__ __forceinline__ float inv_norm_col(const float* x, int ld) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DPAD; d += 4) {
-    s0 = fmaf(x[d * ld], x[d * ld], s0);
-    s1 = fmaf(x[(d + 1) * ld], x[(d + 1) * ld], s1);
-    s2 = fmaf(x[(d + 2) * ld], x[(d + 2) * ld], s2);
-    s3 = fmaf(x[(d + 3) * ld], x[(d + 3) * ld], s3);
-  }
-  return 1.f / fmaxf(sqrtf((s0 + s1) + (s2 + s3)), 1e-12f);
+// four 8 x 4 word matrices of shared memory, lane l giving row l & 7 of
+// matrix l >> 3; lane l receives word l & 3 of row l >> 2 of each
+__device__ __forceinline__ void ldsm4(unsigned r[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldsm2(unsigned r[2], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
 }
 
-struct StreamSmem {
-  float* sq;        // [2][DPAD][SQLD] queries of both branches, dim-major
-  float* skv;       // [2][DPAD][SKLD] keys, dim-major; or [2][SKT][DPAD] values
-  float* sa;        // [2][SKT][SALD] p of both branches, key-major; [0] then attn
-  float* inv_q;     // [2][SQT]
-  float* inv_k;     // [2][SKT]
-  float* score;     // [SKT] cls score of each key
-  float* fg;        // [SKT] reg score of each key (1 without one)
-  float* neg;       // [SKT] 0 or -1e9
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in the 3xTF32 split, the small products first; a factor that
+// is exact in TF32 drops the product of its lo
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3(float c[4], const unsigned ah[4], const unsigned al[4],
+                                     const unsigned bh[2], const unsigned bl[2]) {
+  if (!EXACT_A) mma_tf32(c, al, bh);
+  if (!EXACT_B) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A key tile's inputs besides its rows, for the (branch, key) pair p =
+// tid / L of the 2 KT (L = blockDim.x / 2 KT threads a pair), loaded a
+// tile ahead of their use
+struct KeyMeta {
+  float s;          // the key's score (cls) or fg (reg, 1 without one); 0 past NK
+  bool valid;
 };
 
-size_t stream_smem(int DPAD) {
-  return sizeof(float) * (2 * DPAD * SQLD + 2 * DPAD * SKLD + 2 * SKT * SALD + 2 * SQT +
-                          2 * SKT + 3 * SKT);
+__device__ __forceinline__ KeyMeta key_meta(const Args& a, int b, int k0, int kn) {
+  const int p = threadIdx.x / (blockDim.x / (2 * KT)), br = p / KT, r = p % KT;
+  const size_t key = static_cast<size_t>(b) * a.NK + k0 + r;
+  const bool in = r < kn;
+  return {!in ? 0.f : br == 0 ? a.score[key] : a.fg ? a.fg[key] : 1.f, in && a.valid[key]};
 }
 
-// the key tile k0 .. k0 + kn of both branches (dim-major), its inverse
-// norms and each key's scores and mask; ends synced
+// each key's factor 25 log2(e) s / |k| of both branches (0 past kn) and
+// its mask (0 or -1e9 log2(e); -inf past kn), from the landed tile: a
+// (branch, key) pair takes L = 2 or 4 adjacent lanes, each DPAD / L dims
 template <typename T, int DPAD>
-__device__ __forceinline__ void stream_keys(const Args& a, const StreamSmem& s, int b, int h,
-                                            int k0, int kn) {
-  for (int c = 0; c < 2; ++c) {
-    const T* k = static_cast<const T*>(a.k[c]);
-    load_cols<T, DPAD>(s.skv + c * DPAD * SKLD, SKLD,
-                       k + b * a.ks[c][0] + h * a.ks[c][1] + k0 * a.ks[c][2], a.ks[c][2],
-                       SKT, kn, a.D, a.vec);
+__device__ __forceinline__ void key_factors(float* kf, float* neg, const T* stage,
+                                            const KeyMeta& m, int kn, float kscale) {
+  constexpr int LD = DPAD + 16 / static_cast<int>(sizeof(T));
+  const int L = blockDim.x / (2 * KT), p = threadIdx.x / L, part = threadIdx.x % L;
+  const int br = p / KT, r = p % KT, n = DPAD / L;
+  const T* x = stage + br * KT * LD + key_row(r) * LD + part * n;
+  float s0 = 0.f, s1 = 0.f;
+  for (int d = 0; d < n; d += 4) {
+    const float4 v = get4(x + d);
+    s0 = fmaf(v.x, v.x, fmaf(v.y, v.y, s0));
+    s1 = fmaf(v.z, v.z, fmaf(v.w, v.w, s1));
   }
-  const int t = threadIdx.x;
-  if (t < SKT) {
-    const bool in = t < kn;
-    const size_t key = static_cast<size_t>(b) * a.NK + k0 + t;
-    s.score[t] = in ? a.score[key] : 0.f;
-    s.fg[t] = in && a.fg ? a.fg[key] : 1.f;
-    s.neg[t] = in && a.valid[key] ? 0.f : NEG;
-  }
-  __syncthreads();
-  if (t < 2 * SKT)
-    s.inv_k[t] = inv_norm_col<DPAD>(s.skv + (t / SKT) * DPAD * SKLD + t % SKT, SKLD);
-  __syncthreads();
-}
-
-// the scaled, score-weighted and masked logits of branch br at rows
-// 4 ty + i and keys 4 tx + j of the tile; keys past kn are -inf (p = 0)
-template <int DPAD>
-__device__ __forceinline__ void stream_logits(float l[4][4], const Args& a, const StreamSmem& s,
-                                              int br, int tx, int ty, int kn) {
-  const float* qb = s.sq + br * DPAD * SQLD + 4 * ty;
-  const float* kb = s.skv + br * DPAD * SKLD + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DPAD; ++d) {
-    const float4 qv = ld4(qb + d * SQLD), kv = ld4(kb + d * SKLD);
-    const float qa[4] = {qv.x, qv.y, qv.z, qv.w}, ka[4] = {kv.x, kv.y, kv.z, kv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) l[i][j] = fmaf(qa[i], ka[j], l[i][j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kk = 4 * tx + j;
-    const float sc = br == 0 ? s.score[kk] : s.fg[kk];
-    const float ik = s.inv_k[br * SKT + kk], ng = s.neg[kk];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float x = l[i][j] * s.inv_q[br * SQT + 4 * ty + i] * ik * a.scale * sc;
-      l[i][j] = kk < kn ? x + ng : -INFINITY;
-    }
+  float ss = s0 + s1;
+  for (int o = 1; o < L; o <<= 1) ss += __shfl_xor_sync(FULL, ss, o);
+  if (part == 0) {
+    const bool in = r < kn;
+    kf[p] = in ? 1.f / fmaxf(sqrtf(ss), 1e-12f) * kscale * m.s : 0.f;
+    if (br == 0) neg[r] = in ? (m.valid ? 0.f : NEG * LOG2E) : -INFINITY;
   }
 }
 
+// the K and (pass 2) V tiles of keys k0 .. k0 + kn of both branches into
+// a stage of the ring, as one cp.async group
 template <typename T, int DPAD>
-__global__ void __launch_bounds__(STHREADS, 2)
-fused_dual_attention_stream(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  StreamSmem s;
-  s.sq = smem;
-  s.skv = s.sq + 2 * DPAD * SQLD;
-  s.sa = s.skv + 2 * DPAD * SKLD;
-  s.inv_q = s.sa + 2 * SKT * SALD;
-  s.inv_k = s.inv_q + 2 * SQT;
-  s.score = s.inv_k + 2 * SKT;
-  s.fg = s.score + SKT;
-  s.neg = s.fg + SKT;
+__device__ __forceinline__ void issue_tile(T* stage, const T* const kp[2], const T* const vp[2],
+                                           const Args& a, int k0, int kn, bool values) {
+  constexpr int TILE = KT * (DPAD + 16 / static_cast<int>(sizeof(T)));
+  for (int c = 0; c < 2; ++c)
+    copy_tile<T, DPAD>(stage + c * TILE, kp[c] + k0 * a.ks[c][2], a.ks[c][2], kn, a.D, a.vec);
+  if (values)
+    for (int c = 0; c < 2; ++c)
+      copy_tile<T, DPAD>(stage + (2 + c) * TILE, vp[c] + k0 * a.vs[c][2], a.vs[c][2], kn, a.D,
+                         a.vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
-  const int q0 = blockIdx.x * SQT, qn = min(SQT, a.NQ - q0);
-  const int tid = threadIdx.x, br = tid / SHALF, t2 = tid - br * SHALF;
-  const int tx = t2 & 15, ty = t2 >> 4;
-  const size_t row0 = static_cast<size_t>(bh) * a.NQ + q0;
-
-  for (int c = 0; c < 2; ++c) {
-    const T* q = static_cast<const T*>(a.q[c]);
-    load_cols<T, DPAD>(s.sq + c * DPAD * SQLD, SQLD,
-                       q + b * a.qs[c][0] + h * a.qs[c][1] + q0 * a.qs[c][2], a.qs[c][2],
-                       SQT, qn, a.D, a.vec);
-  }
-  __syncthreads();
-  if (tid < 2 * SQT)
-    s.inv_q[tid] = inv_norm_col<DPAD>(s.sq + (tid / SQT) * DPAD * SQLD + tid % SQT, SQLD);
-
-  // pass 1: the online softmax's max and sum of each of the thread's rows
-  float m[4], sum[4];
+// the raw q.k of the warp's 16 rows (row group rg) and its NJ n-tiles j0
+// .. j0 + NJ - 1 of the tile, both branches
+template <typename T, int DPAD, int NJ>
+__device__ __forceinline__ void tile_logits(float S[2][NJ][4], const unsigned* sq, int rows,
+                                            const T* stage, int rg, int j0, int lane) {
+  constexpr int LD = DPAD + 16 / static_cast<int>(sizeof(T)), TILE = KT * LD, LDQ = DPAD + 4;
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  constexpr int QPARTS = EXACT ? 1 : 2;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    sum[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < a.NK; k0 += SKT) {
-    const int kn = min(SKT, a.NK - k0);
-    __syncthreads();
-    stream_keys<T, DPAD>(a, s, b, h, k0, kn);
-    float l[4][4];
-    stream_logits<DPAD>(l, a, s, br, tx, ty, kn);
+  for (int br = 0; br < 2; ++br)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = fmaxf(fmaxf(l[i][0], l[i][1]), fmaxf(l[i][2], l[i][3]));
-      for (int o = 1; o < 16; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, o));
-      const float mn = fmaxf(m[i], mt);
-      float ps = ((expf(l[i][0] - mn) + expf(l[i][1] - mn)) + expf(l[i][2] - mn)) +
-                 expf(l[i][3] - mn);
-      for (int o = 1; o < 16; o <<= 1) ps += __shfl_xor_sync(FULL, ps, o);
-      sum[i] = fmaf(sum[i], expf(m[i] - mn), ps);
-      m[i] = mn;
-    }
-  }
-  float inv_s[4];
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) inv_s[i] = 1.f / sum[i];
-
-  // pass 2: attn written once, attn @ v of the thread's branch accumulated
-  constexpr int NG = DPAD / 4, RPN = NG / 4;     // a thread RPN rows x 4 dims
-  const int px = t2 % NG, py = t2 / NG;
-  float4 acc[RPN];
+      for (int e = 0; e < 4; ++e) S[br][jj][e] = 0.f;
+  // ldmatrix rows: A (16 rows x 8 dims) matrix l >> 3 = (rows + 8 bit 0, dims
+  // + 4 bit 1); B (8 keys x 8 dims of n-tiles j, j + 1) = (dims + 4 bit 0, keys + 8 bit 1)
+  const unsigned* qa = sq + (16 * rg + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDQ + 4 * (lane >> 4);
+  const T* kb = stage + (8 * (j0 + (lane >> 4)) + (lane & 7)) * LD + 4 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int i = 0; i < RPN; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float* sa_own = s.sa + br * SKT * SALD;
-  const float* sv = s.skv + br * SKT * DPAD;
-  for (int k0 = 0; k0 < a.NK; k0 += SKT) {
-    const int kn = min(SKT, a.NK - k0);
-    __syncthreads();
-    stream_keys<T, DPAD>(a, s, b, h, k0, kn);
-    float l[4][4];
-    stream_logits<DPAD>(l, a, s, br, tx, ty, kn);
+  for (int kk = 0; kk < DPAD / 8; ++kk) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sa_own + (4 * tx + j) * SALD + 4 * ty) =
-          make_float4(expf(l[0][j] - m[0]) * inv_s[0], expf(l[1][j] - m[1]) * inv_s[1],
-                      expf(l[2][j] - m[2]) * inv_s[2], expf(l[3][j] - m[3]) * inv_s[3]);
-    __syncthreads();
-    for (int c = 0; c < 2; ++c) {
-      const T* v = static_cast<const T*>(a.v[c]);
-      load_rows_as_is<T, DPAD>(s.skv + c * SKT * DPAD,
-                               v + b * a.vs[c][0] + h * a.vs[c][1] + k0 * a.vs[c][2],
-                               a.vs[c][2], SKT, kn, a.D, a.vec);
-    }
-    for (int e = tid; e < SQT * SKT; e += STHREADS) {
-      const int key = e % SKT, row = e / SKT;
-      const float x = 0.5f * (s.sa[key * SALD + row] + s.sa[(SKT + key) * SALD + row]);
-      s.sa[key * SALD + row] = x;
-      if (row < qn && key < kn) a.attn[(row0 + row) * a.NK + k0 + key] = x;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      const float4 v = ld4(sv + kk * DPAD + 4 * px);
-      const float* ap = s.sa + kk * SALD + RPN * py;
-      if constexpr (RPN % 4 == 0) {
+    for (int br = 0; br < 2; ++br) {
+      unsigned ah[4], al[4] = {0u, 0u, 0u, 0u};
+      ldsm4(ah, qa + br * QPARTS * rows * LDQ + 8 * kk);
+      if (!EXACT) ldsm4(al, qa + (br * QPARTS + 1) * rows * LDQ + 8 * kk);
 #pragma unroll
-        for (int i = 0; i < RPN; i += 4) {
-          const float4 x = ld4(ap + i);
-          axpy4(acc[i], x.x, v);
-          axpy4(acc[i + 1], x.y, v);
-          axpy4(acc[i + 2], x.z, v);
-          axpy4(acc[i + 3], x.w, v);
+      for (int jj = 0; jj < NJ; jj += 2) {
+        unsigned bh[4], bl[4];
+        if constexpr (EXACT) {
+          const T* p = stage + br * TILE + (8 * (j0 + jj) + g) * LD + 8 * kk + t;
+#pragma unroll
+          for (int u = 0; u < (NJ > 1 ? 4 : 2); ++u)
+            split<true>(ldf(p + (u >> 1) * 8 * LD + (u & 1) * 4), bh[u], bl[u]);
+        } else {
+          unsigned raw[4];
+          if (NJ > 1) ldsm4(raw, kb + br * TILE + 8 * kk + 8 * jj * LD);
+          else ldsm2(raw, kb + br * TILE + 8 * kk);
+#pragma unroll
+          for (int u = 0; u < (NJ > 1 ? 4 : 2); ++u) split<false>(__uint_as_float(raw[u]), bh[u], bl[u]);
         }
-      } else {
-        const float2 x = *reinterpret_cast<const float2*>(ap);
-        axpy4(acc[0], x.x, v);
-        axpy4(acc[1], x.y, v);
+        mma3<EXACT, EXACT>(S[br][jj], ah, al, bh, bl);
+        if (NJ > 1) mma3<EXACT, EXACT>(S[br][jj + 1], ah, al, bh + 2, bl + 2);
       }
     }
   }
+}
+
+template <typename T, int DPAD, int KW>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+fused_dual_attention_stream(const Args a) {
+  constexpr int LD = DPAD + 16 / static_cast<int>(sizeof(T)), TILE = KT * LD, KS = DPAD / 8;
+  constexpr int LDQ = DPAD + 4, LDO = DPAD + 8, NJ = NT / KW;
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  constexpr int QPARTS = EXACT ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / 32, rows = warps / KW * 16;
+  unsigned* sq = reinterpret_cast<unsigned*>(smem_raw);     // [2][QPARTS][rows][LDQ] hi, lo
+  T* ring = reinterpret_cast<T*>(sq + 2 * QPARTS * rows * LDQ);   // [STAGES][kc, kr, vc, vr][KT][LD]
+  float* kf = reinterpret_cast<float*>(ring + STAGES * 4 * TILE);  // [2][KT]
+  float* neg = kf + 2 * KT;                                 // [KT]
+  float2* stats = reinterpret_cast<float2*>(neg + KT);      // [warps][2][16]
+  float* so = reinterpret_cast<float*>(smem_raw);           // [warps][2][16][LDO] after pass 2
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.x * rows, qn = min(rows, a.NQ - q0);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rg = w / KW, j0 = (w % KW) * NJ;    // the warp's 16 rows and n-tiles of each tile
+  const size_t row0 = static_cast<size_t>(bh) * a.NQ + q0;
+  const int nkt = (a.NK + KT - 1) / KT;
+  const float kscale = a.scale * LOG2E;
+  const T* kp[2];
+  const T* vp[2];
+  float rf[2][2];                               // 1 / |q| of rows g, g + 8 of both branches
+  for (int c = 0; c < 2; ++c) {
+    const T* q = static_cast<const T*>(a.q[c]) + b * a.qs[c][0] + h * a.qs[c][1] +
+                 q0 * a.qs[c][2];
+    kp[c] = static_cast<const T*>(a.k[c]) + b * a.ks[c][0] + h * a.ks[c][1];
+    vp[c] = static_cast<const T*>(a.v[c]) + b * a.vs[c][0] + h * a.vs[c][1];
+    // the queries split into TF32 hi and lo, once
+    for (int i = tid; i < rows * (DPAD / 4); i += blockDim.x) {
+      const int r = i / (DPAD / 4), col = 4 * (i - r * (DPAD / 4));
+      const float4 v = row4(q, a.qs[c][2], r, col, qn, a.D, a.vec);
+      uint4 hi, lo;
+      split<EXACT>(v.x, hi.x, lo.x);
+      split<EXACT>(v.y, hi.y, lo.y);
+      split<EXACT>(v.z, hi.z, lo.z);
+      split<EXACT>(v.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(sq + (c * QPARTS * rows + r) * LDQ + col) = hi;
+      if (!EXACT) *reinterpret_cast<uint4*>(sq + ((c * QPARTS + 1) * rows + r) * LDQ + col) = lo;
+    }
+    // lanes 16 c .. 16 c + 15: the norms of the row group's rows of branch c
+    float s0 = 0.f, s1 = 0.f;
+    if ((lane >> 4) == c)
+      for (int d = 0; d < DPAD; d += 4) {
+        const float4 v = row4(q, a.qs[c][2], 16 * rg + (lane & 15), d, qn, a.D, a.vec);
+        s0 = fmaf(v.x, v.x, fmaf(v.y, v.y, s0));
+        s1 = fmaf(v.z, v.z, fmaf(v.w, v.w, s1));
+      }
+    const float inv = 1.f / fmaxf(sqrtf(s0 + s1), 1e-12f);
+    for (int rh = 0; rh < 2; ++rh) rf[c][rh] = __shfl_sync(FULL, inv, 16 * c + g + 8 * rh);
+  }
+
+  // pass 1: each lane's running max and sum of exp2 over its own keys
+  float m[2][2], s[2][2], S[2][NJ][4];
 #pragma unroll
-  for (int i = 0; i < RPN; ++i) {
-    const int row = RPN * py + i;
-    if (row >= qn) continue;
-    float* dst = a.out[br] + (row0 + row) * a.D + 4 * px;
-    const float o[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
+  for (int br = 0; br < 2; ++br)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (4 * px + c < a.D) dst[c] = o[c];
+    for (int rh = 0; rh < 2; ++rh) {
+      m[br][rh] = -INFINITY;
+      s[br][rh] = 0.f;
+    }
+  KeyMeta meta = key_meta(a, b, 0, min(KT, a.NK));
+  issue_tile<T, DPAD>(ring, kp, vp, a, 0, min(KT, a.NK), false);
+  for (int i = 0; i < nkt; ++i) {
+    const int k0 = i * KT, kn = min(KT, a.NK - k0);
+    const T* stage = ring + (i % STAGES) * 4 * TILE;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();                  // tile i landed; tile i - 1's stage and factors free
+    if (i + 1 < nkt)
+      issue_tile<T, DPAD>(ring + ((i + 1) % STAGES) * 4 * TILE, kp, vp, a, k0 + KT,
+                          min(KT, a.NK - k0 - KT), false);
+    key_factors<T, DPAD>(kf, neg, stage, meta, kn, kscale);
+    if (i + 1 < nkt) meta = key_meta(a, b, k0 + KT, min(KT, a.NK - k0 - KT));
+    __syncthreads();
+    tile_logits<T, DPAD, NJ>(S, sq, rows, stage, rg, j0, lane);
+#pragma unroll
+    for (int br = 0; br < 2; ++br)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        float l[2 * NJ], mt = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int kk = col_key(j0 + jj, 2 * t);
+          const float2 f = *reinterpret_cast<const float2*>(kf + br * KT + kk);
+          const float2 ng = *reinterpret_cast<const float2*>(neg + kk);
+          l[2 * jj] = fmaf(S[br][jj][2 * rh] * rf[br][rh], f.x, ng.x);
+          l[2 * jj + 1] = fmaf(S[br][jj][2 * rh + 1] * rf[br][rh], f.y, ng.y);
+          mt = fmaxf(mt, fmaxf(l[2 * jj], l[2 * jj + 1]));
+        }
+        const float mn = fmaxf(m[br][rh], mt), mu = mn == -INFINITY ? 0.f : mn;
+        float ps = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2 * NJ; ++e) ps += ex2(l[e] - mu);
+        s[br][rh] = fmaf(s[br][rh], ex2(m[br][rh] - mu), ps);
+        m[br][rh] = mn;
+      }
+  }
+
+  // each row's max M and 0.5 / S: over the quad, then over the KW warps of
+  // the row group in slice order
+  float M[2][2], hs[2][2];
+#pragma unroll
+  for (int br = 0; br < 2; ++br)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float mx = m[br][rh];
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      float sm = mx == -INFINITY ? 0.f : s[br][rh] * ex2(m[br][rh] - mx);
+      sm += __shfl_xor_sync(FULL, sm, 1);
+      sm += __shfl_xor_sync(FULL, sm, 2);
+      M[br][rh] = mx;
+      hs[br][rh] = sm;
+      if (KW > 1 && t == 0) stats[(w * 2 + br) * 16 + g + 8 * rh] = make_float2(mx, sm);
+    }
+  __syncthreads();                    // pass 1's last stage read; the statistics written
+  if (KW > 1) {
+#pragma unroll
+    for (int br = 0; br < 2; ++br)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const float2* st = stats + (rg * KW * 2 + br) * 16 + g + 8 * rh;
+        float mx = -INFINITY, sm = 0.f;
+        for (int k = 0; k < KW; ++k) mx = fmaxf(mx, st[k * 32].x);
+        for (int k = 0; k < KW; ++k)
+          sm += st[k * 32].x == -INFINITY ? 0.f : st[k * 32].y * ex2(st[k * 32].x - mx);
+        M[br][rh] = mx;
+        hs[br][rh] = sm;
+      }
+  }
+#pragma unroll
+  for (int br = 0; br < 2; ++br)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) hs[br][rh] = 0.5f / hs[br][rh];
+
+  // pass 2: attn written once, attn @ v_c and attn @ v_r accumulated
+  float O[2][KS][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) O[c][n][e] = 0.f;
+  const bool nk4 = a.NK % 4 == 0;
+  meta = key_meta(a, b, 0, min(KT, a.NK));
+  issue_tile<T, DPAD>(ring, kp, vp, a, 0, min(KT, a.NK), true);
+  for (int i = 0; i < nkt; ++i) {
+    const int k0 = i * KT, kn = min(KT, a.NK - k0);
+    const T* stage = ring + (i % STAGES) * 4 * TILE;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (i + 1 < nkt)
+      issue_tile<T, DPAD>(ring + ((i + 1) % STAGES) * 4 * TILE, kp, vp, a, k0 + KT,
+                          min(KT, a.NK - k0 - KT), true);
+    key_factors<T, DPAD>(kf, neg, stage, meta, kn, kscale);
+    if (i + 1 < nkt) meta = key_meta(a, b, k0 + KT, min(KT, a.NK - k0 - KT));
+    __syncthreads();
+    tile_logits<T, DPAD, NJ>(S, sq, rows, stage, rg, j0, lane);
+    // S[0] becomes attn: row g, key col_key(j0 + jj, 2t) + e in S[0][jj][e]; row g + 8 in [2 + e]
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int kk = col_key(j0 + jj, 2 * t);
+      const float2 fc = *reinterpret_cast<const float2*>(kf + kk);
+      const float2 fr = *reinterpret_cast<const float2*>(kf + KT + kk);
+      const float2 ng = *reinterpret_cast<const float2*>(neg + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rh = e >> 1;
+        const float lc = fmaf(S[0][jj][e] * rf[0][rh], e & 1 ? fc.y : fc.x, e & 1 ? ng.y : ng.x);
+        const float lr = fmaf(S[1][jj][e] * rf[1][rh], e & 1 ? fr.y : fr.x, e & 1 ? ng.y : ng.x);
+        S[0][jj][e] = fmaf(ex2(lc - M[0][rh]), hs[0][rh], ex2(lr - M[1][rh]) * hs[1][rh]);
+      }
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int row = 16 * rg + g + 8 * rh;
+      if (row >= qn) continue;
+      float* dst = a.attn + (row0 + row) * a.NK + k0;
+      if constexpr (NJ > 1) {       // n-tiles j, j + 1: keys 16 (j / 2) + 4t .. + 3
+#pragma unroll
+        for (int jj = 0; jj < NJ; jj += 2) {
+          const int kk = col_key(j0 + jj, 2 * t);
+          const float4 v = make_float4(S[0][jj][2 * rh], S[0][jj][2 * rh + 1],
+                                       S[0][jj + 1][2 * rh], S[0][jj + 1][2 * rh + 1]);
+          if (nk4 && kk + 4 <= kn) {
+            __stcs(reinterpret_cast<float4*>(dst + kk), v);
+          } else {
+            if (kk < kn) dst[kk] = v.x;
+            if (kk + 1 < kn) dst[kk + 1] = v.y;
+            if (kk + 2 < kn) dst[kk + 2] = v.z;
+            if (kk + 3 < kn) dst[kk + 3] = v.w;
+          }
+        }
+      } else {                      // one n-tile: keys col_key(j0, 2t), + 1
+        const int kk = col_key(j0, 2 * t);
+        if (a.NK % 2 == 0 && kk + 2 <= kn) {
+          __stcs(reinterpret_cast<float2*>(dst + kk), make_float2(S[0][0][2 * rh], S[0][0][2 * rh + 1]));
+        } else {
+          if (kk < kn) dst[kk] = S[0][0][2 * rh];
+          if (kk + 1 < kn) dst[kk + 1] = S[0][0][2 * rh + 1];
+        }
+      }
+    }
+    // attn @ v: k-step jj takes n-tile j0 + jj's keys, logical k = t the key
+    // of column 2t (shared row 8 j + 2t), k = t + 4 that of column 2t + 1;
+    // each (branch, dims) tile summed from zero, then added in fp32
+    unsigned ph[NJ][4], pl[NJ][4];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      split<false>(S[0][jj][0], ph[jj][0], pl[jj][0]);
+      split<false>(S[0][jj][2], ph[jj][1], pl[jj][1]);
+      split<false>(S[0][jj][1], ph[jj][2], pl[jj][2]);
+      split<false>(S[0][jj][3], ph[jj][3], pl[jj][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const T* vb = stage + (2 + c) * TILE + (8 * j0 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          unsigned bh[2], bl[2];
+          split<EXACT>(ldf(vb + 8 * jj * LD + 8 * n), bh[0], bl[0]);
+          split<EXACT>(ldf(vb + 8 * jj * LD + LD + 8 * n), bh[1], bl[1]);
+          mma3<false, EXACT>(acc, ph[jj], pl[jj], bh, bl);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) O[c][n][e] += acc[e];
+      }
+    }
+  }
+
+  // out: each warp's sums into shared memory, then the row group's KW
+  // slices added in slice order and written out, 4 dims a thread
+  __syncthreads();                    // every warp done with the queries and the ring
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+        *reinterpret_cast<float2*>(so + ((w * 2 + c) * 16 + g + 8 * rh) * LDO + 8 * n + 2 * t) =
+            make_float2(O[c][n][2 * rh], O[c][n][2 * rh + 1]);
+  __syncthreads();
+  for (int i = tid; i < 2 * rows * (DPAD / 4); i += blockDim.x) {
+    const int d = 4 * (i % (DPAD / 4)), r = (i / (DPAD / 4)) % rows, c = i / (DPAD / 4) / rows;
+    if (r >= qn || d >= a.D) continue;
+    const float* src = so + (((r / 16) * KW * 2 + c) * 16 + r % 16) * LDO + d;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int k = 1; k < KW; ++k) {
+      const float4 x = *reinterpret_cast<const float4*>(src + k * 2 * 16 * LDO);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    float* dst = a.out[c] + (row0 + r) * a.D + d;
+    if (a.D % 4 == 0) {
+      *reinterpret_cast<float4*>(dst) = acc;
+    } else {
+      dst[0] = acc.x;
+      if (d + 1 < a.D) dst[1] = acc.y;
+      if (d + 2 < a.D) dst[2] = acc.z;
+      if (d + 3 < a.D) dst[3] = acc.w;
+    }
   }
 }
 
@@ -718,29 +1048,42 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Every kernel's shared-memory limit, raised once a device and kept.
-cudaError_t configure() {
+// The shared memory of a streaming instance's largest block: 128 / KW rows
+// (32 at KW 4), at most stream_max_rows(DPAD).
+template <typename T, int DPAD, int KW>
+cudaError_t allow_stream() {
+  const int rows = std::min(stream_max_rows(DPAD), KW == 4 ? 32 : MAX_ROWS / KW);
+  return allow_smem(fused_dual_attention_stream<T, DPAD, KW>, stream_smem<T>(DPAD, rows, KW));
+}
+
+// Every kernel's shared-memory limit, raised once a device and kept, and
+// the device's SM count (the streaming route's tile rule reads it).
+cudaError_t configure(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   static std::once_flag once[MAX_DEVICES];
   static cudaError_t status[MAX_DEVICES];
+  static int sm_count[MAX_DEVICES];
   std::call_once(once[dev], [dev] {
     const size_t split = split_smem(DMAX, shared_stride(DMAX));
-    cudaError_t e[8] = {
+    cudaError_t e[17] = {
         allow_smem(fused_dual_attention_split<float>, split),
         allow_smem(fused_dual_attention_split<__nv_bfloat16>, split),
-        allow_smem(fused_dual_attention_stream<float, 32>, stream_smem(32)),
-        allow_smem(fused_dual_attention_stream<float, 64>, stream_smem(64)),
-        allow_smem(fused_dual_attention_stream<float, 128>, stream_smem(128)),
-        allow_smem(fused_dual_attention_stream<__nv_bfloat16, 32>, stream_smem(32)),
-        allow_smem(fused_dual_attention_stream<__nv_bfloat16, 64>, stream_smem(64)),
-        allow_smem(fused_dual_attention_stream<__nv_bfloat16, 128>, stream_smem(128))};
+        allow_stream<float, 32, 1>(), allow_stream<float, 32, 2>(), allow_stream<float, 32, 4>(),
+        allow_stream<float, 64, 1>(), allow_stream<float, 64, 2>(), allow_stream<float, 64, 4>(),
+        allow_stream<float, 128, 4>(),
+        allow_stream<__nv_bfloat16, 32, 1>(), allow_stream<__nv_bfloat16, 32, 2>(),
+        allow_stream<__nv_bfloat16, 32, 4>(), allow_stream<__nv_bfloat16, 64, 1>(),
+        allow_stream<__nv_bfloat16, 64, 2>(), allow_stream<__nv_bfloat16, 64, 4>(),
+        allow_stream<__nv_bfloat16, 128, 4>(),
+        cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev)};
     status[dev] = cudaSuccess;
     for (cudaError_t x : e)
       if (status[dev] == cudaSuccess) status[dev] = x;
   });
+  if (sms) *sms = sm_count[dev];
   return status[dev];
 }
 
@@ -789,15 +1132,46 @@ bool make_args(Args& a, const void* const qkv[6], const long long* strides,
   return true;
 }
 
+// A streaming launch's shape: the instance (DPAD, KW), its block and grid.
+struct StreamShape {
+  int dpad;
+  StreamPlan plan;
+  dim3 grid, block;
+  size_t smem;
+};
+
+StreamShape stream_shape(int B, int H, int NQ, int D, bool bf16, int sms) {
+  StreamShape s;
+  const int dp = (D + 3) / 4 * 4;
+  s.dpad = dp <= 32 ? 32 : dp <= 64 ? 64 : 128;
+  s.plan = stream_plan(B, H, NQ, s.dpad, sms);
+  s.grid = dim3((NQ + s.plan.rows - 1) / s.plan.rows, static_cast<unsigned>(B * H));
+  s.block = dim3(32 * s.plan.rows / 16 * s.plan.kw);
+  s.smem = bf16 ? stream_smem<__nv_bfloat16>(s.dpad, s.plan.rows, s.plan.kw)
+                : stream_smem<float>(s.dpad, s.plan.rows, s.plan.kw);
+  return s;
+}
+
+template <typename T, int DPAD>
+const void* stream_kernel_kw(int kw) {
+  if (DPAD == 128 || kw == 4)
+    return reinterpret_cast<const void*>(fused_dual_attention_stream<T, DPAD, 4>);
+  if (kw == 2) return reinterpret_cast<const void*>(fused_dual_attention_stream<T, DPAD, 2>);
+  return reinterpret_cast<const void*>(fused_dual_attention_stream<T, DPAD, 1>);
+}
+
+// the instance a shape launches (DPAD 128 has only KW 4: 32 rows at most)
 template <typename T>
-void launch_stream(const Args& a, dim3 grid, cudaStream_t st) {
-  const int DPAD = a.DP <= 32 ? 32 : a.DP <= 64 ? 64 : 128;
-  if (DPAD == 32)
-    fused_dual_attention_stream<T, 32><<<grid, STHREADS, stream_smem(32), st>>>(a);
-  else if (DPAD == 64)
-    fused_dual_attention_stream<T, 64><<<grid, STHREADS, stream_smem(64), st>>>(a);
-  else
-    fused_dual_attention_stream<T, 128><<<grid, STHREADS, stream_smem(128), st>>>(a);
+const void* stream_kernel(const StreamShape& s) {
+  if (s.dpad == 32) return stream_kernel_kw<T, 32>(s.plan.kw);
+  if (s.dpad == 64) return stream_kernel_kw<T, 64>(s.plan.kw);
+  return reinterpret_cast<const void*>(fused_dual_attention_stream<T, 128, 4>);
+}
+
+template <typename T>
+cudaError_t launch_stream(Args& a, const StreamShape& s, cudaStream_t st) {
+  void* args[] = {&a};
+  return cudaLaunchKernel(stream_kernel<T>(s), s.grid, s.block, args, s.smem, st);
 }
 
 }  // namespace
@@ -824,7 +1198,7 @@ extern "C" int tscd_fused_dual_attention(
       scratch_size < scratch_bytes(B, H, NQ, NK, D) ||
       reinterpret_cast<size_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = configure();
+  cudaError_t err = configure(nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   a.fg = static_cast<const float*>(fg);
   const size_t rows = static_cast<size_t>(B) * H * NQ;
@@ -857,14 +1231,41 @@ extern "C" int tscd_fused_dual_attention_stream(
   if (!make_args(a, qkv, strides, score, valid, out_c, out_r, attn, B, H, NQ, NK, D, scale,
                  bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = configure();
+  int sms = 0;
+  cudaError_t err = configure(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   a.fg = static_cast<const float*>(fg);
-  const dim3 grid((NQ + SQT - 1) / SQT, static_cast<unsigned>(B * H));
+  const StreamShape s = stream_shape(B, H, NQ, D, bf16, sms);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    launch_stream<__nv_bfloat16>(a, grid, st);
-  else
-    launch_stream<float>(a, grid, st);
-  return static_cast<int>(cudaGetLastError());
+  err = bf16 ? launch_stream<__nv_bfloat16>(a, s, st) : launch_stream<float>(a, s, st);
+  const cudaError_t last = cudaGetLastError();     // read, so that no later check sees it
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The streaming launch at (B, H, NQ, D) as the entry point above makes it,
+// for checks: out = {query rows a block, threads a block, blocks (grid x),
+// dynamic shared memory, blocks a SM, registers a thread, local (spill)
+// bytes a thread, key slices (KW)}.
+extern "C" int tscd_fused_dual_attention_stream_config(int B, int H, int NQ, int D, int bf16,
+                                                       int* out) {
+  if (D < 1 || D > DMAX || B < 1 || H < 1 || NQ < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = configure(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const StreamShape s = stream_shape(B, H, NQ, D, bf16, sms);
+  const void* kernel = bf16 ? stream_kernel<__nv_bfloat16>(s) : stream_kernel<float>(s);
+  int per_sm = 0;
+  cudaFuncAttributes attr;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, s.block.x, s.smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = s.plan.rows;
+  out[1] = static_cast<int>(s.block.x);
+  out[2] = static_cast<int>(s.grid.x);
+  out[3] = static_cast<int>(s.smem);
+  out[4] = per_sm;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  out[7] = s.plan.kw;
+  return 0;
 }

@@ -13,31 +13,48 @@ round-2 pooling reads.
 Two routes, chosen by the query count alone (`route`):
   - split (q <= 128: MCA's cross form, q = P = 50 at TSCD-Large, k =
     1600): the keys split over blocks of KEY_CHUNK keys, the chunks'
-    softmax statistics combined in a second launch. With so few query
-    rows the split over keys is what fills the card; its scratch grows as
-    q x k x d.
+    softmax statistics combined in a second launch; fp32 FMA. With so few
+    query rows the split over keys is what fills the card, and the
+    product rate does not bound it; its scratch grows as q x k x d.
   - stream (q > 128: the self-attention form, q = k = F x P: 960 at
     YOLOV-L's window and the online MSA's default bank, 8000 in an OVIS
     YOLOV++ training window, 16000 in its eval window): a block a tile of
-    32 query rows, the keys streamed through shared memory twice (the
-    online softmax's statistics, then attn and its products); no scratch,
-    so a launch needs the bytes of attn and the outputs (4.1 GB at h 4,
-    q = k = 16000).
+    `stream_plan` query rows (16 a warp, both branches, the warps of a row
+    group splitting each key tile), the keys streamed through shared
+    memory twice in tiles of STREAM_TILE (the softmax
+    statistics, then attn and its products); no scratch, so a launch
+    needs the bytes of attn and the outputs (4.1 GB at h 4, q = k =
+    16000).
 A launch whose bytes (`launch_bytes`) exceed the card raises with the
 shape and the bytes.
 
-Bound on an H100 at the MCA main-path shape (B=1, h=4, q=50, k=1600,
-d=64): 8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA
-(2.45 us at 67 TFLOP/s), so operations bound it, by a hair; at q = k =
-16000, h 4, d 64: 5.24e11 flops (7.8 ms) against 4.1 GB of attn (1.22
-ms), operations again, and the streaming design's recompute of the
-logits puts its own floor at 1.5x that.
+The streaming kernel runs both products on the tensor cores (mma.sync
+m16n8k8 .tf32) in the 3xTF32 split: each fp32 operand is hi + lo, both
+rounded to TF32 (10 mantissa bits, to nearest), and a product is lo.hi'
++ hi.lo' + hi.hi' in fp32 accumulators. That keeps about 2^-21 of each
+product against fp32's 2^-24: modelled at q = k = 960, d 64, its outputs
+sit 2.4e-6 from float64, as fp32 FMA's do (2.3e-6), where one TF32
+product is 1.8e-3 off and misses the port's 1e-5
+(tests/test_torch_port_attention_stream.py). Its
+exponentials are exp2 with log2(e) folded into each key's factor; key
+tiles (and value tiles) are copied by cp.async into a ring of 2 while the
+tile before is multiplied; attn is written as 16-byte stores from the
+registers where the two branches combine.
+
+Bounds on an H100. MCA's main-path shape (B=1, h=4, q=50, k=1600, d=64):
+8.0 MB moved (2.40 us at 3.35 TB/s) and 0.164 GFLOP of fp32 FMA (2.45 us
+at 67 TFLOP/s), so operations bound it, by a hair. q = k = 16000, h 4, d
+64: 5.24e11 flops as 3 TF32 products each, 3.18 ms at 495 TFLOP/s,
+against 4.1 GB of attn (1.22 ms): the tensor cores bound it, and the
+streaming design's recompute of the logits puts its own floor at 1.5x
+that (4.77 ms).
 
 q, k and v may be strided views, as the aggregation's heads are: the
 kernel reads any layout whose last dimension is contiguous, in fp32 or
 bf16 (the bf16 model's Linear outputs), and computes in fp32 either way,
-as the Pallas kernel upcasts in its body. At bf16 q/k/v move half the
-bytes (5.4 MB at the main path), and operations still bound it.
+as the Pallas kernel upcasts in its body (bf16 values are exact in TF32,
+so their logits take one product). At bf16 q/k/v move half the bytes
+(5.4 MB at the main path), and operations still bound it.
 """
 
 import ctypes
@@ -49,7 +66,8 @@ from . import library
 
 NEG = -1e9
 KEY_CHUNK = 32      # keys a block of the split launch owns (KC in the source)
-STREAM_TILE = 64    # keys a tile the streaming launch streams (SKT)
+STREAM_TILE = 32    # keys a tile the streaming launch streams (KT)
+STREAM_MAX_ROWS = 128   # query rows of the streaming route's largest block (MAX_ROWS)
 SPLIT_MAX_Q = 128   # the split route's most query rows
 BACKWARD_RANGE = "fused_dual_attention backward"
 
@@ -60,6 +78,21 @@ def route(q: int) -> str:
     "stream" (the self-attention form, whose split scratch would grow as
     q x k x d)."""
     return "split" if q <= SPLIT_MAX_Q else "stream"
+
+
+def stream_plan(B: int, h: int, q: int, d: int, sms: int) -> Tuple[int, int]:
+    """The streaming route's block at this shape, (rows, key slices): a
+    block is rows / 16 row groups of 16 query rows, each a warp a key slice
+    (the slices take the key tile's n-tiles in turn). rows is the largest
+    of 128 (32 past a head dim of 64, for shared memory), 64, 32, 16 whose
+    blocks still cover 9 in 10 of the card's `sms` SMs (10 B h ceil(q /
+    rows) >= 9 sms), else 16; key slices min(4, 128 / rows). The mirror of
+    `stream_plan` in the CUDA source: (128, 1) at q = 8000 and 16000 (h 4),
+    (32, 4) at YOLOV-L's 960 on an H100's 132 SMs (120 blocks of 8 warps)."""
+    rows = 32 if -(-d // 4) * 4 > 64 else STREAM_MAX_ROWS
+    while rows > 16 and 10 * -(-q // rows) * B * h < 9 * sms:
+        rows //= 2
+    return rows, min(4, STREAM_MAX_ROWS // rows)
 
 
 def scratch_floats(B: int, h: int, q: int, k: int, d: int) -> int:

@@ -32,6 +32,7 @@ _SIGNATURES = {
         + [_I] * 5 + [_F, _I, _P],
     "tscd_fused_dual_attention_stream":
         [_P] * 9 + [_P] * 3 + [ctypes.POINTER(ctypes.c_longlong)] + [_I] * 5 + [_F, _I, _P],
+    "tscd_fused_dual_attention_stream_config": [_I] * 5 + [ctypes.POINTER(_I)],
     "tscd_linear_sum_assignment": [_P, _P, _I, _I, _P],
     "tscd_linear_sum_assignment_block": [_P, _P, _I, _I, _P],
     "tscd_nms_pack": [_P, _P, _P, _I, _I, _F, _P],
