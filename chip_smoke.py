@@ -6140,11 +6140,239 @@ def yolov_online_phase(torch, counters):
             rec["launches_in_4_traced_frames"]["fused_dual_attention_stream"]}}
 
 
+# the demo tools at full width (tscd_torch/tools): TSCD-Large and yolov_l
+# on the 32 frames of the 720p VID fixture, yolox_l on one of them
+DEMO_FRAMES = os.path.join(HERE, "tscd_torch", "data", "fixtures", "vid", "Data", "VID",
+                           "val", "fix0")
+DEMO_SMALL_FRAMES = 8
+DEMO_ONLINE_K = 3      # 32 frames: 10 full batches and a tail of 2
+DEMO_CONF = 0.001     # the exps' test_conf: random weights score low
+DEMO_EXPS = {"tscd_demo": "tscd_large", "vid_demo": "yolov_l",
+             "yolov_demo_online": "yolov_l", "demo": "yolox_l"}
+
+
+def demo_checkpoint(exp, online=False):
+    """Seeded random weights of the exp's model (its online model where
+    `online`), written as a JAX-layout msgpack under build/demo_phase;
+    returns the path (the seconds it took on `demo_checkpoint.seconds`)."""
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.checkpoint import save_checkpoint
+    t0 = time.perf_counter()
+    build = exp.get_online_model if online else exp.get_model
+    model = random_init_(build(device="cpu"), exp.seed if exp.seed is not None else 0)
+    name = f"{exp.exp_name}{'_online' if online else ''}.msgpack"
+    path = save_checkpoint({"model": model.state_dict()},
+                           os.path.join(HERE, "build", "demo_phase"), name=name)
+    demo_checkpoint.seconds = time.perf_counter() - t0
+    return path
+
+
+def demo_frames_dir(n):
+    """A directory of the fixture's first n frames."""
+    import shutil
+    out = os.path.join(HERE, "build", "demo_phase", f"frames{n}")
+    os.makedirs(out, exist_ok=True)
+    for f in sorted(os.listdir(DEMO_FRAMES))[:n]:
+        shutil.copyfile(os.path.join(DEMO_FRAMES, f), os.path.join(out, f))
+    return out
+
+
+def check_mp4(res, n):
+    """The tool's .mp4 parses through the port's reader: MJPEG in an mp4v
+    entry, one sample a frame, each decoding to the frame's size, the first
+    equal to the encoder's bytes of the first frame drawn."""
+    from tscd_torch.data.image import imdecode, imencode_jpeg
+    from tscd_torch.utils.video import read_mp4
+    m = read_mp4(res["path"])
+    if (m["codec"], m["object_type"], len(m["samples"])) != ("mp4v", 0x6C, n):
+        raise AssertionError(f"{res['path']}: {m['codec']} {m['object_type']} with "
+                             f"{len(m['samples'])} samples for {n} frames")
+    for s, f in zip(m["samples"], res["frames"]):
+        if imdecode(s).shape != f.shape:
+            raise AssertionError(f"{res['path']}: a sample of {imdecode(s).shape}, "
+                                 f"frame {f.shape}")
+    if m["samples"][0] != imencode_jpeg(res["frames"][0]):
+        raise AssertionError(f"{res['path']}: the first sample is not the first frame's JPEG")
+    return {"samples": len(m["samples"]), "fps": m["fps"], "size": [m["width"], m["height"]],
+            "bytes": sum(len(s) for s in m["samples"])}
+
+
+def demo_traced(torch, counters, run, kernels):
+    """run() under torch.profiler, every wrapper's count at 0 before:
+    (its result, each kernel's launches in the device trace, the wrappers'
+    eager counts). Raises where one of `kernels` was not launched. The
+    seconds of the traced run and of the counting go on
+    `demo_traced.seconds`."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with traced(torch) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = trace_launches(prof)
+    demo_traced.seconds = {"traced_run_s": t1 - t0, "count_s": time.perf_counter() - t1}
+    wrapped = {name: c.launches for name, c in counters.items()}
+    missing = [k for k in kernels if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels {missing} not launched: trace {launches}, "
+                             f"wrappers {wrapped}")
+    return res, {k: launches[k] for k in kernels}, wrapped
+
+
+def demo_small_part(torch):
+    """tscd_demo at the selftest size on 8 fixture frames, traj_linking and
+    --post on: the CPU's plain versions against the card's kernels, the
+    detections handed to vis matched as sets within the `small` phase's
+    tolerance."""
+    from tscd_torch.exp import get_exp
+    from tscd_torch.tools import tscd_demo
+    exp = get_exp(exp_name="selftest")
+    ckpt = demo_checkpoint(exp)
+    frames = demo_frames_dir(DEMO_SMALL_FRAMES)
+    out = {}
+    for dev in ("cpu", str(card(torch))):
+        out[dev] = tscd_demo.main([
+            "--exp", "selftest", "-c", ckpt, "--path", frames, "--device", dev, "--post",
+            "--conf", str(DEMO_CONF), "--output_dir",
+            os.path.join(HERE, "build", "demo_phase", f"small_{dev}"), "traj_linking", "True"])
+    atol = rtol = 1e-4
+    worst, n = match_rows([out["cpu"]["dets"]], [out[str(card(torch))]["dets"]], atol, rtol)
+    emit({"phase": "demo", "part": "small", "tool": "tscd_demo", "exp": "selftest",
+          "frames": DEMO_SMALL_FRAMES, "traj_linking": True, "post": True, "detections": n,
+          "max_abs_err": worst, "tolerance": {"atol": atol, "rtol": rtol},
+          "mp4": check_mp4(out[str(card(torch))], DEMO_SMALL_FRAMES), "pass": True})
+
+
+def demo_phase(torch, counters):
+    """The four demo tools on the card at full width from seeded random
+    weights written as JAX-layout msgpack checkpoints: tscd_demo
+    (TSCD-Large, 1 + 31, over the 32 fixture frames), vid_demo (yolov_l,
+    0 + 32), yolov_demo_online (yolov_l, --online-batch 1 and 3, the 3 one
+    with a tail of 2) and demo image (yolox_l, one frame), each traced: the
+    stem, the attention, the solver (TSCD) and the NMS launched; the .mp4
+    parsed; the online tool's detections equal to OnlineStream's on the same
+    frames in the same batches. Each tool prints its ms a frame."""
+    import numpy as np
+
+    from tscd_torch.core.online import OnlineStream
+    from tscd_torch.core.predict import detection_rows
+    from tscd_torch.data.image import imdecode, imencode_jpeg
+    from tscd_torch.data.transforms import letterbox
+    from tscd_torch.exp import get_exp
+    from tscd_torch.tools import demo, tscd_demo, vid_demo, yolov_demo_online
+    from tscd_torch.tools.tscd_eval import load_weights
+    from tscd_torch.utils.video import read_frames
+    t_phase = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True
+                         ).stdout.strip().splitlines()
+    card_name = smi[0] if smi else "not read"
+    demo_small_part(torch)
+    dev = str(card(torch))
+    n = len(os.listdir(DEMO_FRAMES))
+    out_dir = os.path.join(HERE, "build", "demo_phase")
+    common = ["--path", DEMO_FRAMES, "--device", dev, "--conf", str(DEMO_CONF)]
+    records = {}
+
+    def record(tool, exp_name, res, launches, wrapped, extra=None):
+        if not res["drawn"]:
+            raise AssertionError(f"{tool}: no box drawn at --conf {DEMO_CONF}")
+        rec = {"phase": "demo", "tool": tool, "exp": exp_name, "frames": n,
+               "ms_per_frame": res["ms_per_frame"], "boxes_drawn": res["drawn"],
+               "launches": launches, "wrapper_launches": wrapped,
+               "mp4": check_mp4(res, len(res["frames"])), "card": card_name,
+               "checkpoint_s": demo_checkpoint.seconds, **demo_traced.seconds,
+               **(extra or {}), "pass": True}
+        emit(rec)
+        records[tool if "online_batch" not in (extra or {})
+                else f"{tool}_K{extra['online_batch']}"] = rec["ms_per_frame"]
+
+    free_card(torch)
+    name = DEMO_EXPS["tscd_demo"]
+    ckpt = demo_checkpoint(get_exp(exp_name=name))
+    res, launches, wrapped = demo_traced(torch, counters, lambda: tscd_demo.main(
+        ["--exp", name, "-c", ckpt, "--output_dir", os.path.join(out_dir, "tscd"), *common]),
+        ("focus_stem", "fused_dual_attention", "hungarian", "nms"))
+    record("tscd_demo", name, res, launches, wrapped)
+    del res
+    free_card(torch)
+
+    name = DEMO_EXPS["vid_demo"]
+    ckpt = demo_checkpoint(get_exp(exp_name=name))
+    res, launches, wrapped = demo_traced(torch, counters, lambda: vid_demo.main(
+        ["--exp", name, "-c", ckpt, "--output_dir", os.path.join(out_dir, "vid"), *common]),
+        ("focus_stem", "fused_dual_attention_stream", "nms"))
+    record("vid_demo", name, res, launches, wrapped)
+    del res
+    free_card(torch)
+
+    name = DEMO_EXPS["yolov_demo_online"]
+    exp = get_exp(exp_name=name)
+    ckpt = demo_checkpoint(exp, online=True)
+    letterboxed = [letterbox(f, exp.test_size, dtype=np.uint8)[0]
+                   for f in read_frames(DEMO_FRAMES)]
+    for K in (1, DEMO_ONLINE_K):
+        res, launches, wrapped = demo_traced(torch, counters, lambda: yolov_demo_online.main(
+            ["--exp", name, "-c", ckpt, "--online-batch", str(K), "--max-wait-ms", "1e9",
+             "--output_dir", os.path.join(out_dir, f"online{K}"), *common]),
+            ("focus_stem", "fused_dual_attention_stream", "nms"))
+        want_batches = [K] * (n // K) + ([n % K] if n % K else [])
+        if res["batches"] != want_batches:
+            raise AssertionError(f"online K={K}: batches {res['batches']}, "
+                                 f"want {want_batches}")
+        model = exp.get_online_model(device=dev)
+        load_weights(model, ckpt)
+        stream = OnlineStream(model, bank_frames=31, batch=K)
+        want, i = [], 0
+        for b in res["batches"]:
+            want += [detection_rows(d)[0] for d in stream.run_batch(letterboxed[i:i + b])]
+            i += b
+        worst, compared = match_rows([res["dets"]], [want], 1e-4, 1e-4, box_share=1e-4)
+        record("yolov_demo_online", name, res, launches, wrapped, {
+            "online_batch": K, "batches": res["batches"],
+            "equal_to_online_stream": {"detections_compared": compared,
+                                       "detections_max_abs_err": worst,
+                                       "tolerance": "boxes 1e-4 of the frame's largest "
+                                                    "coordinate, scores atol 1e-4, rtol "
+                                                    "1e-4, classes exactly"}})
+        del res, model, stream
+        free_card(torch)
+
+    name = DEMO_EXPS["demo"]
+    exp = get_exp(exp_name=name)
+    ckpt = demo_checkpoint(exp)
+    frame = os.path.join(DEMO_FRAMES, sorted(os.listdir(DEMO_FRAMES))[0])
+    still_out = os.path.join(out_dir, "still")
+    res, launches, wrapped = demo_traced(torch, counters, lambda: demo.main(
+        ["image", "-n", name, "-c", ckpt, "--path", frame, "--device", dev, "--save_result",
+         "--conf", str(DEMO_CONF), "output_dir", still_out]),
+        ("focus_stem", "nms"))
+    (_, drawn, boxes, _, _, ms), = res
+    saved = os.path.join(still_out, name, "vis_res", os.path.basename(frame))
+    with open(saved, "rb") as f:
+        data = f.read()
+    if data != imencode_jpeg(drawn) or imdecode(data).shape != drawn.shape:
+        raise AssertionError(f"{saved} is not the drawn image's JPEG")
+    if not len(boxes):
+        raise AssertionError(f"demo image: no box at --conf {DEMO_CONF}")
+    rec = {"phase": "demo", "tool": "demo image", "exp": name, "frames": 1,
+           "ms_per_frame": ms, "boxes_drawn": len(boxes), "launches": launches,
+           "wrapper_launches": wrapped, "saved_bytes": len(data), "card": card_name,
+           "checkpoint_s": demo_checkpoint.seconds, **demo_traced.seconds, "pass": True}
+    emit(rec)
+    records["demo_image"] = ms
+    emit({"phase": "demo", "seconds": time.time() - t_phase, "ms_per_frame": records,
+          "card": card_name})
+    free_card(torch)
+    return {"rows": {}, "launches": {}}
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
-          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "trace_lead_in")
+          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
 
@@ -6260,7 +6488,7 @@ def main() -> int:
     launches.update(heads["launches"])
     for recipe in (still_phase(torch, counters), ovis_phase(torch, counters),
                    yolov_phase(torch, counters), ovis_yolov_plus_phase(torch, counters),
-                   yolov_online_phase(torch, counters)):
+                   yolov_online_phase(torch, counters), demo_phase(torch, counters)):
         rows.update(recipe["rows"])
         launches.update(recipe["launches"])
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {

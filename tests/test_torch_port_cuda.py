@@ -29,9 +29,11 @@ and without the online MSA's fg score; fp32 and bf16 q/k/v; all keys but
 one invalid) 1e-5 from the plain version and bit-identical across calls,
 its block the one `stream_plan` reckons, the wrapper raising
 with the shape and bytes where the card cannot hold a launch, the NMS at
-YOLOV-L's refined postprocess (32, 900) exactly, and the online YOLOV
+YOLOV-L's refined postprocess (32, 900) exactly, the online YOLOV
 stream (graph replays) against the CPU's eager stream at the selftest
-size, detections and bank 1e-4.
+size, detections and bank 1e-4, and the demo tools (tscd_demo, vid_demo,
+yolov_demo_online) at the selftest size against the CPU port, detections
+1e-4 as sets, their .mp4 parsed.
 """
 
 import numpy as np
@@ -857,3 +859,80 @@ def test_cuda_nms_at_the_yolov_refined_postprocess_equals_plain(card):
     assert int(want.mask.sum()) > 0
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _demo_frames(tmp_path, n=6):
+    import os
+    import shutil
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "tscd_torch", "data", "fixtures", "vid", "Data", "VID", "val", "fix0")
+    for f in sorted(os.listdir(src))[:n]:
+        shutil.copyfile(os.path.join(src, f), tmp_path / f)
+    return str(tmp_path)
+
+
+def _demo_ckpt(tmp_path, exp_name, online=False):
+    from tscd_torch.exp import get_exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.checkpoint import save_checkpoint
+    exp = get_exp(exp_name=exp_name)
+    model = (exp.get_online_model if online else exp.get_model)(device="cpu")
+    return save_checkpoint({"model": random_init_(model, 0).state_dict()}, str(tmp_path),
+                           name=f"{exp_name}{'_online' if online else ''}.msgpack")
+
+
+def _same_rows(got, want):
+    """Each frame's rows as sets: classes exactly, boxes 1e-4 of the
+    frame's largest coordinate, scores atol 1e-4, all rtol 1e-4."""
+    n = 0
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        tol = 1e-4 * max(1.0, float(np.abs(w[:, :4]).max())) if len(w) else 0
+        free = list(range(len(w)))
+        for r in g:
+            hit = next((i for i in free if w[i, 6] == r[6]
+                        and np.allclose(w[i, :4], r[:4], atol=tol, rtol=1e-4)
+                        and np.allclose(w[i, 4:6], r[4:6], atol=1e-4, rtol=1e-4)), None)
+            assert hit is not None, r
+            free.remove(hit)
+            n += 1
+    assert n > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", ["tscd_demo", "vid_demo", "yolov_demo_online"])
+def test_cuda_demo_tools_equal_cpu(fp32_card, tmp_path, tool):
+    """tscd_demo (selftest, traj_linking and --post), vid_demo
+    (yolov_selftest, --post) and yolov_demo_online (yolov_selftest,
+    --online-batch 4 over 6 frames: a full batch and a tail of 2) with
+    --device cuda: each writes an .mp4 the port's reader parses, one JPEG
+    sample a frame of the frame's size, and hands vis the detections the
+    CPU port does (TF32 off)."""
+    import importlib
+
+    from tscd_torch.data.image import imdecode
+    from tscd_torch.utils.video import read_mp4
+    (tmp_path / "frames").mkdir()
+    frames = _demo_frames(tmp_path / "frames")
+    mod = importlib.import_module(f"tscd_torch.tools.{tool}")
+    if tool == "tscd_demo":
+        ckpt = _demo_ckpt(tmp_path, "selftest")
+        extra = ["--exp", "selftest", "--post"]
+        opts = ["traj_linking", "True"]
+    elif tool == "vid_demo":
+        ckpt = _demo_ckpt(tmp_path, "yolov_selftest")
+        extra, opts = ["--exp", "yolov_selftest", "--post"], []
+    else:
+        ckpt = _demo_ckpt(tmp_path, "yolov_selftest", online=True)
+        extra = ["--exp", "yolov_selftest", "--online-batch", "4", "--max-wait-ms", "1e9"]
+        opts = []
+    res = {dev: mod.main(["-c", ckpt, "--path", frames, "--device", dev, "--conf", "0.001",
+                          "--output_dir", str(tmp_path / dev), *extra, *opts])
+           for dev in ("cpu", "cuda")}
+    if tool == "yolov_demo_online":
+        assert res["cuda"]["batches"] == res["cpu"]["batches"] == [4, 2]
+    _same_rows(res["cuda"]["dets"], res["cpu"]["dets"])
+    m = read_mp4(res["cuda"]["path"])
+    assert len(m["samples"]) == 6 and m["object_type"] == 0x6C
+    for s, f in zip(m["samples"], res["cuda"]["frames"]):
+        assert imdecode(s).shape == f.shape

@@ -286,5 +286,5 @@ def test_get_exp_by_file_name_and_merge(tmp_path):
     bad.write_text("class Exp:\n    pass\n")
     with pytest.raises(TypeError):
         get_exp(str(bad))
-    with pytest.raises(NotImplementedError):
-        get_exp(exp_name="selftest").merge(["traj_linking", "True"]).get_evaluator(val_loader=iter(()))
+    assert get_exp(exp_name="selftest").merge(["traj_linking", "True"]).get_evaluator(
+        val_loader=iter(())).traj_linking is True

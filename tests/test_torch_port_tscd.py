@@ -225,11 +225,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_port_imports_no_jax():
-    """Every module of tscd_torch (data, eval and tools included), and
-    chip_smoke.py, imports with jax, flax and tscd_tpu blocked."""
+    """Every module of tscd_torch (data, eval, postprocess and tools
+    included), and chip_smoke.py, imports with jax, flax, tscd_tpu, cv2 and
+    PIL blocked (the card's machine has none of them)."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'flax', 'tscd_tpu'):\n"
+        "for m in ('jax', 'flax', 'tscd_tpu', 'cv2', 'PIL'):\n"
         "    sys.modules[m] = None\n"
         "import tscd_torch\n"
         "names = [info.name for info in pkgutil.walk_packages(tscd_torch.__path__, 'tscd_torch.')]\n"
@@ -237,10 +238,13 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "for name in ('tscd_torch.data.vid', 'tscd_torch.eval.vid_evaluator',\n"
         "             'tscd_torch.eval.fast_cocoeval', 'tscd_torch.tools.tscd_eval',\n"
-        "             'tscd_torch.exp.build', 'tscd_torch.ops.kernels.nms'):\n"
+        "             'tscd_torch.exp.build', 'tscd_torch.ops.kernels.nms',\n"
+        "             'tscd_torch.tools.tscd_demo', 'tscd_torch.utils.visualize',\n"
+        "             'tscd_torch.utils.video', 'tscd_torch.postprocess.repp'):\n"
         "    assert name in names, name\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tscd_tpu')"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tscd_tpu', 'cv2',"
+        " 'PIL')"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -13,6 +13,7 @@
 //   tscd_jpeg_info / _decode      cv2.imread(path): baseline JPEG -> BGR uint8
 //                                 (libjpeg-turbo's islow IDCT, fancy
 //                                 upsampling and YCbCr -> RGB arithmetic)
+//   tscd_jpeg_encode              cv2.imencode(".jpg", img) at its defaults
 //
 // Plain C entry points, loaded with ctypes (which releases the GIL for the
 // call), built with g++ by tscd_torch/data/image.py. Each returns 0, or a
@@ -969,6 +970,364 @@ void warp_affine_linear(const uint8_t* src, int sh, int sw, int64_t sstride, uin
   }
 }
 
+// ------------------------------------------------------------ encode ----
+// cv2.imencode(".jpg", img) at its defaults, as libjpeg-turbo 3.1.2 writes
+// it: quality 95 (jpeg_set_quality, baseline-forced tables), YCbCr 4:2:0,
+// the islow forward DCT, the standard Huffman tables (no optimisation), one
+// interleaved baseline scan, no restart markers, a JFIF 1.01 APP0 (no
+// density unit, 1:1) and nothing else. Its SIMD routines (colour
+// conversion, h2v2 downsampling, FDCT, reciprocal quantisation) compute what
+// the C routines below compute.
+
+const uint8_t kStdLumQ[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromQ[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+    99, 99, 47, 66, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+constexpr int kQuality = 95;
+
+// jpeg_set_quality(95, force_baseline): scale 200 - 2 q percent, 1..255
+void scaled_quant(const uint8_t* base, uint16_t* q) {
+  const long scale = kQuality < 50 ? 5000 / kQuality : 200 - kQuality * 2;
+  for (int i = 0; i < 64; i++) {
+    long t = (static_cast<long>(base[i]) * scale + 50) / 100;
+    q[i] = static_cast<uint16_t>(t <= 0 ? 1 : (t > 255 ? 255 : t));
+  }
+}
+
+// jcdctmgr.c compute_reciprocal for a divisor of 16 bits (DCTELEM short)
+struct Divisor {
+  uint32_t recip, corr;
+  int shift;  // total right shift of (|x| + corr) * recip
+};
+
+Divisor reciprocal(uint32_t d) {
+  int b = 0;
+  while ((d >> (b + 1)) != 0) b++;  // flss(d) - 1
+  int r = 16 + b;
+  uint32_t fq = static_cast<uint32_t>((uint64_t{1} << r) / d);
+  const uint32_t fr = static_cast<uint32_t>((uint64_t{1} << r) % d);
+  uint32_t c = d / 2;
+  if (fr == 0) {
+    fq >>= 1;
+    r--;
+  } else if (fr <= d / 2) {
+    c++;
+  } else {
+    fq++;
+  }
+  return {fq, c, r};
+}
+
+// jpeg_fdct_islow on 64 samples already centred (natural order), in place
+void fdct_islow(int32_t* data) {
+  constexpr int kB = kConstBits, kP = kPass1Bits;
+  auto descale = [](int64_t x, int n) { return static_cast<int32_t>((x + (int64_t{1} << (n - 1))) >> n); };
+  for (int pass = 0; pass < 2; pass++) {
+    const int step = pass == 0 ? 1 : 8;  // element step along a row / a column
+    const int line = pass == 0 ? 8 : 1;
+    for (int ctr = 0; ctr < 8; ctr++) {
+      int32_t* d = data + ctr * line;
+      const int64_t tmp0 = d[0] + d[7 * step], tmp7 = d[0] - d[7 * step];
+      const int64_t tmp1 = d[step] + d[6 * step], tmp6 = d[step] - d[6 * step];
+      const int64_t tmp2 = d[2 * step] + d[5 * step], tmp5 = d[2 * step] - d[5 * step];
+      const int64_t tmp3 = d[3 * step] + d[4 * step], tmp4 = d[3 * step] - d[4 * step];
+      const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      const int sh = pass == 0 ? kB - kP : kB + kP;
+      if (pass == 0) {
+        d[0] = static_cast<int32_t>((tmp10 + tmp11) * (1 << kP));
+        d[4 * step] = static_cast<int32_t>((tmp10 - tmp11) * (1 << kP));
+      } else {
+        d[0] = descale(tmp10 + tmp11, kP);
+        d[4 * step] = descale(tmp10 - tmp11, kP);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0541;
+      d[2 * step] = descale(z1 + tmp13 * F0765, sh);
+      d[6 * step] = descale(z1 - tmp12 * int64_t{F1847}, sh);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      const int64_t z5 = (z3 + z4) * F1175;
+      const int64_t t4 = tmp4 * F0298, t5 = tmp5 * F2053, t6 = tmp6 * F3072, t7 = tmp7 * F1501;
+      z1 *= -int64_t{F0899};
+      z2 *= -int64_t{F2562};
+      z3 = z3 * -int64_t{F1961} + z5;
+      z4 = z4 * -int64_t{F0390} + z5;
+      d[7 * step] = descale(t4 + z1 + z3, sh);
+      d[5 * step] = descale(t5 + z2 + z4, sh);
+      d[3 * step] = descale(t6 + z2 + z3, sh);
+      d[step] = descale(t7 + z1 + z4, sh);
+    }
+  }
+}
+
+struct HuffEnc {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+// jpeg_make_c_derived_tbl: canonical codes from the counts
+HuffEnc derive(const uint8_t* bits, const uint8_t* vals) {
+  HuffEnc h{};
+  int k = 0;
+  uint32_t code = 0;
+  for (int len = 1; len <= 16; len++) {
+    for (int i = 0; i < bits[len - 1]; i++, k++) {
+      h.code[vals[k]] = static_cast<uint16_t>(code++);
+      h.size[vals[k]] = static_cast<uint8_t>(len);
+    }
+    code <<= 1;
+  }
+  return h;
+}
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint32_t acc = 0;
+  int nbits = 0;
+  void put(uint32_t v, int n) {  // the low n bits of v, n <= 16
+    acc = (acc << n) | (v & ((1u << n) - 1));
+    nbits += n;
+    while (nbits >= 8) {
+      const uint8_t b = static_cast<uint8_t>(acc >> (nbits - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      nbits -= 8;
+    }
+    acc &= (1u << nbits) - 1;
+  }
+  void flush() {  // pad with 1-bits to a byte
+    if (nbits > 0) put(0x7F, 8 - nbits);
+  }
+};
+
+// jchuff.c encode_one_block: the DC difference, then AC runs (ZRL, EOB)
+void encode_block(BitWriter& bw, const int16_t* blk, int& last_dc, const HuffEnc& dc,
+                  const HuffEnc& ac) {
+  int t = blk[0] - last_dc, t2 = t;
+  last_dc = blk[0];
+  if (t < 0) {
+    t = -t;
+    t2--;
+  }
+  int nb = 0;
+  while (t) {
+    nb++;
+    t >>= 1;
+  }
+  bw.put(dc.code[nb], dc.size[nb]);
+  if (nb) bw.put(static_cast<uint32_t>(t2), nb);
+  int r = 0;
+  for (int k = 1; k < 64; k++) {
+    t = blk[kNatural[k]];
+    if (t == 0) {
+      r++;
+      continue;
+    }
+    while (r > 15) {
+      bw.put(ac.code[0xF0], ac.size[0xF0]);
+      r -= 16;
+    }
+    t2 = t;
+    if (t < 0) {
+      t = -t;
+      t2--;
+    }
+    nb = 1;
+    while ((t >>= 1)) nb++;
+    const int sym = (r << 4) + nb;
+    bw.put(ac.code[sym], ac.size[sym]);
+    bw.put(static_cast<uint32_t>(t2), nb);
+    r = 0;
+  }
+  if (r > 0) bw.put(ac.code[0], ac.size[0]);
+}
+
+void put16(std::vector<uint8_t>& o, int v) {
+  o.push_back(static_cast<uint8_t>(v >> 8));
+  o.push_back(static_cast<uint8_t>(v));
+}
+
+void put_dqt(std::vector<uint8_t>& o, int id, const uint16_t* q) {
+  o.insert(o.end(), {0xFF, 0xDB});
+  put16(o, 67);
+  o.push_back(static_cast<uint8_t>(id));
+  for (int i = 0; i < 64; i++) o.push_back(static_cast<uint8_t>(q[kNatural[i]]));
+}
+
+void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits, const uint8_t* vals) {
+  int n = 0;
+  for (int i = 0; i < 16; i++) n += bits[i];
+  o.insert(o.end(), {0xFF, 0xC4});
+  put16(o, 2 + 1 + 16 + n);
+  o.push_back(static_cast<uint8_t>(cls_id));
+  o.insert(o.end(), bits, bits + 16);
+  o.insert(o.end(), vals, vals + n);
+}
+
+// BGR (h, w, 3), rows `stride` bytes apart -> the JPEG file's bytes.
+std::vector<uint8_t> jpeg_encode(const uint8_t* img, int h, int w, int64_t stride) {
+  // colour conversion (jccolor.c's tables), planes padded as jcprepct.c /
+  // jcsample.c pad them: Y to ceil(w/8)*8 columns and the iMCU height by
+  // replicating the last column and row; the full-resolution chroma to
+  // ceil(w/16)*16 columns and an even row count before the h2v2 average
+  // (bias 1, 2, 1, 2 ... along each row), its output to the iMCU height.
+  const int mcux = (w + 15) / 16, mcuy = (h + 15) / 16;
+  const int ybw = (w + 7) / 8, ybh = (h + 7) / 8;  // Y blocks a row / a column
+  const int yw = mcux * 16, yh = mcuy * 16, cw = mcux * 8, ch = mcuy * 8;
+  std::vector<uint8_t> Y(static_cast<size_t>(yw) * yh), Cb(static_cast<size_t>(cw) * ch),
+      Cr(static_cast<size_t>(cw) * ch);
+  {
+    constexpr int64_t kHalf = int64_t{1} << 15, kOff = int64_t{128} << 16;
+    auto fix = [](double x) { return static_cast<int64_t>(x * 65536 + 0.5); };
+    const int64_t ry = fix(0.29900), gy = fix(0.58700), by = fix(0.11400);
+    const int64_t rcb = -fix(0.16874), gcb = -fix(0.33126), half = fix(0.5);
+    const int64_t gcr = -fix(0.41869), bcr = -fix(0.08131);
+    const int rows = h + (h & 1);            // chroma's even row count
+    const int cols = mcux * 16;              // chroma's padded width
+    std::vector<uint8_t> fcb(static_cast<size_t>(cols) * rows), fcr(fcb.size());
+    for (int y = 0; y < rows; y++) {
+      const uint8_t* src = img + static_cast<int64_t>(std::min(y, h - 1)) * stride;
+      for (int x = 0; x < cols; x++) {
+        const uint8_t* p = src + 3 * std::min(x, w - 1);
+        const int64_t b = p[0], g = p[1], r = p[2];
+        if (y < h && x < ybw * 8)
+          Y[static_cast<size_t>(y) * yw + x] =
+              static_cast<uint8_t>((ry * r + gy * g + by * b + kHalf) >> 16);
+        fcb[static_cast<size_t>(y) * cols + x] =
+            static_cast<uint8_t>((rcb * r + gcb * g + half * b + kOff + kHalf - 1) >> 16);
+        fcr[static_cast<size_t>(y) * cols + x] =
+            static_cast<uint8_t>((half * r + gcr * g + bcr * b + kOff + kHalf - 1) >> 16);
+      }
+    }
+    for (int y = h; y < yh; y++)
+      std::memcpy(&Y[static_cast<size_t>(y) * yw], &Y[static_cast<size_t>(h - 1) * yw], yw);
+    const int crows = rows / 2;
+    for (int y = 0; y < ch; y++) {
+      const int sy = std::min(y, crows - 1);
+      const uint8_t* b0 = &fcb[static_cast<size_t>(2 * sy) * cols];
+      const uint8_t* r0 = &fcr[static_cast<size_t>(2 * sy) * cols];
+      for (int x = 0, bias = 1; x < cw; x++, bias ^= 3) {
+        const int i = 2 * x;
+        Cb[static_cast<size_t>(y) * cw + x] =
+            static_cast<uint8_t>((b0[i] + b0[i + 1] + b0[i + cols] + b0[i + cols + 1] + bias) >> 2);
+        Cr[static_cast<size_t>(y) * cw + x] =
+            static_cast<uint8_t>((r0[i] + r0[i + 1] + r0[i + cols] + r0[i + cols + 1] + bias) >> 2);
+      }
+    }
+  }
+  uint16_t qy[64], qc[64];
+  scaled_quant(kStdLumQ, qy);
+  scaled_quant(kStdChromQ, qc);
+  Divisor dy[64], dc[64];
+  for (int i = 0; i < 64; i++) {
+    dy[i] = reciprocal(uint32_t{qy[i]} << 3);
+    dc[i] = reciprocal(uint32_t{qc[i]} << 3);
+  }
+  // one block: samples - 128, FDCT, quantise (natural order)
+  auto block = [](const uint8_t* plane, int pw, int bx, int by, const Divisor* dv, int16_t* out) {
+    int32_t ws[64];
+    for (int r = 0; r < 8; r++)
+      for (int c = 0; c < 8; c++)
+        ws[r * 8 + c] = plane[static_cast<size_t>(by * 8 + r) * pw + bx * 8 + c] - 128;
+    fdct_islow(ws);
+    for (int i = 0; i < 64; i++) {
+      const uint32_t a = static_cast<uint32_t>(ws[i] < 0 ? -ws[i] : ws[i]);
+      const int v = static_cast<int>((uint64_t{a + dv[i].corr} * dv[i].recip) >> dv[i].shift);
+      out[i] = static_cast<int16_t>(ws[i] < 0 ? -v : v);
+    }
+  };
+
+  std::vector<uint8_t> o;
+  o.reserve(static_cast<size_t>(w) * h / 2 + 1024);
+  o.insert(o.end(), {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0x00, 0x01, 0x01,
+                     0x00, 0x00, 0x01, 0x00, 0x01, 0x00, 0x00});
+  put_dqt(o, 0, qy);
+  put_dqt(o, 1, qc);
+  o.insert(o.end(), {0xFF, 0xC0});
+  put16(o, 17);
+  o.push_back(8);
+  put16(o, h);
+  put16(o, w);
+  o.insert(o.end(), {3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+  put_dht(o, 0x00, kDcLumBits, kDcVals);
+  put_dht(o, 0x10, kAcLumBits, kAcLumVals);
+  put_dht(o, 0x01, kDcChromBits, kDcVals);
+  put_dht(o, 0x11, kAcChromBits, kAcChromVals);
+  o.insert(o.end(), {0xFF, 0xDA, 0x00, 0x0C, 3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0});
+
+  const HuffEnc hdy = derive(kDcLumBits, kDcVals), hay = derive(kAcLumBits, kAcLumVals);
+  const HuffEnc hdc = derive(kDcChromBits, kDcVals), hac = derive(kAcChromBits, kAcChromVals);
+  BitWriter bw{o};
+  int ldy = 0, ldb = 0, ldr = 0;
+  int16_t blk[4][64], cblk[64];
+  for (int my = 0; my < mcuy; my++) {
+    for (int mx = 0; mx < mcux; mx++) {
+      // jccoefct.c: a Y block right of the image's blocks is a dummy (zero
+      // AC, the DC of the block to its left); a Y block row below them is
+      // dummies with the DC of the MCU's block before it
+      for (int yb = 0; yb < 2; yb++) {
+        for (int xb = 0; xb < 2; xb++) {
+          int16_t* b = blk[yb * 2 + xb];
+          const int bx = 2 * mx + xb, by = 2 * my + yb;
+          if (by >= ybh) {
+            std::memset(b, 0, sizeof(blk[0]));
+            b[0] = blk[yb * 2 + xb - 1][0];
+          } else if (bx >= ybw) {
+            std::memset(b, 0, sizeof(blk[0]));
+            b[0] = blk[yb * 2 + xb - 1][0];
+          } else {
+            block(Y.data(), yw, bx, by, dy, b);
+          }
+        }
+      }
+      for (int i = 0; i < 4; i++) encode_block(bw, blk[i], ldy, hdy, hay);
+      block(Cb.data(), cw, mx, my, dc, cblk);
+      encode_block(bw, cblk, ldb, hdc, hac);
+      block(Cr.data(), cw, mx, my, dc, cblk);
+      encode_block(bw, cblk, ldr, hdc, hac);
+    }
+  }
+  bw.flush();
+  o.insert(o.end(), {0xFF, 0xD9});
+  return o;
+}
+
 int report(const std::string& msg, char* err, int errlen) {
   if (err && errlen > 0) std::snprintf(err, static_cast<size_t>(errlen), "%s", msg.c_str());
   return 1;
@@ -1068,6 +1427,24 @@ int tscd_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out, int height,
     return 0;
   } catch (const JpegError& e) {
     return report(e.msg, err, errlen);
+  } catch (const std::bad_alloc&) {
+    return report("out of memory", err, errlen);
+  }
+}
+
+// cv2.imencode(".jpg", img) of a BGR (height, width, 3) image with rows
+// `stride` bytes apart, into out[0, cap); *len gets the file's size. 1 with
+// the reason in `err` where it does not fit (call again with *len bytes).
+int tscd_jpeg_encode(const uint8_t* img, int height, int width, int64_t stride, uint8_t* out,
+                     int64_t cap, int64_t* len, char* err, int errlen) {
+  if (height <= 0 || width <= 0 || height > 65535 || width > 65535)
+    return report("a JPEG's sides are 1 to 65535 pixels", err, errlen);
+  try {
+    const std::vector<uint8_t> o = jpeg_encode(img, height, width, stride);
+    *len = static_cast<int64_t>(o.size());
+    if (*len > cap) return report("output buffer too small", err, errlen);
+    std::memcpy(out, o.data(), o.size());
+    return 0;
   } catch (const std::bad_alloc&) {
     return report("out of memory", err, errlen);
   }

@@ -2,6 +2,8 @@
 (tscd_torch/csrc/host/image.cpp, built and loaded by `utils.native`):
 
     imread(path)                   cv2.imread(path): BGR uint8 (H, W, 3)
+    imencode_jpeg(img)             cv2.imencode(".jpg", img)[1].tobytes()
+    imwrite(path, img)             cv2.imwrite(path, img) for a .jpg path
     resize_linear(img, h, w)       cv2.resize(img, (w, h), INTER_LINEAR)
     resize_linear_float(img, h, w) the same on img.astype(float32): float32
     bgr2hsv(img) / hsv2bgr(img)    cv2.cvtColor(COLOR_BGR2HSV / _HSV2BGR)
@@ -46,6 +48,7 @@ _NATIVE = HostLibrary(
         "tscd_warp_affine": ([_P, _I, _I, _L, _P, _I, _I, _P, _I], _I),
         "tscd_jpeg_info": ([_P, _L, _P, _P, ctypes.c_char_p, _I], _I),
         "tscd_jpeg_decode": ([_P, _L, _P, _I, _I, ctypes.c_char_p, _I], _I),
+        "tscd_jpeg_encode": ([_P, _I, _I, _L, _P, _L, _P, ctypes.c_char_p, _I], _I),
     })
 load_library = _NATIVE.load
 
@@ -87,6 +90,37 @@ def imread(path: str) -> np.ndarray:
         return imdecode(data)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+def imencode_jpeg(img: np.ndarray) -> bytes:
+    """cv2.imencode(".jpg", img) at cv2's defaults for an (H, W, 3) uint8 BGR
+    image: baseline, quality 95, YCbCr 4:2:0, the islow DCT, the standard
+    Huffman tables, a JFIF 1.01 header; the same bytes."""
+    img = _bgr(img, "imencode_jpeg")
+    h, w = img.shape[:2]
+    lib = load_library()
+    err = ctypes.create_string_buffer(_ERR)
+    n = _L()
+    cap = 4 * h * w + 4096  # quality 95 on noise stays under 2.5 bytes a pixel
+    while True:
+        out = np.empty(cap, np.uint8)
+        if lib.tscd_jpeg_encode(_ptr(img), h, w, img.strides[0], _ptr(out), cap,
+                                ctypes.byref(n), err, _ERR) == 0:
+            return out[:n.value].tobytes()
+        if n.value <= cap:
+            raise ValueError(err.value.decode())
+        cap = n.value
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """cv2.imwrite(path, img) for a .jpg/.jpeg path (the bytes of
+    `imencode_jpeg`); any other extension raises, naming it."""
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
+    if ext not in ("jpg", "jpeg"):
+        raise ValueError(f"imwrite writes JPEG only (.jpg, .jpeg), not {path!r}")
+    data = imencode_jpeg(img)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def resize_linear(img: np.ndarray, height: int, width: int) -> np.ndarray:

@@ -9,9 +9,11 @@ native COCO evaluator. With a predict function that has `.dispatch` and
 `.materialize`, window i + 1 is dispatched before window i is read back,
 so the host's work on one window overlaps the card's on the next. The
 "Average inference time" counts dispatch and materialize only, as the
-reference does.
+reference does. `traj_linking` rescores each video's detections by their
+tubelets' mean (postprocess/linking.py) before scoring, as JAX's does.
 """
 
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -26,10 +28,6 @@ class VIDEvaluator:
                  class_names: Optional[Sequence[str]] = None,
                  lframe=1, gframe=31, first_frame_index: int = 0,
                  traj_linking: bool = False):
-        if traj_linking:
-            raise NotImplementedError(
-                "traj_linking needs postprocess/linking.py, which the port "
-                "does not have yet (ROADMAP queue 1 item 9)")
         self.dataloader = dataloader
         self.img_size = img_size
         self.confthre = confthre
@@ -39,6 +37,36 @@ class VIDEvaluator:
         self.lframe = lframe
         self.gframe = gframe
         self.first_frame_index = first_frame_index
+        # tubelet-averaged rescoring over each video before COCO scoring
+        # (postprocess/linking.py:post_linking)
+        self.traj_linking = traj_linking
+
+    def _linked(self, windows):
+        """With traj_linking, holds each video's windows (a video: the
+        directory of a window's first frame) and yields them with
+        post_linking applied over the video's local frames."""
+        if not self.traj_linking:
+            yield from windows
+            return
+        from ..postprocess.linking import post_linking
+        buf, video = [], None
+
+        def flush():
+            linked = post_linking([d for _, ds in buf for d in ds])
+            k = 0
+            for b, ds in buf:
+                yield b, linked[k:k + len(ds)]
+                k += len(ds)
+
+        for batch, dets in windows:
+            v = os.path.dirname(batch["paths"][0])
+            if video is not None and v != video and buf:
+                yield from flush()
+                buf = []
+            video = v
+            buf.append((batch, dets))
+        if buf:
+            yield from flush()
 
     def _windows(self, predict_fn: Callable, timing: Dict[str, float]):
         """Yields (batch, per-local-frame detection rows) in loader order,
@@ -79,7 +107,7 @@ class VIDEvaluator:
         images: List[dict] = []
         ann_id, image_id, n_samples = 1, 0, 0
         timing = {"forward": 0.0}
-        for batch, dets_frames in self._windows(predict_fn, timing):
+        for batch, dets_frames in self._linked(self._windows(predict_fn, timing)):
             n_samples += len(dets_frames)
             for f, dets in enumerate(dets_frames):
                 img_h, img_w = batch["infos"][f]

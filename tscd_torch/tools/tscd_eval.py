@@ -43,6 +43,25 @@ def make_parser(prog="TSCD eval (PyTorch port)",
     return parser
 
 
+def load_weights(model, ckpt: str) -> None:
+    """Loads `ckpt` into `model`: a JAX `.msgpack` (variables, or a JAX
+    training checkpoint's EMA weights), the port's state_dict `.pth` or a
+    reference checkpoint. Checkpoint keys the port has no module for are
+    skipped and counted; a key of the model the file lacks raises."""
+    from tscd_torch.train.checkpoint import load_checkpoint
+    from tscd_torch.utils.convert import load_reference_pth
+
+    sd = (load_checkpoint(ckpt, model)["model"] if ckpt.endswith(".msgpack")
+          else load_reference_pth(ckpt))
+    res = model.load_state_dict(sd, strict=False)
+    if res.missing_keys:
+        raise KeyError(f"{ckpt} lacks {len(res.missing_keys)} keys of the "
+                       f"model, e.g. {res.missing_keys[:5]}")
+    if res.unexpected_keys:
+        print(f"skipped {len(res.unexpected_keys)} checkpoint keys the port "
+              f"has no module for")
+
+
 def main(argv=None):
     return run(make_parser().parse_args(argv), "tscd_large")
 
@@ -52,8 +71,6 @@ def run(args, default_exp: str):
     built-in exp without -f or --exp; the exp's predict function."""
     from tscd_torch.device import resolve_device
     from tscd_torch.exp import get_exp
-    from tscd_torch.train.checkpoint import load_checkpoint
-    from tscd_torch.utils.convert import load_reference_pth
 
     exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else default_exp))
     exp.merge(args.opts)
@@ -72,15 +89,7 @@ def run(args, default_exp: str):
         np.random.seed(int(exp.seed) & 0xFFFFFFFF)
     device = resolve_device(args.device)
     model = exp.get_model(device=device)
-    sd = (load_checkpoint(args.ckpt, model)["model"] if args.ckpt.endswith(".msgpack")
-          else load_reference_pth(args.ckpt))
-    res = model.load_state_dict(sd, strict=False)
-    if res.missing_keys:
-        raise KeyError(f"{args.ckpt} lacks {len(res.missing_keys)} keys of the "
-                       f"model, e.g. {res.missing_keys[:5]}")
-    if res.unexpected_keys:
-        print(f"skipped {len(res.unexpected_keys)} checkpoint keys the port "
-              f"has no module for")
+    load_weights(model, args.ckpt)
 
     loader = exp.get_eval_loader(pin_memory=device.type == "cuda")
     result = exp.get_evaluator(loader).evaluate(exp.get_predict_fn(model))
