@@ -244,6 +244,20 @@ Phases, each of which raises on failure (so the run exits non-zero):
              share, each frame's kernel launches from 4 traced replays, and
              4-frame windows through window_step (ms, frames/s, equal to 4
              single steps).
+ 16. backbones  the other backbones (`backbone_name`): (a) at the selftest
+             sizes, TSCD on Swin_Tiny and on Focal and YOLOV on Swin_Tiny,
+             card against the card machine's CPU over 2 carried windows
+             (detections 1e-4 as sets), YOLOPAFPNP6 and YOLOPAFPN_ResNet on
+             their features (1e-4 of each map's largest); (b) TSCD-Large
+             (1 + 31 frames at 576 px) on Swin_Base at fp32 and at bf16 (the
+             neck's and head's BN folded) and on Focal at fp32, yolov_l (0 +
+             32) on Swin_Tiny: a warm-up window, 3 graph replays traced (the
+             attention, solver and NMS launches from the device trace, no
+             stem; no wrapper launch), 4 back to back (window ms, spread,
+             frames/s, busy share, peak memory); (c) one TSCD-Large stage-2
+             step on Swin_Base (4 + 12 frames, frozen backbone): finite
+             losses and gradients. The kernels line adds each row's launches
+             a window of these runs.
 The kernels phase also checks the attention's streaming route (q > 128)
 against its plain version: masks (all keys but one invalid, all
 invalid), bit-identical calls, q = k = 960 at d 64 (fp32 and bf16 q/k/v,
@@ -1701,8 +1715,8 @@ def bf16_model(torch, exp, sd32, device=None):
     from tscd_torch.utils.model_utils import fuse_model
     model = TSCD(num_classes=exp.num_classes, depth=exp.depth, width=exp.width,
                  num_proposals=exp.num_proposals, minimal_limit=exp.minimal_limit,
-                 heads=exp.heads, device=device, dtype=torch.bfloat16,
-                 **{k: getattr(exp, k) for k in HEAD_KNOBS})
+                 heads=exp.heads, backbone_name=exp.backbone_name, device=device,
+                 dtype=torch.bfloat16, **{k: getattr(exp, k) for k in HEAD_KNOBS})
     return fuse_model(model, sd32)
 
 
@@ -1723,7 +1737,7 @@ def raw_delta_parts(b16, f32):
                             ("cls", np.s_[..., 5:]))}
 
 
-def cpu_reference(torch, exp, sd32, x, te, b16, f32):
+def cpu_reference(torch, exp, sd32, x, te, b16, f32, phase="bf16"):
     """The card's bf16 raw outputs on the window's first local and first
     global frame against the bf16 port on the CPU (plain versions, held
     to JAX's bf16 model by tests/test_torch_port_bf16.py) on the same
@@ -1731,7 +1745,8 @@ def cpu_reference(torch, exp, sd32, x, te, b16, f32):
     card's raw outputs of the window, numpy): the card's distance
     from fp32, and its distance from the CPU's bf16, each within
     BF16_SPREAD times the CPU's own distance from fp32 (max and p99.9).
-    The dense outputs of a frame depend on that frame alone."""
+    The dense outputs of a frame depend on that frame alone. Its record
+    goes out under `phase`."""
     L = exp.lframe_val
     pick = [0, L]
     t0 = time.time()
@@ -1744,7 +1759,8 @@ def cpu_reference(torch, exp, sd32, x, te, b16, f32):
     limit = {k: BF16_SPREAD * v for k, v in d["cpu_vs_fp32"].items()}
     ok = all(0 < v for v in limit.values()) and all(
         d[pair][k] <= limit[k] for pair in ("card_vs_fp32", "card_vs_cpu") for k in limit)
-    emit({"phase": "bf16", "check": "card against the CPU's bf16 port, frames 0 and L",
+    emit({"phase": phase, "check": "card against the CPU's bf16 port, frames 0 and L",
+          "exp": exp.exp_name, "backbone_name": exp.backbone_name,
           "distances": d, "limit": limit,
           "tolerance": f"card_vs_fp32 and card_vs_cpu <= {BF16_SPREAD} x cpu_vs_fp32",
           "cpu_s": cpu_s, "pass": ok})
@@ -3739,26 +3755,25 @@ def device_window(torch, exp, seed, w=0):
 
 
 def warm_predict(torch, model, exp):
-    """`model`'s predict function and the state after its first window
-    (eager, then the window's graph captured)."""
-    from tscd_torch.core.predict import make_predict_fn
-    pred = make_predict_fn(model, exp.lframe_val, exp.gframe_val, exp.nmsthre, exp.test_conf)
+    """`model`'s predict function (the exp's) and the state after its first
+    window (eager, then the window's graph captured)."""
+    pred = exp.get_predict_fn(model)
     _, _, state = run_windows(torch, pred, exp, 1, 100, True, uint8=True)
     torch.cuda.synchronize()
     return pred, state
 
 
-def replays(torch, counters, pred, exp, state, bf16, nms=2, n=HEAD_WINDOWS):
+def replays(torch, counters, pred, exp, state, bf16, nms=2, n=HEAD_WINDOWS, want=None):
     """`n` streamed windows as graph replays under torch.profiler
-    (`traced_path`: each window's hand kernels in the trace, none counted
-    by a wrapper): window ms (CUDA events), launches, the device kernels
-    and device ms a window, detections (finite, 7 columns). Returns the
-    record and the carried state."""
+    (`traced_path`: each window's hand kernels in the trace, `want` where
+    given, none counted by a wrapper): window ms (CUDA events), launches,
+    the device kernels and device ms a window, detections (finite, 7
+    columns). Returns the record and the carried state."""
     import numpy as np
     from torch.autograd import DeviceType
     (dets, lat, state), launches, prof = traced_path(
         torch, counters, lambda: run_windows(torch, pred, exp, n, 60, True, state, 1, uint8=True),
-        n, exp.lframe_val, bf16, nms, attempts=3)
+        n, exp.lframe_val, bf16, nms, attempts=3, want=want)
     work = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation and e.key != "Activity Buffer Request"
             and "Memcpy" not in e.key and LEAD_IN not in e.key]
@@ -6368,11 +6383,232 @@ def demo_phase(torch, counters):
     return {"rows": {}, "launches": {}}
 
 
+BACKBONE_LOOP = 4         # replays back to back, untraced, after HEAD_WINDOWS traced
+# the full-width runs: (exp, backbone_name, dtype); the hand kernels each
+# window launches (TRACE_NAMES rows; Swin and FocalNet have no Focus stem)
+BACKBONE_RUNS = (("tscd_large", "Swin_Base", "fp32"), ("tscd_large", "Swin_Base", "bf16"),
+                 ("tscd_large", "Focal", "fp32"), ("yolov_l", "Swin_Tiny", "fp32"))
+BACKBONE_LAUNCHES = {
+    ("tscd_large", "fp32"): {"fused_dual_attention": 2, "hungarian": 1, "nms": 2},
+    ("tscd_large", "bf16"): {"fused_dual_attention_bf16": 2, "hungarian": 1, "nms": 2},
+    ("yolov_l", "fp32"): {"fused_dual_attention_stream": 1, "nms": 2}}
+BACKBONE_SMALL_TOL = {"atol": 1e-4, "rtol": 1e-4}
+
+
+def backbone_small_part(torch):
+    """At the selftest sizes, each model from the same seeded weights on
+    the card machine's CPU (plain versions) and on the card (kernels), two
+    windows with the state carried: TSCD (selftest) on Swin_Tiny and on
+    Focal, YOLOV (yolov_selftest) on Swin_Tiny, detections matched as sets
+    within the `small` phase's tolerance; YOLOPAFPNP6 (depth 0.33, width
+    0.125, 128 px) and YOLOPAFPN_ResNet (ResNet-50, 64 px) on their
+    features, 1e-4 of each map's largest."""
+    import numpy as np
+
+    from tscd_torch.exp import get_exp
+    from tscd_torch.models.pafpn_p6 import YOLOPAFPNP6
+    from tscd_torch.models.pafpn_variants import YOLOPAFPN_ResNet
+    from tscd_torch.models.tscd import random_init_
+    recs = {}
+    for name, bb in (("selftest", "Swin_Tiny"), ("selftest", "Focal"),
+                     ("yolov_selftest", "Swin_Tiny")):
+        exp = exp_with(get_exp(exp_name=name), backbone_name=bb)
+        out = {}
+        for dev in ("cpu", card(torch)):
+            model = random_init_(exp.get_model(device=dev), exp.seed)
+            pred = exp.get_predict_fn(model)
+            dets, _, _ = run_windows(torch, pred, exp, 2, 5, False, uint8=True)
+            out[str(dev)] = [pred.materialize(d) for d in dets]
+        worst, n = match_rows(out["cpu"], out[str(card(torch))], **BACKBONE_SMALL_TOL)
+        recs[f"{name}_{bb}"] = {"windows": 2, "detections": n, "max_abs_err": worst}
+    for name, make, size in (("YOLOPAFPNP6", lambda: YOLOPAFPNP6(0.33, 0.125), 128),
+                             ("YOLOPAFPN_ResNet", lambda: YOLOPAFPN_ResNet(
+                                 50, depth=0.33, width=0.25), 64)):
+        cpu = random_init_(make(), 3).eval()
+        dev = make().to(card(torch)).eval()
+        dev.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, (2, size, size, 3))
+                             .astype(np.float32))
+        with torch.no_grad():
+            want, got = cpu(x), [t.cpu() for t in dev(x.to(card(torch)))]
+        share = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        if share > 1e-4:
+            raise AssertionError(f"{name}: card against CPU {share} of the largest")
+        recs[name] = {"maps": [list(w.shape) for w in want], "max_err_share": share}
+    emit({"phase": "backbones", "part": "small", "configs": recs,
+          "tolerance": {**BACKBONE_SMALL_TOL, "features": "1e-4 of each map's largest"},
+          "pass": True})
+
+
+def bf16_check_window(torch, exp):
+    """A window of `exp`'s frames (seeded uint8) and its time embedding on
+    the card: the fp32 and bf16 runs' raw outputs on it are compared."""
+    import numpy as np
+
+    from tscd_torch.ops.position import get_timing_signal_1d
+    F, (H, W) = exp.lframe_val + exp.gframe_val, exp.test_size
+    rng = np.random.default_rng(41)
+    return (torch.as_tensor(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8),
+                            device=card(torch)),
+            torch.as_tensor(get_timing_signal_1d(np.arange(F)), device=card(torch)))
+
+
+def network_maps(net, x):
+    """The backbone network's dark3/dark4/dark5 maps of frames `x`, as
+    fp32 numpy arrays."""
+    return [net(x)[k].float().cpu().numpy() for k in ("dark3", "dark4", "dark5")]
+
+
+def network_bf16_check(torch, exp, sd32, net16, x, feats32):
+    """The bf16 network's maps (`net16`, on the card) of frames `x` against
+    the same network at bf16 on the card machine's CPU (plain torch, held
+    to JAX's bf16 Swin by tests/test_torch_port_backbones.py) from the
+    fp32 weights `sd32`, and against the fp32 run's maps `feats32`: the
+    card's distance from fp32 and from the CPU's bf16 each within
+    BF16_SPREAD x the CPU's own distance from fp32 (max and p99.9, each
+    map)."""
+    from tscd_torch.models.pafpn_variants import build_pafpn_backbone
+    pre = "backbone.backbone."
+    t0 = time.time()
+    cpu = build_pafpn_backbone(exp.backbone_name, exp.depth, exp.width,
+                               dtype=torch.bfloat16).backbone
+    cpu.load_state_dict({k[len(pre):]: v.cpu() for k, v in sd32.items() if k.startswith(pre)})
+    with torch.no_grad():
+        ref, card = network_maps(cpu.eval(), x.cpu()), network_maps(net16, x)
+    cpu_s = time.time() - t0
+    maps, ok = {}, True
+    for name, c, r, f in zip(("dark3", "dark4", "dark5"), card, ref, feats32):
+        d = {"card_vs_fp32": distance(c, f), "cpu_vs_fp32": distance(r, f),
+             "card_vs_cpu": distance(c, r)}
+        limit = {k: BF16_SPREAD * v for k, v in d["cpu_vs_fp32"].items()}
+        ok = ok and all(0 < v for v in limit.values()) and all(
+            d[pair][k] <= limit[k] for pair in ("card_vs_fp32", "card_vs_cpu") for k in limit)
+        maps[name] = {"distances": d, "limit": limit, "abs_fp32": distance(f, 0.0)}
+    emit({"phase": "backbones", "check": "the bf16 network's maps, card against the CPU's "
+          "bf16 port and the fp32 run, frames 0 and L", "exp": exp.exp_name,
+          "backbone_name": exp.backbone_name, "maps": maps,
+          "tolerance": f"card_vs_fp32 and card_vs_cpu <= {BF16_SPREAD} x cpu_vs_fp32",
+          "cpu_s": cpu_s, "pass": ok})
+    if not ok:
+        raise AssertionError(f"bf16 network maps on the card: {maps}")
+
+
+def backbone_window_run(torch, counters, exp, model, family, dtype):
+    """`warm_predict`, HEAD_WINDOWS carried windows as graph replays traced
+    (`replays`: each window's hand kernels from the device trace, the
+    wrappers counting none), then BACKBONE_LOOP back to back untraced
+    (`graph_loop`): window ms and spread, frames/s, busy share, peak
+    memory."""
+    import numpy as np
+    want = dict.fromkeys(TRACE_NAMES, 0)
+    want.update({k: v * HEAD_WINDOWS for k, v in BACKBONE_LAUNCHES[(family, dtype)].items()})
+    torch.cuda.reset_peak_memory_stats()
+    pred, state = warm_predict(torch, model, exp)
+    rec, state = replays(torch, counters, pred, exp, state, dtype == "bf16", want=want)
+    loop = graph_loop(torch, pred, exp, state, n=BACKBONE_LOOP)
+    ms = loop["window_ms"]
+    return {**rec, "traced_busy_share": rec["device_ms_a_window"] / float(np.mean(rec["window_ms"])),
+            "loop": loop, "median_window_ms": float(np.median(ms)),
+            "window_ms_spread": float(np.max(ms) - np.min(ms)),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def backbone_train_part(torch, exp):
+    """One stage-2 step of `exp` (4 + 12 frames, fix_bn, its frozen
+    backbone and stop_backbone_grad) after a warm-up step, timed: finite
+    losses and every gradient the step sees finite."""
+    import numpy as np
+
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.step import init_train_state, train_step
+    model = random_init_(exp.get_model(device=card(torch)), exp.seed)
+    opt = exp.get_optimizer(model, 8)
+    grads = capture_grads(opt, model)
+    st = init_train_state(model, opt, exp.ema_decay)
+    window = tuple(t.to(card(torch)) for t in train_window(torch, exp, 64))
+    losses = []
+    ms, wall, peak = timed_steps(torch, lambda: losses.append(train_step(
+        st, *window, exp.lframe, exp.gframe, ota_mode=exp.ota_mode, fix_bn=exp.fix_bn)), 1, 1)
+    host = {k: float(v) for k, v in losses[-1].items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    ok = all(np.isfinite(v) for v in host.values()) and finite and len(grads) > 0
+    rec = {"config": f"{exp.exp_name} stage 2 on {exp.backbone_name}, {exp.lframe}+{exp.gframe} "
+           f"frames {exp.input_size[0]}px, fp32, fix_bn, frozen backbone", "step_ms": ms,
+           "frames_per_s": (exp.lframe + exp.gframe) / wall, "peak_mem_gb": peak,
+           "losses": host, "gradients": len(grads), "gradients_finite": finite}
+    if not ok:
+        raise AssertionError(f"backbones step: {rec}")
+    return rec
+
+
+def backbones_phase(torch, counters):
+    """The other backbones (`backbone_name`): backbone_small_part, then at
+    full width TSCD-Large (1 + 31 frames at 576 px, P = 50) on Swin_Base at
+    fp32 and at bf16 (BN folded) and on Focal at fp32, yolov_l (0 + 32) on
+    Swin_Tiny, each `backbone_window_run`; then one TSCD-Large stage-2 step
+    on Swin_Base. The bf16 run's raw outputs on a window of seeded frames
+    are held against the fp32 run's on the same frames, and against the
+    bf16 port on the card machine's CPU, as phase `bf16` holds MCSP's
+    (`cpu_reference`: BF16_SPREAD x the CPU's own distance from fp32), and
+    so are its Swin network's maps (`network_bf16_check`).
+    Returns each kernel's launches a window of each run."""
+    from tscd_torch.exp import get_exp
+    from tscd_torch.models.tscd import random_init_
+    t_phase = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True
+                         ).stdout.strip().splitlines()
+    card_name = smi[0] if smi else "not read"
+    backbone_small_part(torch)
+    per_window = {}
+    sd32 = raw32 = None
+    paired = {(name, bb) for name, bb, dtype in BACKBONE_RUNS if dtype == "bf16"}
+    for name, bb, dtype in BACKBONE_RUNS:
+        free_card(torch)
+        exp = exp_with(get_exp(exp_name=name), backbone_name=bb)
+        L, G = exp.lframe_val, exp.gframe_val
+        if dtype == "fp32":
+            model = random_init_(exp.get_model(device=card(torch)), exp.seed)
+            sd32 = model.state_dict()
+            if (name, bb) in paired:
+                x, te = bf16_check_window(torch, exp)
+                with torch.no_grad():
+                    raw32 = model(x, te, L, G)["raw_outputs"].float().cpu().numpy()
+                    feats32 = network_maps(model.backbone.backbone, x[[0, L]])
+        else:                      # the fp32 run's weights, BN folded
+            model = bf16_model(torch, exp, sd32, card(torch))
+            with torch.no_grad():
+                raw16 = model(x, te, L, G)["raw_outputs"]
+            if raw16.dtype != torch.bfloat16 or tuple(raw16.shape) != raw32.shape:
+                raise AssertionError(f"bf16 raw outputs {raw16.dtype} {tuple(raw16.shape)}")
+            cpu_reference(torch, exp, sd32, x, te, raw16.float().cpu().numpy(), raw32,
+                          phase="backbones")
+            network_bf16_check(torch, exp, sd32, model.backbone.backbone, x[[0, L]], feats32)
+            del x, te, raw16, feats32
+        rec = backbone_window_run(torch, counters, exp, model, name, dtype)
+        run = f"{name}_{bb}_{dtype}"
+        per_window[run] = {k: v // HEAD_WINDOWS for k, v in rec["launches"].items() if v}
+        emit({"phase": "backbones", "run": run, "exp": name, "backbone_name": bb,
+              "dtype": dtype, "frames": exp.lframe_val + exp.gframe_val,
+              "size": list(exp.test_size), "card": card_name, **rec, "pass": True})
+        del model
+    del sd32, raw32
+    free_card(torch)
+    exp = exp_with(get_exp(exp_name="tscd_large"), backbone_name="Swin_Base")
+    emit({"phase": "backbones", "part": "train", **backbone_train_part(torch, exp),
+          "card": card_name, "pass": True})
+    free_card(torch)
+    emit({"phase": "backbones", "seconds": time.time() - t_phase,
+          "launches_a_window": per_window, "card": card_name})
+    return per_window
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
-          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "trace_lead_in")
+          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "backbones",
+          "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
 
@@ -6491,6 +6727,9 @@ def main() -> int:
                    yolov_online_phase(torch, counters), demo_phase(torch, counters)):
         rows.update(recipe["rows"])
         launches.update(recipe["launches"])
+    for run, per_window in backbones_phase(torch, counters).items():
+        for row, n in per_window.items():
+            rows[row].setdefault("launches_a_window_backbones", {})[run] = n
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}

@@ -26,6 +26,15 @@ from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.utils.convert import state_dict_from_flax
 from torch_port_util import seeded_variables
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.as_tensor
 
 

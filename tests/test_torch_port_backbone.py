@@ -17,8 +17,18 @@ from tscd_tpu.models.darknet import CSPDarknet as JDarknet
 from tscd_tpu.models.pafpn import YOLOPAFPN as JPAFPN
 from tscd_tpu.utils.convert import torch_to_flax
 from tscd_torch.models.darknet import CSPDarknet
-from tscd_torch.models.pafpn import YOLOPAFPN, build_pafpn_backbone
+from tscd_torch.models.pafpn import YOLOPAFPN
+from tscd_torch.models.pafpn_variants import YOLOPAFPN_Swin, build_pafpn_backbone
 from torch_port_util import carry
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_darknet_features_match():
@@ -68,5 +78,8 @@ def test_uint8_frames_cast_exactly():
 
 
 def test_other_backbones_raise_until_ported():
-    with pytest.raises(NotImplementedError):
-        build_pafpn_backbone("Swin_Tiny", 0.33, 0.125)
+    """Every name JAX maps builds its pyramid (Swin_Tiny here); a name JAX
+    does not know raises ValueError, as JAX's."""
+    assert isinstance(build_pafpn_backbone("Swin_Tiny", 0.33, 0.125), YOLOPAFPN_Swin)
+    with pytest.raises(ValueError):
+        build_pafpn_backbone("ViT", 0.33, 0.125)

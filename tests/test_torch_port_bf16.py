@@ -60,6 +60,15 @@ from tscd_torch.utils.convert import flax_module_path, state_dict_from_flax
 from tscd_torch.utils.model_utils import fuse_conv_bn_state_dict, fuse_model
 from torch_port_util import carry, perturb
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EXP = selftest_exp()
 L, G = EXP.lframe_val, EXP.gframe_val
 P, C = EXP.num_proposals, EXP.num_classes

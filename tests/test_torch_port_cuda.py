@@ -33,7 +33,10 @@ YOLOV-L's refined postprocess (32, 900) exactly, the online YOLOV
 stream (graph replays) against the CPU's eager stream at the selftest
 size, detections and bank 1e-4, and the demo tools (tscd_demo, vid_demo,
 yolov_demo_online) at the selftest size against the CPU port, detections
-1e-4 as sets, their .mp4 parsed.
+1e-4 as sets, their .mp4 parsed; a small Swin (whole and shrunk
+windows) and FocalNet against the CPU port, 1e-4 of each map's largest,
+and a Swin TSCD window's graph replay equal to its eager dispatch and to
+the CPU's detections (1e-4 as sets).
 """
 
 import numpy as np
@@ -936,3 +939,80 @@ def test_cuda_demo_tools_equal_cpu(fp32_card, tmp_path, tool):
     assert len(m["samples"]) == 6 and m["object_type"] == 0x6C
     for s, f in zip(m["samples"], res["cuda"]["frames"]):
         assert imdecode(s).shape == f.shape
+
+
+def _maps_close(got, want, tol=1e-4):
+    for k in want:
+        w = want[k].float()
+        err = float((got[k].float().cpu() - w).abs().max())
+        assert err <= tol * float(w.abs().max()), f"{k}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,size", [("swin_w4", 128), ("swin_w7", 96), ("focalnet", 64)])
+def test_cuda_swin_and_focalnet_match_cpu(fp32_card, net, size):
+    """A small Swin (embed 32, depths 2 2 2 2: window 4 on 128 px, every
+    window whole and shifted; window 7 on 96 px, padded maps and shrunk
+    windows) and focalnet_tscd's flags at embed 16, seeded, on the card
+    against the CPU port: each map within 1e-4 of its largest (TF32 off);
+    a second call on the card reads its mask and index from the cache."""
+    from tscd_torch.models import focalnet, swin
+    from tscd_torch.models.tscd import random_init_
+    if net == "focalnet":
+        make = lambda: focalnet.build_focalnet("focalnet_tscd", embed_dim=16,  # noqa: E731
+                                               depths=(2, 1, 2, 1))
+    else:
+        ws = int(net[-1])
+        make = lambda: swin.SwinTransformer(32, (2, 2, 2, 2), (2, 2, 4, 4),  # noqa: E731
+                                            window_size=ws)
+    cpu = random_init_(make(), 7).eval()
+    dev = make().to(fp32_card).eval()
+    dev.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(8).uniform(0, 255, (2, size, size, 3))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x)
+        got = dev(x.to(fp32_card))
+        n = len(swin._STATIC)
+        again = dev(x.to(fp32_card))
+    _maps_close(got, want)
+    assert all(torch.equal(again[k], got[k]) for k in got)
+    assert len(swin._STATIC) == n
+
+
+@pytest.mark.cuda
+def test_cuda_swin_tscd_graph_replay_equals_eager(fp32_card):
+    """The selftest TSCD on Swin_Tiny (128 px: the last stage's window
+    shrunk to 4): a carried window as the window's CUDA graph equals the
+    same window launched op by op, detections and bank; the wrappers
+    count no launch in the replay, and the CPU port gives the same
+    detections (1e-4, as sets)."""
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.exp import selftest_exp
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    exp = selftest_exp()
+    exp.backbone_name = "Swin_Tiny"
+    F, (H, W) = exp.lframe_val + exp.gframe_val, exp.test_size
+    rng = np.random.default_rng(21)
+    windows = [(torch.from_numpy(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8)),
+                torch.from_numpy(get_timing_signal_1d(np.arange(w, w + F)))) for w in range(2)]
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        model = random_init_(exp.get_model(device=dev), exp.seed)
+        preds[dev] = make_predict_fn(model, exp.lframe_val, exp.gframe_val, exp.nmsthre,
+                                     exp.test_conf)
+    predict = preds["cuda"]
+    _, state = predict.dispatch(*windows[0], False, None)        # captures
+    counters = (pkn.nms_sorted, pfs.focus_stem, pfa.fused_dual_attention,
+                pkh.linear_sum_assignment)
+    n0 = [c.launches for c in counters]
+    got = predict.dispatch(*windows[1], True, state)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == n0
+    want = predict.dispatch_eager(*windows[1], True, state)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    _, cstate = preds["cpu"].dispatch(*windows[0], False, None)
+    cpu_rows = preds["cpu"].materialize(preds["cpu"].dispatch(*windows[1], True, cstate)[0])
+    _same_rows(predict.materialize(got[0]), cpu_rows)

@@ -20,6 +20,15 @@ import torch
 from tscd_torch.data.image import imdecode, imencode_jpeg, imread
 from tscd_torch.utils.video import read_mp4
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX0 = os.path.join(REPO, "tscd_torch", "data", "fixtures", "vid", "Data", "VID", "val",
                     "fix0")

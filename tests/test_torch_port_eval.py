@@ -44,6 +44,15 @@ from tscd_torch.eval.fast_cocoeval import COCOeval_opt
 from tscd_torch.exp import selftest_exp
 from torch_port_util import carry
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "YOLOX_outputs", "validate_ref", "vid")
 

@@ -31,6 +31,15 @@ from tscd_torch.ops import postprocess as ppost
 from tscd_torch.ops import wavelets as pwav
 from torch_port_util import carry
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.from_numpy
 
 

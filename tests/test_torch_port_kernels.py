@@ -42,6 +42,15 @@ from tscd_torch.ops.kernels import hungarian as pkh
 from tscd_torch.ops.kernels import nms as pkn
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _attn_inputs(rng, B, h, q, k, d, p_valid=0.8):
     mk = lambda *s: rng.normal(size=s).astype(np.float32)
     return (mk(B, h, q, d), mk(B, h, k, d), mk(B, h, k, d), mk(B, h, q, d),

@@ -44,6 +44,15 @@ from tscd_torch.train.losses import tscd_loss
 from tscd_torch.utils.convert import state_dict_from_flax
 from torch_port_util import labels_near, seeded_variables
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.as_tensor
 HID = 8
 HWS = [(8, 8), (4, 4), (2, 2)]

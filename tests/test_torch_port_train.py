@@ -91,6 +91,16 @@ ITERS, STEP = 4, 5                         # the gate's epoch and step
 T = torch.as_tensor
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: beside the other test processes, the
+    trainer's loader threads and torch's own oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # -- SimOTA and the losses on seeded head outputs --------------------------
 
 def _gts(rng, n_frames, n_slots, centres=None):

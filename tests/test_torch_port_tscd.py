@@ -36,6 +36,15 @@ from tscd_torch.ops.position import get_timing_signal_1d
 from tscd_torch.utils.convert import load_reference_pth, state_dict_from_flax
 from torch_port_util import perturb
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_PTH = os.path.join(REPO, "YOLOX_outputs", "validate_ref", "ref_random.pth")
 EXP = selftest_exp()

@@ -51,6 +51,15 @@ from tscd_torch.models.yolov import yolov_eval_postprocess
 from tscd_torch.utils.convert import flatten_tree, flax_from_state_dict, state_dict_from_flax
 from torch_port_util import seeded_variables
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.as_tensor
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, P, WIDTH, F, HEADS = 5, 8, 0.125, 4, 2

@@ -42,6 +42,15 @@ from tscd_torch.utils.batcher import FrameBatcher
 from tscd_torch.utils.convert import flatten_tree, flax_from_state_dict, state_dict_from_flax
 from torch_port_util import seeded_variables
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tests run beside others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = torch.as_tensor
 C, P, WIDTH, HEADS, H = 5, 8, 0.125, 2, 64
 HID = int(256 * WIDTH)

@@ -125,3 +125,38 @@ def pairwise_batch_stats():
         yield
     finally:
         normalization._compute_stats = orig
+
+
+def seeded_tree(jmod, seed, *init_args, **init_kw):
+    """`seeded_like` over the flax module's variables (from jax.eval_shape
+    of its init)."""
+    shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *init_args, **init_kw))
+    return seeded_like(shapes, seed)
+
+
+def seeded_like(shapes, seed):
+    """Seeded values for a {'params', 'batch_stats'} tree of arrays or
+    shapes, as `seeded_variables` draws them and for the other backbones'
+    leaves too, in fp32: kernels normal with variance 1/fan_in, biases and
+    BN means N(0, 0.1), scales, BN variances and FocalNet's layerscale
+    gammas U(0.5, 1.5) (so that the residual branches weigh in), Swin's
+    relative-position tables N(0, 1) (so that a wrong offset shows)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for coll, tree in shapes.items():
+        new = {}
+        for k, s in traverse_util.flatten_dict(tree).items():
+            normal = rng.standard_normal(s.shape, np.float32)
+            if k[-1] == "kernel":
+                v = normal / np.float32(np.sqrt(np.prod(s.shape[:-1])))
+            elif k[-1] in ("mean", "bias"):
+                v = normal * np.float32(0.1)
+            elif k[-1] in ("var", "scale", "gamma_1", "gamma_2"):
+                v = rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+            elif k[-1] == "relative_position_bias_table":
+                v = normal
+            else:
+                raise ValueError(f"no seeded init for {k}")
+            new[k] = v
+        out[coll] = traverse_util.unflatten_dict(new)
+    return out

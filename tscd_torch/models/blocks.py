@@ -162,6 +162,61 @@ class SPPBottleneck(nn.Module):
         return self.conv2(torch.cat([x] + [m(x) for m in self.m], 1), stats)
 
 
+class ResLayer(nn.Module):
+    """Residual 1x1 -> 3x3 lrelu layer (network_blocks.py:183)."""
+
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        mid = in_channels // 2
+        self.layer1 = BaseConv(in_channels, mid, 1, 1, act="lrelu", dtype=dtype)
+        self.layer2 = BaseConv(mid, in_channels, 3, 1, act="lrelu", dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        return x + self.layer2(self.layer1(x, stats), stats)
+
+
+class ConvBN(nn.Sequential):
+    """1x1 conv then BatchNorm, no activation: the reference's ResNet
+    `downsample`, an nn.Sequential (names `0` and `1`); JAX runs it as a
+    BaseConv with act "id" (blocks.py:650-652)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(nn.Conv2d(in_channels, out_channels, 1, stride, bias=False,
+                                   dtype=dtype),
+                         nn.BatchNorm2d(out_channels, eps=1e-5))
+
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        return batch_norm(self[1], self[0](x), stats)
+
+
+class ResNetBottleneck(nn.Module):
+    """Bottleneck with the stride on the 3x3 (network_blocks.py:292). As
+    the reference, ConvBn3 applies the activation before the residual
+    add, and the activation runs once more after it."""
+
+    def __init__(self, in_channels: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False, groups: int = 1, base_width: int = 64,
+                 act: str = "relu", expansion: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out = planes * expansion
+        self.ConvBn1 = BaseConv(in_channels, width, 1, 1, groups, act=act, dtype=dtype)
+        self.ConvBn2 = BaseConv(width, width, 3, stride, groups, act=act, dtype=dtype)
+        self.ConvBn3 = BaseConv(width, out, 1, 1, groups, act=act, dtype=dtype)
+        self.downsample = ConvBN(in_channels, out, stride, dtype) if has_downsample else None
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor,
+                stats: Optional[BNStats] = None) -> torch.Tensor:
+        y = self.ConvBn3(self.ConvBn2(self.ConvBn1(x, stats), stats), stats)
+        identity = x if self.downsample is None else self.downsample(x, stats)
+        return self.act(y + identity)
+
+
 class CSPLayer(nn.Module):
     """C3: CSP bottleneck with 3 convolutions (network_blocks.py:226)."""
 

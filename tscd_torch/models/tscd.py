@@ -14,14 +14,17 @@ from ..device import resolve_device
 from ..ops.postprocess import (Detections, postprocess_best_class,
                                postprocess_refined)
 from .matching import MatcherState
-from .pafpn import build_pafpn_backbone
+from .pafpn_variants import build_pafpn_backbone
+from .swin import WindowAttention
 from .tscd_head import TSCDHead
 
 
 class WindowModel(nn.Module):
-    """The PAFPN backbone (`backbone`) and a head over a window of frames:
-    the train and BatchNorm rules TSCD and the YOLOV family share.
-    Subclasses build their `head` after this builds the backbone, then
+    """The feature pyramid the exp's `backbone_name` names (`backbone`,
+    `pafpn_variants.build_pafpn_backbone`) and a head over a window of
+    frames: the train and BatchNorm rules TSCD and the YOLOV family share.
+    Subclasses build their `head` after this builds the backbone, on
+    `self.backbone.out_channels` (the pyramid's pre-width channels), then
     `_place` the model on its device."""
 
     def __init__(self, backbone_name: str, depth: float, width: float, act: str,
@@ -114,8 +117,8 @@ class TSCD(WindowModel):
         self.num_classes = num_classes
         self.dtype = dtype
         self.head = TSCDHead(
-            num_classes, width=width, act=act, depthwise=depthwise,
-            heads=heads, agg_type=agg_type,
+            num_classes, width=width, in_channels=self.backbone.out_channels, act=act,
+            depthwise=depthwise, heads=heads, agg_type=agg_type,
             decoder_layer_num=decoder_layer_num, num_proposals=num_proposals,
             minimal_limit=minimal_limit, cat_ota_fg=cat_ota_fg, reconf=reconf,
             decouple_reg=decouple_reg, use_pre_nms=use_pre_nms,
@@ -189,7 +192,9 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights close to the JAX package's init scheme (flax
     defaults): conv/linear kernels normal with variance 1/fan_in (flax's
     lecun-normal is also truncated), zero biases, BN and LayerNorm at
-    identity, the cls/obj prediction biases at the 1e-2 prior. Values are drawn on the CPU from one torch.Generator and then
+    identity, the cls/obj prediction biases at the 1e-2 prior, Swin's
+    relative-position tables normal with std 0.02 (flax's is truncated),
+    FocalNet's layerscale gammas left at their 1e-4. Values are drawn on the CPU from one torch.Generator and then
     copied, so a model gets the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     for name, mod in model.named_modules():
@@ -205,4 +210,7 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             mod.reset_parameters()
         elif isinstance(mod, nn.LayerNorm):
             mod.reset_parameters()
+        elif isinstance(mod, WindowAttention):
+            t = mod.relative_position_bias_table
+            t.copy_(0.02 * torch.randn(t.shape, generator=gen))
     return model

@@ -41,7 +41,8 @@ class YOLOV(WindowModel):
         device = resolve_device(device)
         super().__init__(backbone_name, depth, width, act, depthwise, stop_backbone_grad, False)
         self.num_classes = num_classes
-        self.head = YOLOVHead(num_classes, width=width, act=act, depthwise=depthwise,
+        self.head = YOLOVHead(num_classes, width=width, in_channels=self.backbone.out_channels,
+                              act=act, depthwise=depthwise,
                               heads=heads, num_proposals=num_proposals, reconf=reconf,
                               sim_thresh=sim_thresh)
         self._place(device)
@@ -74,7 +75,9 @@ class YOLOVPlus(WindowModel):
         device = resolve_device(device)
         super().__init__(backbone_name, depth, width, act, depthwise, stop_backbone_grad, False)
         self.num_classes = num_classes
-        self.head = YOLOVPlusHead(num_classes, width=width, act=act, depthwise=depthwise,
+        self.head = YOLOVPlusHead(num_classes, width=width,
+                                  in_channels=self.backbone.out_channels, act=act,
+                                  depthwise=depthwise,
                                   heads=heads, num_proposals=num_proposals, reconf=reconf,
                                   decouple_reg=decouple_reg, agg_type=agg_type,
                                   sim_thresh=sim_thresh, conf_sim_thresh=conf_sim_thresh)
@@ -107,7 +110,9 @@ class YOLOVOnline(WindowModel):
         device = resolve_device(device)
         super().__init__(backbone_name, depth, width, act, depthwise, False, False)
         self.num_classes = num_classes
-        self.head = YOLOVOnlineHead(num_classes, width=width, act=act, depthwise=depthwise,
+        self.head = YOLOVOnlineHead(num_classes, width=width,
+                                    in_channels=self.backbone.out_channels, act=act,
+                                    depthwise=depthwise,
                                     heads=heads, num_proposals=num_proposals,
                                     sim_thresh=sim_thresh)
         self._place(device)

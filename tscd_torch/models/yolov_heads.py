@@ -582,10 +582,11 @@ class YOLOVOnlineHead(_VideoTowers):
     computed every call (one fixed program); the new bank comes back in
     out["bank"]."""
 
-    def __init__(self, num_classes: int, width: float = 1.0, act: str = "silu",
+    def __init__(self, num_classes: int, width: float = 1.0,
+                 in_channels: Sequence[int] = (256, 512, 1024), act: str = "silu",
                  depthwise: bool = False, heads: int = 4, num_proposals: int = 30,
                  sim_thresh: float = 0.75):
-        super().__init__(num_classes, width, (256, 512, 1024), act, depthwise, False,
+        super().__init__(num_classes, width, in_channels, act, depthwise, False,
                          torch.float32)
         self.num_proposals = num_proposals
         self.sim_thresh = sim_thresh

@@ -34,15 +34,18 @@ from ..utils.flax_msgpack import read_msgpack, write_msgpack
 
 
 def save_checkpoint(state: Mapping[str, Any], save_dir: str,
-                    is_best: bool = False, name: str = "latest_ckpt.pth") -> str:
+                    is_best: bool = False, name: str = "latest_ckpt.pth",
+                    frame_size: Optional[Tuple[int, int]] = None) -> str:
     """`state` to `save_dir/name`, in JAX's layout where `name` ends in
     `.msgpack`, else `torch.save`d; with `is_best` also copied to
-    `best_ckpt` with the same extension."""
+    `best_ckpt` with the same extension. `frame_size` (H, W) is the size
+    JAX builds the model at, where a Swin's tables depend on it (frames
+    under 224 px: `utils.convert.flax_from_state_dict`)."""
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, name)
     ext = os.path.splitext(name)[1]
     if ext == ".msgpack":
-        write_msgpack(path, checkpoint_to_flax(state))
+        write_msgpack(path, checkpoint_to_flax(state, frame_size))
     else:
         torch.save(_to_cpu(state), path)
     if is_best:
@@ -50,13 +53,15 @@ def save_checkpoint(state: Mapping[str, Any], save_dir: str,
     return path
 
 
-def checkpoint_to_flax(state: Mapping[str, Any]) -> Dict[str, Any]:
+def checkpoint_to_flax(state: Mapping[str, Any],
+                       frame_size: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """The port's checkpoint dict -> the JAX trainer's checkpoint tree
-    (the inverse of `checkpoint_from_flax` for its weights)."""
-    ema = flax_from_state_dict(state["model"])
+    (the inverse of `checkpoint_from_flax` for its weights), for a JAX
+    model built at `frame_size`."""
+    ema = flax_from_state_dict(state["model"], frame_size)
     tree: Dict[str, Any] = {"params": ema["params"], "batch_stats": ema["batch_stats"]}
     if "raw_model" in state:
-        tree["raw_params"] = flax_from_state_dict(state["raw_model"])["params"]
+        tree["raw_params"] = flax_from_state_dict(state["raw_model"], frame_size)["params"]
     if "start_epoch" in state:
         tree["start_epoch"] = np.int32(state["start_epoch"])
     return tree

@@ -20,9 +20,32 @@ under `head/towers`. The online head's MSA sits under `head/trans`
 (`head.trans.msa.qkv_cls`, `head.trans.linear1`, ...) in both, as its
 `cls_pred` on the head: the same rules carry JAX's YOLOVOnline
 variables.
+
+A Swin, FocalNet or ResNet pyramid (`models.pafpn_variants`) keeps the
+reference's names: its network under the wrapper's `backbone`, named as
+the reference modules name their parameters, and the neck's convs on
+the wrapper itself (`backbone.lateral_conv0` in a TSCD model). JAX
+names the network's modules its own way (`layer0_block1`, `merge0`,
+`focal_conv_2`, `layer1_0/downsample/conv`; the rules are this module's
+copy of tscd_tpu/utils/convert.py:backbone_to_flax's) and holds the neck
+under `neck`. `backbone_layout` finds such a network in a state_dict's
+names. JAX sizes a Swin block's relative-position table by its window,
+(2 ws - 1)^2 rows, and its window shrinks on maps under 7 px (frames
+under 224 px), so JAX's tree depends on the frame size it was built at;
+the port's table is the reference's full one at every size, and a
+smaller JAX table is its central block (`swin.relative_position_index`).
+`state_dict_from_flax` writes a smaller table there, with a warning: the
+rows outside it keep the port model's own values, and a frame large
+enough to read them (a window JAX's tree was not built for) reads
+those. `flax_from_state_dict(..., frame_size=)` cuts each table to the
+window JAX builds at that frame size. The buffers JAX recomputes
+(`relative_position_index`, `attn_mask`) have no flax path: a reference
+`.pth` loads with them as skipped keys (`tools.tscd_eval.load_weights`).
 """
 
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+import re
+import warnings
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -155,12 +178,144 @@ def yolov_towers(names: Iterable[str]) -> Optional[str]:
     return None
 
 
-def flax_module_path(name: str, towers: Optional[str] = None) -> Tuple[str, ...]:
+# -- the other backbones' networks (tscd_tpu/utils/convert.py:221-290) --
+def _stage_parts(p: List[str], block, down) -> Optional[List[str]]:
+    """A Swin or FocalNet name's parts (no leaf) -> JAX's module path, None
+    to drop: the stem, the output norms and each block's norms and MLP by
+    the rules the two share; `block(base, rest)` maps the rest of a
+    block's parts, `down(stage, part)` a stage's downsample."""
+    if p[0] == "patch_embed":
+        return ["patch_embed"] if p[1] == "proj" else ["patch_norm"]
+    if p[0].startswith("norm") and p[0][4:].isdigit():
+        return [f"out_norm{p[0][4:]}"]
+    if p[0] != "layers":
+        return None
+    stage = int(p[1])
+    if p[2] == "downsample":
+        return down(stage, p[3])
+    if p[2] != "blocks":
+        return None
+    base, rest = [f"layer{stage}_block{int(p[3])}"], p[4:]
+    if rest and rest[0] in ("norm1", "norm2"):
+        return base + [rest[0]]
+    if rest and rest[0] == "mlp":
+        return base + [f"mlp_{rest[1]}"]
+    return block(base, rest)
+
+
+def _swin_block(base: List[str], rest: List[str]) -> Optional[List[str]]:
+    return base + rest if rest and rest[0] == "attn" else None
+
+
+def _focalnet_block(base: List[str], rest: List[str]) -> Optional[List[str]]:
+    if not rest:                                 # gamma_1 / gamma_2
+        return base
+    if rest[0] != "modulation":
+        return None
+    if len(rest) > 1 and rest[1] == "focal_layers":
+        return base + ["modulation", f"focal_conv_{int(rest[2])}"]
+    return base + rest
+
+
+def _swin_parts(p: List[str]) -> Optional[List[str]]:
+    return _stage_parts(p, _swin_block, lambda i, part: [
+        f"merge{i}", "norm" if part == "norm" else "reduction"])
+
+
+def _focalnet_parts(p: List[str]) -> Optional[List[str]]:
+    return _stage_parts(p, _focalnet_block, lambda i, part: [
+        f"down{i}" if part == "proj" else f"down_norm{i}"])
+
+
+def _resnet_parts(p: List[str]) -> Optional[List[str]]:
+    if p[0] == "stem":
+        return ["stem"] + p[1:]
+    m = re.fullmatch(r"layer(\d+)", p[0])
+    if not m:
+        return None
+    base, rest = [f"layer{m.group(1)}_{int(p[1])}"], p[2:]
+    if rest[0] == "downsample":
+        return base + ["downsample", "conv" if rest[1] == "0" else "bn"]
+    return base + rest
+
+
+BACKBONE_PARTS = {"swin": _swin_parts, "focalnet": _focalnet_parts, "resnet": _resnet_parts}
+# a reference Swin's buffers that JAX recomputes (as the port does)
+RECOMPUTED = ("relative_position_index", "attn_mask")
+_NETWORKS = ((re.compile(r"^(.*?)layers\.\d+\.blocks\.\d+\.attn\."), "swin"),
+             (re.compile(r"^(.*?)layers\.\d+\.blocks\.\d+\.modulation\."), "focalnet"),
+             (re.compile(r"^(.*?)layer1\.0\.ConvBn1\."), "resnet"))
+
+
+def backbone_layout(names: Iterable[str]) -> Optional[Tuple[str, str]]:
+    """(the network's name prefix, its family) where the names hold a
+    Swin, FocalNet or ResNet network at the top ("") or under a
+    `backbone` ("backbone.backbone." in a model, "backbone." in a bare
+    pyramid); else None."""
+    for n in names:
+        for rx, family in _NETWORKS:
+            m = rx.match(n)
+            if m and (m.group(1) == "" or m.group(1).endswith("backbone.")):
+                return m.group(1), family
+    return None
+
+
+def backbone_to_flax(state: Mapping[str, Any], family: str) -> Dict[str, Dict]:
+    """A reference network's state_dict (tensors or arrays; e.g. an official
+    Swin checkpoint) -> {'params', 'batch_stats'} of numpy arrays in JAX's
+    layout for its tscd_tpu module; names without a flax path (the buffers
+    JAX recomputes, a classifier) are left out."""
+    return flax_from_state_dict({n: torch.as_tensor(np.asarray(t)) for n, t in state.items()
+                                 if flax_module_path(n, backbone=("", family)) is not None})
+
+
+def _table_slice(big: int, small: int):
+    """The rows of a (2 big - 1)^2 relative-position table that a table of
+    (2 small - 1)^2 rows holds, in its order (`relative_position_index`)."""
+    side, s = 2 * big - 1, 2 * small - 1
+    off = big - small
+    return (np.arange(s)[:, None] + off) * side + (np.arange(s)[None, :] + off)
+
+
+def _side(rows: int) -> int:
+    return (int(round(rows ** 0.5)) + 1) // 2
+
+
+def _jax_table_side(name: str, rows: int, frame_size: Tuple[int, int]) -> int:
+    """The window of the Swin table `name` (`...layers.{i}.blocks...`,
+    `rows` the full table's rows) in JAX's tree built at `frame_size`:
+    min(window, stage i's map), the map H // 4 after the patch embed and
+    halved, rounding up, at each merge (tscd_tpu/models/swin.py:110,
+    :150)."""
+    stage = int(name.split(".")[name.split(".").index("layers") + 1])
+    h, w = frame_size[0] // 4, frame_size[1] // 4
+    for _ in range(stage):
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return min(_side(rows), h, w)
+
+
+def flax_module_path(name: str, towers: Optional[str] = None,
+                     backbone: Optional[Tuple[str, str]] = None) -> Optional[Tuple[str, ...]]:
     """Port / reference parameter name without its leaf -> flax module
     path, e.g. 'head.agg.mca.kv_cls.weight' -> ('head', 'agg', 'mca',
     'attn', 'kv_cls'); with `towers` the prefix of a YOLOV family head
-    (`yolov_towers`), its stems, towers and preds go under 'towers'."""
+    (`yolov_towers`), its stems, towers and preds go under 'towers'; with
+    `backbone` (`backbone_layout`) the network's names map by its family's
+    rules and the neck's go under 'neck'. None for a name with no flax
+    path (a buffer JAX recomputes)."""
     parts = name.split(".")[:-1]
+    if backbone is not None:
+        net, family = backbone
+        k = len(net.split(".")) - 1
+        if name.startswith(net):
+            sub = BACKBONE_PARTS[family](parts[k:])
+            if sub is None or name.split(".")[-1] in RECOMPUTED:
+                return None
+            return tuple(parts[:k]) + tuple(sub)
+        wrapper = net[:-len("backbone.")] if net else None
+        if wrapper is not None and name.startswith(wrapper):
+            k -= 1
+            return tuple(parts[:k]) + ("neck",) + tuple(_translate_backbone(parts[k:]))
     path = tuple(_translate_video(_translate_head(_translate_backbone(parts))))
     if towers is not None and name.startswith(towers):
         i = len(towers.split(".")) - 1
@@ -180,12 +335,13 @@ _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_var": ("batch_stats", "var")}
 
 
-def flax_param_path(name: str, ndim: int, towers: Optional[str] = None) -> Tuple[str, ...]:
+def flax_param_path(name: str, ndim: int, towers: Optional[str] = None,
+                    backbone: Optional[Tuple[str, str]] = None) -> Tuple[str, ...]:
     """A port parameter's flax `params` path, leaf included: the module
     path of `flax_module_path` and the leaf flax names it by (`kernel` for
     a conv or Linear weight of `ndim` 4 or 2, `scale` for a BatchNorm or
     LayerNorm weight)."""
-    path = flax_module_path(name, towers)
+    path = flax_module_path(name, towers, backbone)
     leaf = name.split(".")[-1]
     if path and path[-1] == "bn":
         return path + (_BN_LEAVES[leaf][1],)
@@ -214,14 +370,15 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
     `strict` False a key the tree lacks, or holds at another shape, is left
     out (for a shape-tolerant load) instead of raising."""
     coll = {c: flatten_tree(variables.get(c, {})) for c in ("params", "batch_stats")}
-    towers = yolov_towers(template)
+    towers, bb = yolov_towers(template), backbone_layout(template)
     out: Dict[str, torch.Tensor] = {}
+    shrunk: List[str] = []
     for name, ref in template.items():
         leaf = name.split(".")[-1]
         if leaf == "num_batches_tracked":
             out[name] = ref.clone()
             continue
-        path = flax_module_path(name, towers)
+        path = flax_module_path(name, towers, bb)
         if path and path[-1] == "bn":
             c, key = _BN_LEAVES[leaf]
         elif leaf == "weight":
@@ -237,6 +394,12 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
             arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "weight" and ref.dim() == 2:       # (in,out) -> (out,in)
             arr = arr.T
+        elif leaf == "relative_position_bias_table" and arr.shape != tuple(ref.shape):
+            k = _side(arr.shape[0])                             # a shrunk window's table
+            full = ref.detach().cpu().float().numpy().copy()
+            full[_table_slice(_side(full.shape[0]), k).reshape(-1)] = arr
+            arr = full
+            shrunk.append(f"{name} ({k} x {k})")
         t = torch.from_numpy(np.array(arr, copy=True)).to(ref.dtype)
         if t.shape != ref.shape:
             if not strict:
@@ -244,26 +407,38 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
             raise ValueError(f"{name}: flax {tuple(t.shape)} != port "
                              f"{tuple(ref.shape)}")
         out[name] = t
+    if shrunk:
+        warnings.warn(f"{len(shrunk)} Swin tables JAX built for shrunk windows, e.g. "
+                      f"{shrunk[-1]}: the rows of larger windows keep the model's own values")
     return out
 
 
-def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+def flax_from_state_dict(state: Mapping[str, torch.Tensor],
+                         frame_size: Optional[Tuple[int, int]] = None) -> Dict[str, Dict]:
     """The port's state_dict -> a JAX {'params', 'batch_stats'} tree of
     numpy arrays in flax's layout (the inverse of `state_dict_from_flax`;
     num_batches_tracked has no flax counterpart and is left out). Each
     value keeps its dtype; a bfloat16 one stays a torch tensor, which
-    `utils.flax_msgpack` writes as flax's bfloat16 ndarray."""
+    `utils.flax_msgpack` writes as flax's bfloat16 ndarray. With
+    `frame_size` (H, W), each Swin table is cut to the window JAX's tree
+    built at that frame size holds (`_jax_table_side`; the whole table at
+    224 px and more)."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    towers = yolov_towers(state)
+    towers, bb = yolov_towers(state), backbone_layout(state)
     for name, t in state.items():
         leaf = name.split(".")[-1]
         if leaf == "num_batches_tracked":
             continue
-        path = flax_module_path(name, towers)
+        path = flax_module_path(name, towers, bb)
+        if path is None:
+            continue
         if path and path[-1] == "bn":
             c, key = _BN_LEAVES[leaf]
         else:
-            c, key = "params", flax_param_path(name, t.dim())[-1]
+            c, key = "params", flax_param_path(name, t.dim(), towers, bb)[-1]
+        if leaf == "relative_position_bias_table" and frame_size is not None:
+            t = t[torch.from_numpy(_table_slice(_side(t.shape[0]), _jax_table_side(
+                name, t.shape[0], frame_size)).reshape(-1))]
         t = t.detach().cpu()
         if leaf == "weight" and path and path[-1] in _DENSE_AS_CONV and t.dim() == 4:
             t = t[:, :, 0, 0].t()                       # (out,in,1,1) -> (in,out)
