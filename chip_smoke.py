@@ -258,6 +258,24 @@ Phases, each of which raises on failure (so the run exits non-zero):
              step on Swin_Base (4 + 12 frames, frozen backbone): finite
              losses and gradients. The kernels line adds each row's launches
              a window of these runs.
+ 17. zoo     the rest of the detector zoo: (a) YOLOv7-tiny, ELANNet W6 and
+             E6E with their P6 neck, YOLOv8 (0.33, 0.25; decoded and the
+             train-mode loss), the DETR decoder (set_criterion and each
+             layer's col4row) and the layer zoo at small configs, card
+             against the card machine's CPU; (b) at full width, each run
+             counted (wrappers set to 0 before, read after: the NMS pair 1
+             a YOLOv7 postprocess, the stem 1 a P6 forward, the solver 6
+             a DETR criterion, nothing else) and timed with CUDA events:
+             YOLOv7-L on 8 x 640 frames with postprocess_dense at fp32 and
+             bf16, -tiny and -X; ELANNet + ELANFPNP6 W6, E6, D6, E6E on 2 x
+             1280 frames at fp32 and W6, E6, D6 at bf16, the stem's output
+             against focus_stem_plain and its device time at 64, 80 and 96
+             channels; YOLOv8-L forward + decode (fp32, bf16) and a
+             train-mode loss step (finite losses and gradients); the DETR
+             criterion at DETR's sizes on YOLOv7-L's stride-32 map (each
+             col4row equal to the plain solver's); DeformConv2d, CoordConv
+             and DropBlock on 8 x 256 x 80 x 80; (c) the kernels at these
+             shapes (rows `ZOO_ROWS`).
 The kernels phase also checks the attention's streaming route (q > 128)
 against its plain version: masks (all keys but one invalid, all
 invalid), bit-identical calls, q = k = 960 at d 64 (fp32 and bf16 q/k/v,
@@ -6603,11 +6621,545 @@ def backbones_phase(torch, counters):
     return per_window
 
 
+# -- the rest of the detector zoo (YOLOv7, the P6 ELAN backbones, YOLOv8,
+# the DETR decoder, the layer zoo) ------------------------------------------
+ZOO_ROWS = {
+    "focus_stem_p6_80": ("focus_stem", "ELANNet E6 / E6E stem: 2 x 1280 x 1280 fp32 frames "
+                                       "-> 80 channels"),
+    "focus_stem_p6_96": ("focus_stem", "ELANNet D6 stem: 2 x 1280 x 1280 fp32 frames -> 96 "
+                                       "channels"),
+    "focus_stem_bf16_p6_80": ("focus_stem_bf16", "ELANNet E6 stem at bf16: 2 x 1280 x 1280 "
+                                                 "uint8 frames -> 80 channels"),
+    "focus_stem_bf16_p6_96": ("focus_stem_bf16", "ELANNet D6 stem at bf16: 2 x 1280 x 1280 "
+                                                 "uint8 frames -> 96 channels"),
+    "hungarian_detr": ("hungarian", "DETR set criterion: a decoder layer's 100 x 100 cost "
+                                    "(10 valid gts, 90 columns at big = 1e4), 6 a call"),
+    "nms_dense_yolov7": ("nms", "YOLOv7-L postprocess_dense: B 8, K 2048, 80 classes "
+                                "shifted, IoU 0.65"),
+}
+ZOO_P6 = (("W6", "fp32"), ("E6", "fp32"), ("D6", "fp32"), ("E6E", "fp32"), ("W6", "bf16"),
+          ("E6", "bf16"), ("D6", "bf16"))
+ZOO_STEM_ROW = {("E6", "fp32"): "focus_stem_p6_80", ("E6E", "fp32"): "focus_stem_p6_80",
+                ("D6", "fp32"): "focus_stem_p6_96", ("E6", "bf16"): "focus_stem_bf16_p6_80",
+                ("D6", "bf16"): "focus_stem_bf16_p6_96"}
+ZOO_SMALL_TOL = "1e-4 of each output's largest (losses 1e-4 relative); matchings exact"
+ZOO_REPS = 3
+ZOO_DETECT = (8, 640)                 # frames, px: YOLOv7 and YOLOv8
+ZOO_P6_INPUT = (2, 1280)              # frames, px: the P6 backbones and neck
+ZOO_LAYER_INPUT = (8, 256, 80, 80)    # the layer zoo's map, NCHW
+
+
+def anchors_at(size):
+    return sum((size // s) ** 2 for s in (8, 16, 32))
+
+
+def zoo_counted(torch, counters, run, want):
+    """`run()` with every wrapper's count set to 0 just before and read
+    just after: the launches of each hand kernel, which must equal
+    `want` (kernel -> launches; the others 0)."""
+    for c in counters.values():
+        c.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    full = {k: want.get(k, 0) for k in counters}
+    if got != full:
+        raise AssertionError(f"launches {got} != {full}")
+    return out, got
+
+
+def zoo_window(torch, fn, reps=ZOO_REPS):
+    """ms of each of `reps` calls (CUDA events, after one warm-up) and the
+    peak device memory of a call."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return {"ms": ms, "median_ms": sorted(ms)[len(ms) // 2],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def stem_bf16_row(torch, dev, rng, F, H, W, O):
+    """The bf16 stem on F x H x W x 3 uint8 frames writing O channels
+    against its plain version (BF16_TOL), then timed, with its bound and
+    the folded bf16 F.conv2d's time."""
+    import numpy as np
+    import torch.nn.functional as Fn
+
+    from tscd_torch.ops.kernels import focus_stem as fs
+    bf = torch.bfloat16
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, device=dev).to(dt)   # noqa: E731
+    w3 = t(rng.normal(0, 1 / np.sqrt(108), (O, 12, 3, 3)))
+    scale = t(rng.uniform(0.5, 1.5, O))
+    shift = t(rng.normal(0, 0.5, O))
+    x8 = t(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8), torch.uint8)
+    err = check_close(f"focus_stem bf16 ({F}, {H}, {W}, 3) uint8 -> {O}",
+                      fs.focus_stem(x8, w3, scale, shift, out_dtype=bf),
+                      fs.focus_stem_plain(x8, w3, scale, shift, bf), **BF16_TOL)
+    nbytes = F * H * W * 3 + 2 * F * (H // 2) * (W // 2) * O + 4 * (w3.numel() + 2 * O)
+    b_ms, b_by = bound(nbytes, (2 * F * (H // 2) * (W // 2) * O * 108, H100_BF16_FLOPS))
+    xb, w6 = x8.to(bf).permute(0, 3, 1, 2), fs.rearrange_weight(w3, scale).to(bf)
+    return dict(max_abs_err=err, tolerance=BF16_TOL,
+                **timed(torch, lambda: fs.focus_stem(x8, w3, scale, shift, out_dtype=bf), 20,
+                        "focus_stem"),
+                plain_ms=cuda_ms(torch, lambda: fs.focus_stem_plain(x8, w3, scale, shift, bf),
+                                 10),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(torch, lambda: Fn.conv2d(xb, w6, shift.to(bf), stride=2,
+                                                            padding=2), 20))
+
+
+def zoo_frames(torch, seed, n, size, dev):
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(seed).integers(0, 256, (n, size, size, 3),
+                                                                dtype=np.uint8), device=dev)
+
+
+def zoo_close(name, got, want):
+    """got (on the card) within 1e-4 of want's (CPU) largest absolute value."""
+    g, w = got.detach().float().cpu(), want.detach().float()
+    err = float((g - w).abs().max())
+    ok = tuple(g.shape) == tuple(w.shape) and err <= 1e-4 * float(w.abs().max())
+    if not ok:
+        raise AssertionError(f"zoo {name}: card against CPU {err} of {float(w.abs().max())}")
+    return err
+
+
+def zoo_detr_gts(torch, Q, C, n_valid, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.integers(0, C, Q).astype(np.int32)),
+            torch.as_tensor(rng.uniform(0.1, 0.9, (Q, 4)).astype(np.float32)),
+            torch.as_tensor(np.arange(Q) < n_valid))
+
+
+def zoo_v8_labels(rng, B, size, n_max=20, C=80):
+    """(B, n_max, 5) zero-padded [cls, cx, cy, w, h] pixel rows, 5 to n_max
+    boxes of 16-40% of the frame a frame."""
+    import numpy as np
+    lab = np.zeros((B, n_max, 5), np.float32)
+    for b in range(B):
+        n = int(rng.integers(5, n_max + 1))
+        wh = rng.uniform(0.16, 0.4, (n, 2)) * size
+        c = rng.uniform(wh / 2, size - wh / 2)
+        lab[b, :n] = np.concatenate([rng.integers(0, C, (n, 1)), c, wh], -1)
+    return lab
+
+
+def zoo_small_part(torch):
+    """Each zoo model at a small config from the same seeded weights on the
+    card machine's CPU (plain versions) and on the card (kernels): YOLOv7-
+    tiny (64 px, decoded), ELANNet W6 and E6E + their P6 neck (64 px),
+    YOLOv8 (depth 0.33, width 0.25, 64 px: decoded, then the train-mode
+    yolov8_loss parts), the DETR decoder (dim 32, 4 heads, 2 layers, 16
+    queries: set_criterion's losses and each layer's col4row), DeformConv2d
+    and CoordConv (2 x 6 x 8 x 8) and DropBlock under one seed mask."""
+    import numpy as np
+
+    from tscd_torch.models import custom_layers as cl
+    from tscd_torch.models import decoder as dec
+    from tscd_torch.models import elan
+    from tscd_torch.models.build import create_model
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.v8_losses import yolov8_loss
+    dev, recs = card(torch), {}
+
+    def pair(make, seed):
+        cpu = random_init_(make("cpu"), seed).eval()
+        gpu = make(dev).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        return cpu, gpu
+
+    x = zoo_frames(torch, 70, 2, 64, "cpu")
+    cpu, gpu = pair(lambda d: create_model("yolov7", num_classes=80, arch="tiny", device=d), 71)
+    with torch.no_grad():
+        recs["yolov7_tiny"] = zoo_close("yolov7_tiny", gpu(x.to(dev))["decoded"],
+                                        cpu(x)["decoded"])
+    for arch in ("W6", "E6E"):
+        ch = elan.backbone_channels(arch)[-4:]
+        make = lambda d: torch.nn.Sequential(  # noqa: E731
+            elan.ELANNet(arch, (2, 3, 4, 5)), elan.ELANFPNP6(arch, ch)).to(d)
+        cpu, gpu = pair(make, 72)
+        with torch.no_grad():
+            want = cpu[1](cpu[0](x))
+            got = gpu[1](gpu[0](x.to(dev)))
+        recs[f"elan_{arch}_p6"] = max(zoo_close(f"{arch} map {k}", g, w)
+                                      for k, (g, w) in enumerate(zip(got, want)))
+    cpu, gpu = pair(lambda d: create_model("yolov8", num_classes=80, depth=0.33, width=0.25,
+                                           device=d), 73)
+    lab = torch.as_tensor(zoo_v8_labels(np.random.default_rng(74), 2, 64))
+    with torch.no_grad():
+        recs["yolov8"] = zoo_close("yolov8", gpu(x.to(dev))["decoded"], cpu(x)["decoded"])
+        lc = yolov8_loss(cpu(x, train=True, decode=False), lab)
+        lg = yolov8_loss(gpu(x.to(dev), train=True, decode=False), lab.to(dev))
+    for k in lc:
+        if not abs(float(lg[k]) - float(lc[k])) <= 1e-4 * abs(float(lc[k])):
+            raise AssertionError(f"zoo yolov8 {k}: card {float(lg[k])} CPU {float(lc[k])}")
+    recs["yolov8_losses"] = {k: float(v) for k, v in lg.items()}
+    torch.manual_seed(75)
+    cpu, gpu = pair(lambda d: dec.TransformerDecoder(5, 32, 32, 4, 2, 16).to(d), 75)
+    mem = torch.as_tensor(np.random.default_rng(76).normal(size=(40, 32)).astype(np.float32))
+    gts = zoo_detr_gts(torch, 16, 5, 3, 77)
+    cols = {}
+    for name, m, d in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        with torch.no_grad():
+            out = m(mem.to(d))
+            cols[name] = [dec.hungarian_match(out["pred_logits"][i], out["pred_boxes"][i],
+                                              *(t.to(d) for t in gts)).cpu()
+                          for i in range(2)]
+            cols[name + "_losses"] = {k: float(v) for k, v in dec.set_criterion(
+                out, *(t.to(d) for t in gts), 5).items()}
+    if not all(torch.equal(a, b) for a, b in zip(cols["cpu"], cols["card"])):
+        raise AssertionError(f"zoo detr col4row: card {cols['card']} CPU {cols['cpu']}")
+    for k, v in cols["cpu_losses"].items():
+        if not abs(cols["card_losses"][k] - v) <= 1e-4 * abs(v):
+            raise AssertionError(f"zoo detr {k}: card {cols['card_losses'][k]} CPU {v}")
+    recs["detr"] = cols["card_losses"]
+    xs = torch.as_tensor(np.random.default_rng(78).normal(size=(2, 6, 8, 8)).astype(np.float32))
+    for name, make in (("deform_conv", lambda d: cl.DeformConv2d(6, 5).to(d)),
+                       ("coord_conv", lambda d: cl.CoordConv(6, 5).to(d))):
+        cpu, gpu = pair(make, 79)
+        with torch.no_grad():
+            recs[name] = zoo_close(name, gpu(xs.to(dev)), cpu(xs))
+    db = cl.DropBlock(3, 0.8)
+    seed = torch.rand(xs.shape, generator=torch.Generator().manual_seed(80)) < db.gamma(8, 8)
+    recs["dropblock"] = zoo_close("dropblock", db.drop(xs.to(dev), seed.to(dev)),
+                                  db.drop(xs, seed))
+    emit({"phase": "zoo", "part": "small", "results": recs, "tolerance": ZOO_SMALL_TOL,
+          "pass": True})
+
+
+def zoo_yolov7(torch, counters, card_name):
+    """YOLOv7-L (80 classes) on 8 x 640 x 640 frames, forward and
+    postprocess_dense (IoU 0.65, conf 0: random weights score at the 1e-4
+    prior, so a real threshold would leave the NMS no valid box; at 0 it
+    walks 2048 a frame), fp32 then bf16 (the fp32 weights cast): each run
+    counted (the NMS pair once, no stem: L's stem is convs), then timed;
+    the bf16 decoded outputs against the fp32 ones. YOLOv7-tiny and -X
+    forwards, fp32, timed. Returns (NMS launches, the fp32 neck's stride-32
+    map of frame 0, for the DETR memory)."""
+    from tscd_torch.models.build import create_model
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.postprocess import postprocess_dense
+    dev = card(torch)
+    B, size = ZOO_DETECT
+    x = zoo_frames(torch, 81, B, size, dev)
+    nms = 0
+    model = random_init_(create_model("yolov7", num_classes=80, arch="L", device=dev), 82)
+    sd32 = model.state_dict()
+    with torch.no_grad():
+        memory = model.fpn(model.backbone(x[:1]))[-1][0].flatten(1).t().contiguous()
+    dec32 = None
+    for dtype in ("fp32", "bf16"):
+        if dtype == "bf16":
+            del model
+            free_card(torch)
+            model = create_model("yolov7", num_classes=80, arch="L", dtype=torch.bfloat16,
+                                 device=dev)
+            model.load_state_dict(sd32)
+
+        def run():
+            with torch.no_grad():
+                out = model(x)
+                return out["decoded"], postprocess_dense(out["decoded"], 80, 0.0, 0.65)
+        (decoded, dets), got = zoo_counted(torch, counters, run, {"nms": 1})
+        nms += got["nms"]
+        rec = {"run": f"yolov7_L_{dtype}", "frames": B, "size": size,
+               "decoded": list(decoded.shape), "finite": bool(torch.isfinite(decoded).all()),
+               "kept": int(dets.mask.sum()), "launches": got, **zoo_window(torch, run)}
+        if dtype == "fp32":
+            dec32 = decoded
+        else:
+            d = (decoded - dec32).abs()
+            rec["bf16_vs_fp32"] = {"boxes_max": float(d[..., :4].max()),
+                                   "scores_max": float(d[..., 4:].max()),
+                                   "scores_mean": float(d[..., 4:].mean())}
+        if not rec["finite"] or rec["decoded"] != [B, anchors_at(size), 85]:
+            raise AssertionError(f"zoo {rec['run']}: {rec}")
+        emit({"phase": "zoo", **rec, "card": card_name})
+    del model, dec32
+    free_card(torch)
+    for arch in ("tiny", "X"):
+        model = random_init_(create_model("yolov7", num_classes=80, arch=arch, device=dev), 83)
+
+        def fwd():
+            with torch.no_grad():
+                return model(x)["decoded"]
+        out = fwd()
+        emit({"phase": "zoo", "run": f"yolov7_{arch}_fp32", "frames": B, "size": size,
+              "finite": bool(torch.isfinite(out).all()), **zoo_window(torch, fwd),
+              "card": card_name})
+        del model, out
+        free_card(torch)
+    return nms, memory
+
+
+def zoo_p6(torch, counters, card_name):
+    """ELANNet(arch, return_idx 2-5) + ELANFPNP6 on 2 x 1280 x 1280 frames
+    (uint8; cast to fp32 at fp32, read by the bf16 stem as they are), each
+    run of ZOO_P6 counted (one stem launch) and timed; the stem's output on
+    the same frames against focus_stem_plain, and its device time. Returns
+    {ZOO_STEM_ROW row: stem launches} and each run's stem launches."""
+    from tscd_torch.models import elan
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.kernels import focus_stem as fs
+    dev = card(torch)
+    B, size = ZOO_P6_INPUT
+    x = zoo_frames(torch, 84, B, size, dev)
+    launches, per_run, sd32 = {}, {}, {}
+    for arch, dtype in ZOO_P6:
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        ch = elan.backbone_channels(arch)[-4:]
+        net = elan.ELANNet(arch, (2, 3, 4, 5), dtype=dt).to(dev).eval()
+        neck = elan.ELANFPNP6(arch, ch, dtype=dt).to(dev).eval()
+        if dtype == "fp32":
+            random_init_(net, 85)
+            random_init_(neck, 86)
+            sd32[arch] = (net.state_dict(), neck.state_dict())
+        else:
+            net.load_state_dict(sd32[arch][0])
+            neck.load_state_dict(sd32[arch][1])
+
+        def run():
+            with torch.no_grad():
+                return neck(net(x))
+        maps, got = zoo_counted(torch, counters, run, {"focus_stem": 1})
+        per_run[f"{arch}_{dtype}"] = got["focus_stem"]
+        row = ZOO_STEM_ROW.get((arch, dtype))
+        if row:
+            launches[row] = launches.get(row, 0) + got["focus_stem"]
+        conv, bn = net.stem.conv.conv, net.stem.conv.bn
+        scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        shift = bn.bias - bn.running_mean * scale
+        xin = x if dtype == "bf16" else x.float()
+        with torch.no_grad():
+            got_stem = net.stem(xin)
+            want_stem = fs.focus_stem_plain(xin, conv.weight, scale, shift, dt)
+        tol = BF16_TOL if dtype == "bf16" else {"atol": 1e-3, "rtol": 1e-4}
+        err = check_close(f"zoo {arch} {dtype} stem ({B}, {size}, {size}, 3) -> "
+                          f"{conv.weight.shape[0]}",
+                          got_stem, want_stem, **tol)
+        with torch.no_grad():
+            stem_t = timed(torch, lambda: net.stem(xin), 10, "focus_stem")
+        finite = all(bool(torch.isfinite(m).all()) for m in maps)
+        rec = {"run": f"elan_{arch}_p6_{dtype}", "frames": B, "size": size,
+               "maps": [list(m.shape) for m in maps], "finite": finite, "launches": got,
+               "stem_channels": conv.weight.shape[0], "stem_max_abs_err": err,
+               "stem_ms": stem_t["ms"], "stem_call_ms": stem_t["call_ms"],
+               **zoo_window(torch, run)}
+        if not finite:
+            raise AssertionError(f"zoo {rec['run']}: {rec}")
+        emit({"phase": "zoo", **rec, "card": card_name})
+        del net, neck, maps, got_stem, want_stem
+        free_card(torch)
+    return launches, per_run
+
+
+def zoo_yolov8(torch, counters, card_name):
+    """YOLOv8-L (80 classes, depth 1, width 1) on 8 x 640 x 640 frames,
+    forward and decode at fp32 and bf16 (the fp32 weights cast), each
+    counted (no hand kernel) and timed; then one yolov8_loss forward and
+    backward in train mode on seeded labels (5-20 boxes a frame), timed:
+    the losses and every gradient finite."""
+    import numpy as np
+
+    from tscd_torch.models.build import create_model
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.v8_losses import yolov8_loss
+    dev = card(torch)
+    B, size = ZOO_DETECT
+    x = zoo_frames(torch, 87, B, size, dev)
+    model = random_init_(create_model("yolov8", num_classes=80, device=dev), 88)
+    sd32 = model.state_dict()
+    for dtype in ("fp32", "bf16"):
+        if dtype == "bf16":
+            m = create_model("yolov8", num_classes=80, dtype=torch.bfloat16, device=dev)
+            m.load_state_dict(sd32)
+        else:
+            m = model
+
+        def run():
+            with torch.no_grad():
+                return m(x)["decoded"]
+        decoded, got = zoo_counted(torch, counters, run, {})
+        finite = bool(torch.isfinite(decoded).all())
+        if not finite or list(decoded.shape) != [B, anchors_at(size), 84]:
+            raise AssertionError(f"zoo yolov8 {dtype}: {list(decoded.shape)} finite {finite}")
+        emit({"phase": "zoo", "run": f"yolov8_L_{dtype}", "frames": B, "size": size,
+              "decoded": list(decoded.shape), "finite": finite, "launches": got,
+              **zoo_window(torch, run), "card": card_name})
+        del decoded
+    del m
+    free_card(torch)
+    labels = torch.as_tensor(zoo_v8_labels(np.random.default_rng(89), B, size), device=dev)
+    model.train()
+    losses = {}
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        parts = yolov8_loss(model(x, train=True, decode=False), labels)
+        parts["total_loss"].backward()
+        losses.update({k: float(v.detach()) for k, v in parts.items()})
+    _, got = zoo_counted(torch, counters, step, {})
+    timing = zoo_window(torch, step, reps=2)
+    grads = [p.grad for p in model.parameters()]
+    finite = (all(np.isfinite(v) for v in losses.values())
+              and all(g is not None and bool(torch.isfinite(g).all()) for g in grads))
+    emit({"phase": "zoo", "run": "yolov8_L_loss_train_step", "frames": B, "size": size,
+          "labels": int((labels.sum(-1) > 0).sum()), "losses": losses,
+          "gradients": len(grads), "finite": finite, "launches": got, **timing,
+          "card": card_name})
+    if not finite or losses["num_fg"] <= 0:
+        raise AssertionError(f"zoo yolov8 loss: {losses}, gradients finite {finite}")
+    model.eval()
+    del model
+    free_card(torch)
+
+
+def zoo_detr(torch, counters, memory, card_name):
+    """The DETR decoder at DETR's sizes (dim 256, 8 heads, 6 layers, 100
+    queries, FFN 2048, 80 classes) on `memory` (YOLOv7-L's stride-32 neck
+    map of one 640 frame: 400 x 1024): set_criterion with 10 valid gts of
+    100, forward and backward, counted (6 solver launches, no host read
+    between them) and timed; each launch's col4row against the plain
+    solver on the same (masked) cost. Returns (solver launches, a layer's
+    cost)."""
+    from tscd_torch.models import decoder as dec
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops import hungarian as ops_hu
+    from tscd_torch.ops.kernels import hungarian as hu
+    dev = card(torch)
+    torch.manual_seed(90)
+    model = random_init_(dec.TransformerDecoder(80, memory.shape[1]), 91).to(dev).train()
+    gt_cls, gt_boxes, gt_valid = (t.to(dev) for t in zoo_detr_gts(torch, 100, 80, 10, 92))
+    solved, solve = [], ops_hu.linear_sum_assignment
+
+    def recording(cost):
+        col = solve(cost)
+        solved.append((cost, col))
+        return col
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        parts = dec.set_criterion(model(memory), gt_cls, gt_boxes, gt_valid, 80)
+        parts["total_loss"].backward()
+        return parts
+
+    ops_hu.linear_sum_assignment = recording
+    try:
+        parts, got = zoo_counted(torch, counters, step, {"hungarian": 6})
+    finally:
+        ops_hu.linear_sum_assignment = solve
+    losses = {k: float(v.detach()) for k, v in parts.items()}
+    diffs = [int((col.cpu().long() - hu.linear_sum_assignment_plain(cost.cpu()).long())
+                 .abs().max()) for cost, col in solved]
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    finite = all(abs(v) < float("inf") for v in losses.values()) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    rec = {"run": "detr_set_criterion", "config": "dim 256, 8 heads, 6 layers, 100 queries, "
+           "FFN 2048, memory 400 x 1024 (YOLOv7-L stride 32, one 640 frame), 10 gts of 100",
+           "losses": losses, "col4row_vs_plain_max_abs": diffs, "gradients": len(grads),
+           "finite": finite, "launches": got, **zoo_window(torch, step)}
+    emit({"phase": "zoo", **rec, "card": card_name})
+    if not finite or len(diffs) != 6 or any(diffs):
+        raise AssertionError(f"zoo detr: {rec}")
+    cost = solved[-1][0][0]
+    del model, solved
+    free_card(torch)
+    return got["hungarian"], cost
+
+
+def zoo_layers(torch, counters, card_name):
+    """DeformConv2d(256 -> 256) with seeded (non-zero) offsets and
+    CoordConv(256 -> 256) on an (8, 256, 80, 80) map, DropBlock(7, 0.9) in
+    train mode: counted (no hand kernel) and timed."""
+    import numpy as np
+
+    from tscd_torch.models import custom_layers as cl
+    from tscd_torch.models.tscd import random_init_
+    dev = card(torch)
+    x = torch.as_tensor(np.random.default_rng(93).normal(size=ZOO_LAYER_INPUT)
+                        .astype(np.float32), device=dev)
+    C = ZOO_LAYER_INPUT[1]
+    gen = torch.Generator(device=dev).manual_seed(94)
+    for name, m in (("deform_conv", random_init_(cl.DeformConv2d(C, C), 95).to(dev)),
+                    ("coord_conv", random_init_(cl.CoordConv(C, C), 96).to(dev)),
+                    ("dropblock", cl.DropBlock(7, 0.9))):
+        def run():
+            with torch.no_grad():
+                return m(x, True, gen) if name == "dropblock" else m(x)
+        y, got = zoo_counted(torch, counters, run, {})
+        rec = {"run": name, "input": list(x.shape), "output": list(y.shape),
+               "finite": bool(torch.isfinite(y).all()), "launches": got,
+               **zoo_window(torch, run)}
+        if name == "dropblock":
+            rec["dropped_share"] = float((y == 0).float().mean())
+        emit({"phase": "zoo", **rec, "card": card_name})
+        if not rec["finite"]:
+            raise AssertionError(f"zoo {name}: {rec}")
+        del y
+    free_card(torch)
+
+
+def zoo_phase(torch, counters):
+    """The rest of the detector zoo: zoo_small_part (card against the card
+    machine's CPU at small configs), then at full width YOLOv7-L (fp32,
+    bf16) and -tiny and -X, the P6 ELAN backbones and neck (W6, E6, D6,
+    E6E fp32; W6, E6, D6 bf16) at 1280 px, YOLOv8-L (fp32, bf16, a
+    train-mode loss step), the DETR criterion at DETR's sizes and the layer
+    zoo; then the kernels at the new shapes (the stem at 80 and 96
+    channels, fp32 and bf16; the solver on the criterion's cost; the NMS at
+    YOLOv7-L's postprocess). Returns {"rows", "launches", "per_run"}."""
+    import numpy as np
+
+    from tscd_torch.ops.kernels import library
+    t_phase = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True
+                         ).stdout.strip().splitlines()
+    card_name = smi[0] if smi else "not read"
+    zoo_small_part(torch)
+    nms, memory = zoo_yolov7(torch, counters, card_name)
+    stem_launches, stem_runs = zoo_p6(torch, counters, card_name)
+    zoo_yolov8(torch, counters, card_name)
+    solver, cost = zoo_detr(torch, counters, memory, card_name)
+    zoo_layers(torch, counters, card_name)
+    dev = card(torch)
+    lat, clock = latencies(torch, library.load()), sm_clock_mhz()
+    rng = np.random.default_rng(97)
+    B, size = ZOO_P6_INPUT
+    rows = {"focus_stem_p6_80": stem_row(torch, dev, rng, B, size, size, 80),
+            "focus_stem_p6_96": stem_row(torch, dev, rng, B, size, size, 96),
+            "focus_stem_bf16_p6_80": stem_bf16_row(torch, dev, rng, B, size, size, 80),
+            "focus_stem_bf16_p6_96": stem_bf16_row(torch, dev, rng, B, size, size, 96),
+            "nms_dense_yolov7": dense_nms_row(torch, dev, rng, 0.65, lat, clock, C=80)}
+    from tscd_torch.ops.kernels import hungarian as hu
+    err = check_hungarian("hungarian DETR criterion cost (1, 100, 100)", cost[None])
+    rows["hungarian_detr"] = dict(
+        max_abs_err=err, **hungarian_cost_row(torch, cost[None], lat, clock),
+        plain_ms=cuda_ms(torch, lambda: hu.linear_sum_assignment_plain(cost[None]), 1, 1),
+        bound_by="operations", bound_model=HUNGARIAN_BOUND, library_ms=None)
+    launches = {**stem_launches, "hungarian_detr": solver, "nms_dense_yolov7": nms}
+    emit({"phase": "zoo", "seconds": time.time() - t_phase, "card": card_name,
+          "stem_launches": stem_runs, "launches": launches,
+          "rows": {n: {k: v for k, v in r.items() if "ms" in k} for n, r in rows.items()}})
+    return {"rows": rows, "launches": launches, "per_run": {
+        "focus_stem": stem_runs, "hungarian": {"detr_set_criterion": solver},
+        "nms": {"yolov7_L_fp32_bf16": nms}}}
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
-          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "backbones",
+          "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "backbones", "zoo",
           "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
@@ -6730,6 +7282,11 @@ def main() -> int:
     for run, per_window in backbones_phase(torch, counters).items():
         for row, n in per_window.items():
             rows[row].setdefault("launches_a_window_backbones", {})[run] = n
+    zoo = zoo_phase(torch, counters)
+    rows.update(zoo["rows"])
+    launches.update(zoo["launches"])
+    for row, per_run in zoo["per_run"].items():
+        rows[row]["launches_zoo"] = per_run
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}
@@ -6747,7 +7304,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
-    shaped = {**HEAD_ROWS, **RECIPE_ROWS, **YOLOV_ROWS, **OVIS_PLUS_ROWS}
+    shaped = {**HEAD_ROWS, **RECIPE_ROWS, **YOLOV_ROWS, **OVIS_PLUS_ROWS, **ZOO_ROWS}
     sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in shaped.items()}}
     for name, (_, shape) in shaped.items():
         rows[name]["shape"] = shape

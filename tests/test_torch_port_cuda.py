@@ -36,7 +36,11 @@ yolov_demo_online) at the selftest size against the CPU port, detections
 1e-4 as sets, their .mp4 parsed; a small Swin (whole and shrunk
 windows) and FocalNet against the CPU port, 1e-4 of each map's largest,
 and a Swin TSCD window's graph replay equal to its eager dispatch and to
-the CPU's detections (1e-4 as sets).
+the CPU's detections (1e-4 as sets); the stem at the P6 ELAN widths (80
+and 96 channels, 2 x 1280 x 1280, fp32 and bf16) at the stem's
+tolerances, the solver on a DETR criterion's 100 x 100 cost exactly, and
+YOLOv7-tiny and YOLOv8 against the CPU port, 1e-4 of the largest decoded
+value.
 """
 
 import numpy as np
@@ -1016,3 +1020,73 @@ def test_cuda_swin_tscd_graph_replay_equals_eager(fp32_card):
     _, cstate = preds["cpu"].dispatch(*windows[0], False, None)
     cpu_rows = preds["cpu"].materialize(preds["cpu"].dispatch(*windows[1], True, cstate)[0])
     _same_rows(predict.materialize(got[0]), cpu_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O", [80, 96])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_focus_stem_at_the_p6_widths_matches_plain(card, O, out_dtype):
+    """The stem at the P6 ELAN stems' widths (E6 and E6E 80 channels, D6
+    96; at bf16 80 is not a multiple of the 32-channel chunk, so the last
+    chunk is padded) on 2 x 1280 x 1280 frames (fp32 ones at fp32, uint8
+    at bf16), at the tolerances above."""
+    import chip_smoke
+    rng = np.random.default_rng(19)
+    x8 = rng.integers(0, 256, (2, 1280, 1280, 3), dtype=np.uint8)
+    x = x8 if out_dtype == torch.bfloat16 else x8.astype(np.float32)
+    ins = [torch.from_numpy(a).to(card) for a in (
+        x, rng.normal(0, 0.1, (O, 12, 3, 3)).astype(np.float32),
+        rng.uniform(0.5, 1.5, O).astype(np.float32),
+        rng.normal(0, 0.5, O).astype(np.float32))]
+    torch.backends.cudnn.allow_tf32 = False
+    n0 = pfs.focus_stem.launches
+    got = pfs.focus_stem(*ins, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pfs.focus_stem.launches == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (2, O, 640, 640) and got.is_contiguous()
+    want = pfs.focus_stem_plain(*ins, out_dtype)
+    tol = chip_smoke.BF16_TOL if out_dtype == torch.bfloat16 else dict(atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [10, 100])
+def test_cuda_hungarian_on_a_detr_cost_equals_plain(card, n_valid):
+    """hungarian_match's cost at DETR's 100 queries (softmax prob, 5 L1,
+    -2 IoU; the invalid gt columns at big = 1e4): col4row on the card
+    equal to the CPU's plain solver, element for element."""
+    from tscd_torch.models.decoder import hungarian_match
+    rng = np.random.default_rng(20)
+    args = [torch.from_numpy(a) for a in (
+        rng.normal(size=(100, 81)).astype(np.float32),
+        rng.uniform(0.1, 0.9, (100, 4)).astype(np.float32),
+        rng.integers(0, 80, 100).astype(np.int32),
+        rng.uniform(0.1, 0.9, (100, 4)).astype(np.float32), np.arange(100) < n_valid)]
+    n0 = pkh.linear_sum_assignment.launches
+    got = hungarian_match(*(a.to(card) for a in args))
+    assert pkh.linear_sum_assignment.launches == n0 + 1
+    assert torch.equal(got.cpu(), hungarian_match(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov7", "yolov8"])
+def test_cuda_yolov7_tiny_and_yolov8_match_cpu(fp32_card, name):
+    """YOLOv7-tiny and YOLOv8 (depth 0.33, width 0.25), seeded: the card's
+    decoded outputs within 1e-4 of the CPU port's largest (TF32 off), in
+    eval mode on 2 x 64 x 64 frames and with train-mode BN on 2 x 256 x 256
+    (at 64 px the stride-32 maps are 2 x 2, and BN over 8 values a channel
+    turns the convs' fp32 summation noise into 1.7e-4 of the largest box
+    coordinate)."""
+    from tscd_torch.models.build import create_model
+    from tscd_torch.models.tscd import random_init_
+    kw = dict(arch="tiny") if name == "yolov7" else dict(depth=0.33, width=0.25)
+    cpu = random_init_(create_model(name, num_classes=80, device="cpu", **kw), 22)
+    dev = create_model(name, num_classes=80, device=fp32_card, **kw)
+    dev.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(23)
+    for train, size in ((False, 64), (True, 256)):
+        x = torch.from_numpy(rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8))
+        with torch.no_grad():
+            want = cpu(x, train=train)["decoded"]
+            got = dev(x.to(fp32_card), train=train)["decoded"].cpu()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -280,8 +280,8 @@ def test_demo_tools_refuse_what_is_not_ported(frames_dir, tmp_path):
 
 
 def test_models_build():
-    """create_yolox_model (nano through x; nano depthwise) and create_model;
-    yolov7 / yolov8 raise naming queue 1 item 7."""
+    """create_yolox_model (nano through x; nano depthwise) and create_model,
+    yolov7 and yolov8 among its names."""
     from tscd_torch.models.build import _YOLOX_CFG, create_model, create_yolox_model
     from tscd_torch.models.yolov import YOLOVOnline
     nano, sd = create_yolox_model("yolox_nano", num_classes=3, device="cpu")
@@ -291,9 +291,11 @@ def test_models_build():
     online = create_model("yolov-online", num_classes=4, depth=0.33, width=0.125,
                           num_proposals=4, heads=2, device="cpu")
     assert isinstance(online, YOLOVOnline)
-    for name in ("yolov7", "yolov8"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            create_model(name)
+    from tscd_torch.models.elan import YOLOv7
+    from tscd_torch.models.yolov8 import YOLOv8
+    assert isinstance(create_model("yolov7", num_classes=3, arch="tiny", device="cpu"), YOLOv7)
+    assert isinstance(create_model("yolov8", num_classes=3, depth=0.33, width=0.25,
+                                   device="cpu"), YOLOv8)
 
 
 def test_repp_tool_matches_jax(tmp_path):

@@ -160,3 +160,11 @@ def seeded_like(shapes, seed):
             new[k] = v
         out[coll] = traverse_util.unflatten_dict(new)
     return out
+
+
+def assert_close(got, want, what, tol=1e-4):
+    """got within `tol` of want's largest absolute value (shapes equal)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, f"{what}: {got.shape} != {want.shape}"
+    err = float(np.abs(got - want).max())
+    assert err <= tol * float(np.abs(want).max()), f"{what}: {err} of {np.abs(want).max()}"

@@ -30,7 +30,6 @@ from ..ops.kernels.focus_stem import focus_stem, rearrange_weight
 # new running statistics of a train-mode forward: {BatchNorm module:
 # (running mean, running var)}
 BNStats = Dict[nn.BatchNorm2d, Tuple[torch.Tensor, torch.Tensor]]
-BN_MOMENTUM = 0.9     # flax's: running = 0.9 running + 0.1 batch
 
 
 def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor,
@@ -40,8 +39,10 @@ def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor,
     train mode (nn.BatchNorm, flax 0.12.3 normalization.py): the batch
     mean and the biased variance E[x^2] - E[x]^2 (its fast variance,
     floored at 0) normalise, (x - mean) * (rsqrt(var + eps) * scale) +
-    bias, and stats[bn] gets momentum 0.9 running averages of them, which
-    carry no gradient."""
+    bias, and stats[bn] gets running averages of them, which carry no
+    gradient: flax's momentum is 1 - `bn.momentum` (torch's default 0.1 is
+    flax's 0.9; the ELAN family's 0.03 is its 0.97), running = m running +
+    (1 - m) batch."""
     x = y.float()
     if stats is None:
         return bn(x).to(y.dtype)
@@ -50,10 +51,17 @@ def batch_norm(bn: nn.BatchNorm2d, y: torch.Tensor,
     var = ((x * x).mean(axes) - mean * mean).clamp(min=0.0)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     out = (x - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
-    m = BN_MOMENTUM
+    m = 1.0 - bn.momentum
     stats[bn] = (m * bn.running_mean + (1.0 - m) * mean.detach(),
                  m * bn.running_var + (1.0 - m) * var.detach())
     return out.to(y.dtype)
+
+
+def batch_stats(model: nn.Module, stats: BNStats) -> Dict[str, torch.Tensor]:
+    """A train-mode forward's new running statistics under the state_dict
+    keys of their BatchNorm modules."""
+    return {f"{name}.running_{k}": v for name, bn in model.named_modules()
+            if bn in stats for k, v in zip(("mean", "var"), stats[bn])}
 
 
 def run(seq: nn.Sequential, x: torch.Tensor,

@@ -2,7 +2,7 @@
 yolox/models/build.py create_yolox_model:32): a name -> the port's model,
 on the card unless `device` says otherwise. Weights come from a local
 checkpoint (a JAX `.msgpack` or a `.pth`, as tscd_eval reads them); nothing
-is downloaded. YOLOv7 and YOLOv8 are not ported and raise."""
+is downloaded."""
 
 from typing import Dict, Optional
 
@@ -14,9 +14,6 @@ _YOLOX_CFG = {
     "yolox-l": dict(depth=1.0, width=1.0),
     "yolox-x": dict(depth=1.33, width=1.25),
 }
-
-_NOT_PORTED = ("yolov7", "yolov8")
-
 
 def create_yolox_model(name: str = "yolox-s", num_classes: int = 80,
                        ckpt_path: Optional[str] = None, device=None):
@@ -34,18 +31,20 @@ def create_yolox_model(name: str = "yolox-s", num_classes: int = 80,
 
 def create_model(name: str, **kw):
     """Every family of the port by name: yolox-*, tscd, yolov, yolov++ (or
-    yolov-plus), yolov-online; keyword arguments go to the model."""
+    yolov-plus), yolov-online, yolov7 (`arch` tiny, L or X), yolov8
+    (`depth`, `width`); keyword arguments go to the model, `device` among
+    them (the card by default)."""
     name = name.lower().replace("_", "-")
     if name.startswith("yolox"):
         return create_yolox_model(name, **kw)[0]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"{name}: the {name.upper()} family is not ported "
-                                  "(ROADMAP queue 1 item 7)")
+    from .elan import YOLOv7
     from .tscd import TSCD
     from .yolov import YOLOV, YOLOVOnline, YOLOVPlus
+    from .yolov8 import YOLOv8
     registry: Dict[str, type] = {
         "tscd": TSCD, "yolov": YOLOV, "yolov++": YOLOVPlus,
         "yolov-plus": YOLOVPlus, "yolov-online": YOLOVOnline,
+        "yolov7": YOLOv7, "yolov8": YOLOv8,
     }
     if name not in registry:
         raise KeyError(f"unknown model {name!r}: yolox-*, {', '.join(registry)}")

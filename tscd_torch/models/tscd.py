@@ -13,6 +13,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.postprocess import (Detections, postprocess_best_class,
                                postprocess_refined)
+from .blocks import batch_stats
 from .matching import MatcherState
 from .pafpn_variants import build_pafpn_backbone
 from .swin import WindowAttention
@@ -65,9 +66,7 @@ class WindowModel(nn.Module):
         with torch.set_grad_enabled(grad):
             out = head_call(fpn_outs, stats)
         if train:
-            out["batch_stats"] = {
-                f"{name}.running_{k}": v for name, bn in self.named_modules()
-                if bn in stats for k, v in zip(("mean", "var"), stats[bn])}
+            out["batch_stats"] = batch_stats(self, stats)
         return out
 
 

@@ -26,30 +26,35 @@ class YOLOXHead(nn.Module):
     """JAX's YOLOXHead (yolo_head.py:29), the reference's state_dict names:
     `stems.k`, `cls_convs.k.i`, `reg_convs.k.i`, `{cls,reg,obj}_preds.k`
     (flax `stem_k`, `cls_conv_k_i`, ...). The cls and obj prediction biases
-    start at the prior -log((1 - p) / p), as flax's bias_init sets them."""
+    start at the prior -log((1 - p) / p), as flax's bias_init sets them.
+    `dtype` is the compute dtype (`blocks`), as JAX's field (YOLOv7 runs
+    the head at bf16); the maps come in in it."""
 
     def __init__(self, num_classes: int, width: float = 1.0,
                  strides: Sequence[int] = (8, 16, 32),
                  in_channels: Sequence[int] = (256, 512, 1024), act: str = "silu",
-                 depthwise: bool = False, prior_prob: float = 1e-2):
+                 depthwise: bool = False, prior_prob: float = 1e-2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.strides = tuple(strides)
         hidden = int(256 * width)
         Conv = conv_cls(depthwise)
 
+        kw = dict(act=act, dtype=dtype)
+
         def tower():
-            return nn.Sequential(Conv(hidden, hidden, 3, 1, act=act),
-                                 Conv(hidden, hidden, 3, 1, act=act))
+            return nn.Sequential(Conv(hidden, hidden, 3, 1, **kw),
+                                 Conv(hidden, hidden, 3, 1, **kw))
 
         n = len(in_channels)
-        self.stems = nn.ModuleList(BaseConv(int(c * width), hidden, 1, 1, act=act)
+        self.stems = nn.ModuleList(BaseConv(int(c * width), hidden, 1, 1, **kw)
                                    for c in in_channels)
         self.cls_convs = nn.ModuleList(tower() for _ in range(n))
         self.reg_convs = nn.ModuleList(tower() for _ in range(n))
-        self.cls_preds = nn.ModuleList(nn.Conv2d(hidden, num_classes, 1) for _ in range(n))
-        self.reg_preds = nn.ModuleList(nn.Conv2d(hidden, 4, 1) for _ in range(n))
-        self.obj_preds = nn.ModuleList(nn.Conv2d(hidden, 1, 1) for _ in range(n))
+        pred = lambda c: nn.ModuleList(nn.Conv2d(hidden, c, 1, dtype=dtype)  # noqa: E731
+                                       for _ in range(n))
+        self.cls_preds, self.reg_preds, self.obj_preds = pred(num_classes), pred(4), pred(1)
         prior = -math.log((1 - prior_prob) / prior_prob)
         with torch.no_grad():
             for m in (*self.cls_preds, *self.obj_preds):

@@ -1,6 +1,8 @@
 """Box geometry (counterpart of tscd_tpu/ops/boxes.py), batched over
 any leading dimensions."""
 
+import math
+
 import torch
 
 
@@ -48,3 +50,25 @@ def iou_loss_cxcywh(pred: torch.Tensor, target: torch.Tensor,
     area_i = wh[..., 0] * wh[..., 1] * en
     iou = area_i / (area_p + area_g - area_i + eps)
     return 1.0 - iou ** 2
+
+
+def ciou_xyxy(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise Complete-IoU of aligned xyxy boxes (..., 4) -> (...): IoU
+    - centre distance^2 / enclosing diagonal^2 - v alpha (the DFL head's
+    box loss, tscd_tpu/ops/boxes.py:62), alpha detached as JAX's
+    stop_gradient."""
+    px1, py1, px2, py2 = pred.unbind(-1)
+    tx1, ty1, tx2, ty2 = target.unbind(-1)
+    pw, ph = px2 - px1, py2 - py1
+    tw, th = tx2 - tx1, ty2 - ty1
+    inter = ((torch.minimum(px2, tx2) - torch.maximum(px1, tx1)).clamp(min=0.0)
+             * (torch.minimum(py2, ty2) - torch.maximum(py1, ty1)).clamp(min=0.0))
+    iou = inter / (pw * ph + tw * th - inter + eps)
+    cw = torch.maximum(px2, tx2) - torch.minimum(px1, tx1)
+    ch = torch.maximum(py2, ty2) - torch.minimum(py1, ty1)
+    c2 = cw * cw + ch * ch + eps
+    rho2 = ((px1 + px2 - tx1 - tx2) ** 2 + (py1 + py2 - ty1 - ty2) ** 2) / 4.0
+    v = (4.0 / math.pi ** 2) * (torch.atan(tw / th.clamp(min=eps))
+                                - torch.atan(pw / ph.clamp(min=eps))) ** 2
+    alpha = (v / (v - iou + (1.0 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)

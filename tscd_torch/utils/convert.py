@@ -41,6 +41,18 @@ those. `flax_from_state_dict(..., frame_size=)` cuts each table to the
 window JAX builds at that frame size. The buffers JAX recomputes
 (`relative_position_index`, `attn_mask`) have no flax path: a reference
 `.pth` loads with them as skipped keys (`tools.tscd_eval.load_weights`).
+
+The YOLOv7 ELAN modules keep the reference's names too (`ELANNet.py`:
+`stem.{i}` or the Focus `stem.conv`, `blocks.{i}.{j}`, `bottlenecks.{i}`,
+`rbr_dense.0/1`, `rbr_identity`, `repconvs.{i}`), mapped as JAX's reader
+maps them (this module's copy of tscd_tpu/utils/convert.py:293-373;
+`elan_layout` finds the network and the neck, and whether the network is
+tiny's, whose later stages start with a paramless max-pool). YOLOv8's
+names are JAX's own and go through the rules above unchanged. The DETR
+decoder's attention projections are nn.Linear in the port and flax
+DenseGeneral kernels (dim, heads, head_dim) and (heads, head_dim, dim) in
+JAX: `state_dict_from_flax` reshapes them by the template's shapes,
+`flax_from_state_dict` needs the head count (`heads`).
 """
 
 import re
@@ -111,6 +123,8 @@ def _translate_head(parts):
 
 
 _QKV_NAMES = ("q_cls_local", "kv_cls", "q_reg_local", "kv_reg")
+# flax MultiHeadDotProductAttention's projections (the DETR decoder's)
+_MHA_PROJ = ("query", "key", "value", "out")
 
 
 def _translate_video(parts):
@@ -140,7 +154,8 @@ def _translate_video(parts):
             else:
                 out.append(f"layer_{j}")
                 i += 2
-        elif p in ("multihead_attn", "self_attn"):
+        elif p in ("multihead_attn", "self_attn") and not (
+                i + 1 < len(parts) and parts[i + 1] in _MHA_PROJ):
             out.append("attn")
             i += 1
         elif p == "transBlocks":
@@ -239,7 +254,55 @@ def _resnet_parts(p: List[str]) -> Optional[List[str]]:
     return base + rest
 
 
-BACKBONE_PARTS = {"swin": _swin_parts, "focalnet": _focalnet_parts, "resnet": _resnet_parts}
+def _elan_inner(rest: List[str]) -> List[str]:
+    """An ELAN module's inner names: `bottlenecks.{i}` -> bottleneck_{i};
+    RepConv's Sequential(conv, bn) -> the conv on its name, the BN on
+    <name>_bn; `rbr_identity` -> rbr_identity_bn; the paramless pools go."""
+    out, i = [], 0
+    while i < len(rest):
+        r = rest[i]
+        if r == "bottlenecks":
+            out.append(f"bottleneck_{int(rest[i + 1])}")
+            i += 2
+        elif r in ("rbr_dense", "rbr_1x1"):
+            out.append(r if rest[i + 1] == "0" else f"{r}_bn")
+            i += 2
+        elif r == "rbr_identity":
+            out.append("rbr_identity_bn")
+            i += 1
+        elif r in ("maxpool", "mp"):
+            i += 1
+        else:
+            out.append(r)
+            i += 1
+    return out
+
+
+def _elan_parts(tiny: bool):
+    """An ELANNet's or ELAN neck's name parts -> JAX's module path (None
+    for a paramless max-pool): `stem.{i}` -> stem_{i}, the Focus
+    `stem.conv` -> stem/conv, `blocks.{i}.{j}` -> stage{i}_down / _elan /
+    _spp (tiny: no stage-0 downsample, later stages' j = 0 a max-pool),
+    `repconvs.{i}` -> repconv_{i}, the neck's names as they are."""
+    def parts(p: List[str]) -> Optional[List[str]]:
+        if p[0] == "stem":
+            if p[1] == "conv":
+                return ["stem", "conv"] + _elan_inner(p[2:])
+            return [f"stem_{int(p[1])}"] + _elan_inner(p[2:])
+        if p[0] == "blocks":
+            i, j = int(p[1]), int(p[2])
+            kinds = ((["elan"] if i == 0 else ["mp", "elan"]) if tiny else ["down", "elan"])
+            kind = (kinds + ["spp"])[j]
+            return None if kind == "mp" else [f"stage{i}_{kind}"] + _elan_inner(p[3:])
+        if p[0] == "repconvs":
+            return [f"repconv_{int(p[1])}"] + _elan_inner(p[2:])
+        return [p[0]] + _elan_inner(p[1:])
+    return parts
+
+
+ELAN_ARCHS = ("tiny", "L", "X", "W6", "E6", "D6", "E6E")
+BACKBONE_PARTS = {"swin": _swin_parts, "focalnet": _focalnet_parts, "resnet": _resnet_parts,
+                  **{f"elan-{a}": _elan_parts(a == "tiny") for a in ELAN_ARCHS}}
 # a reference Swin's buffers that JAX recomputes (as the port does)
 RECOMPUTED = ("relative_position_index", "attn_mask")
 _NETWORKS = ((re.compile(r"^(.*?)layers\.\d+\.blocks\.\d+\.attn\."), "swin"),
@@ -260,9 +323,27 @@ def backbone_layout(names: Iterable[str]) -> Optional[Tuple[str, str]]:
     return None
 
 
+def elan_layout(names: Iterable[str]) -> Optional[Tuple[Tuple[str, ...], bool]]:
+    """(the name prefixes of an ELAN network and neck, whether the network
+    is tiny's) where the names hold an ELANNet (`stem.` and `blocks.` at
+    the top or under a `backbone.`) or an ELAN neck (`lateral_conv1.` and
+    `route_conv1.`); else None."""
+    names = list(names)
+    starts = lambda pre: any(n.startswith(pre) for n in names)   # noqa: E731
+    nets = {n[:n.index("blocks.")] for n in names if "blocks." in n}
+    nets = [p for p in nets if (p == "" or p.endswith("backbone.")) and starts(p + "stem.")
+            and not starts(p + "layers.")]
+    necks = {n[:n.index("route_conv1.")] for n in names if "route_conv1." in n}
+    necks = [p for p in necks if starts(p + "lateral_conv1.")]
+    if not nets and not necks:
+        return None
+    return tuple(nets + necks), any(starts(p + "blocks.0.0.conv1.") for p in nets)
+
+
 def backbone_to_flax(state: Mapping[str, Any], family: str) -> Dict[str, Dict]:
     """A reference network's state_dict (tensors or arrays; e.g. an official
-    Swin checkpoint) -> {'params', 'batch_stats'} of numpy arrays in JAX's
+    Swin checkpoint, or an ELANNet's or ELAN neck's with family
+    `elan-<arch>`) -> {'params', 'batch_stats'} of numpy arrays in JAX's
     layout for its tscd_tpu module; names without a flax path (the buffers
     JAX recomputes, a classifier) are left out."""
     return flax_from_state_dict({n: torch.as_tensor(np.asarray(t)) for n, t in state.items()
@@ -295,15 +376,25 @@ def _jax_table_side(name: str, rows: int, frame_size: Tuple[int, int]) -> int:
 
 
 def flax_module_path(name: str, towers: Optional[str] = None,
-                     backbone: Optional[Tuple[str, str]] = None) -> Optional[Tuple[str, ...]]:
+                     backbone: Optional[Tuple[str, str]] = None,
+                     elan: Optional[Tuple[Tuple[str, ...], bool]] = None
+                     ) -> Optional[Tuple[str, ...]]:
     """Port / reference parameter name without its leaf -> flax module
     path, e.g. 'head.agg.mca.kv_cls.weight' -> ('head', 'agg', 'mca',
     'attn', 'kv_cls'); with `towers` the prefix of a YOLOV family head
     (`yolov_towers`), its stems, towers and preds go under 'towers'; with
     `backbone` (`backbone_layout`) the network's names map by its family's
-    rules and the neck's go under 'neck'. None for a name with no flax
-    path (a buffer JAX recomputes)."""
+    rules and the neck's go under 'neck'; with `elan` (`elan_layout`) the
+    ELAN network's and neck's names map by JAX's ELAN rules. None for a
+    name with no flax path (a buffer JAX recomputes, a paramless pool)."""
     parts = name.split(".")[:-1]
+    if elan is not None:
+        prefixes, tiny = elan
+        for pre in prefixes:
+            if name.startswith(pre):
+                k = len(pre.split(".")) - 1
+                sub = _elan_parts(tiny)(parts[k:])
+                return None if sub is None else tuple(parts[:k]) + tuple(sub)
     if backbone is not None:
         net, family = backbone
         k = len(net.split(".")) - 1
@@ -335,15 +426,21 @@ _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_var": ("batch_stats", "var")}
 
 
+def _is_bn(path: Optional[Tuple[str, ...]]) -> bool:
+    """A BatchNorm's flax module path: `bn`, or RepConv's `<branch>_bn`."""
+    return bool(path) and (path[-1] == "bn" or path[-1].endswith("_bn"))
+
+
 def flax_param_path(name: str, ndim: int, towers: Optional[str] = None,
-                    backbone: Optional[Tuple[str, str]] = None) -> Tuple[str, ...]:
+                    backbone: Optional[Tuple[str, str]] = None,
+                    elan: Optional[Tuple[Tuple[str, ...], bool]] = None) -> Tuple[str, ...]:
     """A port parameter's flax `params` path, leaf included: the module
     path of `flax_module_path` and the leaf flax names it by (`kernel` for
     a conv or Linear weight of `ndim` 4 or 2, `scale` for a BatchNorm or
     LayerNorm weight)."""
-    path = flax_module_path(name, towers, backbone)
+    path = flax_module_path(name, towers, backbone, elan)
     leaf = name.split(".")[-1]
-    if path and path[-1] == "bn":
+    if _is_bn(path):
         return path + (_BN_LEAVES[leaf][1],)
     if leaf == "weight":
         return path + (("kernel",) if ndim in (2, 4) else ("scale",))
@@ -370,7 +467,7 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
     `strict` False a key the tree lacks, or holds at another shape, is left
     out (for a shape-tolerant load) instead of raising."""
     coll = {c: flatten_tree(variables.get(c, {})) for c in ("params", "batch_stats")}
-    towers, bb = yolov_towers(template), backbone_layout(template)
+    towers, bb, elan = yolov_towers(template), backbone_layout(template), elan_layout(template)
     out: Dict[str, torch.Tensor] = {}
     shrunk: List[str] = []
     for name, ref in template.items():
@@ -378,8 +475,8 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
         if leaf == "num_batches_tracked":
             out[name] = ref.clone()
             continue
-        path = flax_module_path(name, towers, bb)
-        if path and path[-1] == "bn":
+        path = flax_module_path(name, towers, bb, elan)
+        if _is_bn(path):
             c, key = _BN_LEAVES[leaf]
         elif leaf == "weight":
             c, key = "params", ("kernel" if ref.dim() in (2, 4) else "scale")
@@ -393,7 +490,9 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
         elif leaf == "weight" and ref.dim() == 4:       # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "weight" and ref.dim() == 2:       # (in,out) -> (out,in)
-            arr = arr.T
+            arr = _mha_kernel(arr, path).T
+        elif leaf == "bias" and arr.ndim == 2 and ref.dim() == 1:   # (heads, head_dim)
+            arr = arr.reshape(-1)
         elif leaf == "relative_position_bias_table" and arr.shape != tuple(ref.shape):
             k = _side(arr.shape[0])                             # a shrunk window's table
             full = ref.detach().cpu().float().numpy().copy()
@@ -413,8 +512,18 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
     return out
 
 
+def _mha_kernel(arr: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    """A flax attention projection's kernel as a 2-d (in, out) matrix:
+    query/key/value (dim, heads, head_dim) -> (dim, heads head_dim), out
+    (heads, head_dim, dim) -> (heads head_dim, dim); others as they are."""
+    if arr.ndim != 3:
+        return arr
+    return arr.reshape(-1, arr.shape[-1]) if path[-1] == "out" else arr.reshape(arr.shape[0], -1)
+
+
 def flax_from_state_dict(state: Mapping[str, torch.Tensor],
-                         frame_size: Optional[Tuple[int, int]] = None) -> Dict[str, Dict]:
+                         frame_size: Optional[Tuple[int, int]] = None,
+                         heads: Optional[int] = None) -> Dict[str, Dict]:
     """The port's state_dict -> a JAX {'params', 'batch_stats'} tree of
     numpy arrays in flax's layout (the inverse of `state_dict_from_flax`;
     num_batches_tracked has no flax counterpart and is left out). Each
@@ -422,20 +531,22 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor],
     `utils.flax_msgpack` writes as flax's bfloat16 ndarray. With
     `frame_size` (H, W), each Swin table is cut to the window JAX's tree
     built at that frame size holds (`_jax_table_side`; the whole table at
-    224 px and more)."""
+    224 px and more). The DETR decoder's attention projections (`...attn.
+    query.weight`) go to flax's DenseGeneral layout, which takes their
+    head count `heads`."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    towers, bb = yolov_towers(state), backbone_layout(state)
+    towers, bb, elan = yolov_towers(state), backbone_layout(state), elan_layout(state)
     for name, t in state.items():
         leaf = name.split(".")[-1]
         if leaf == "num_batches_tracked":
             continue
-        path = flax_module_path(name, towers, bb)
+        path = flax_module_path(name, towers, bb, elan)
         if path is None:
             continue
-        if path and path[-1] == "bn":
+        if _is_bn(path):
             c, key = _BN_LEAVES[leaf]
         else:
-            c, key = "params", flax_param_path(name, t.dim(), towers, bb)[-1]
+            c, key = "params", flax_param_path(name, t.dim(), towers, bb, elan)[-1]
         if leaf == "relative_position_bias_table" and frame_size is not None:
             t = t[torch.from_numpy(_table_slice(_side(t.shape[0]), _jax_table_side(
                 name, t.shape[0], frame_size)).reshape(-1))]
@@ -446,6 +557,13 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor],
             t = t.permute(2, 3, 1, 0)
         elif leaf == "weight" and t.dim() == 2:         # (out,in) -> (in,out)
             t = t.t()
+        if len(path) > 1 and path[-2] in ("self_attn", "cross_attn") and path[-1] in _MHA_PROJ:
+            if heads is None:
+                raise ValueError(f"{name}: an attention projection needs `heads`")
+            if path[-1] == "out":
+                t = t.reshape(heads, -1, t.shape[-1]) if leaf == "weight" else t
+            else:
+                t = t.reshape(t.shape[0], heads, -1) if leaf == "weight" else t.reshape(heads, -1)
         t = t.contiguous()
         node = out[c]
         for p in path:
