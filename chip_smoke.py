@@ -276,6 +276,24 @@ Phases, each of which raises on failure (so the run exits non-zero):
              col4row equal to the plain solver's); DeformConv2d, CoordConv
              and DropBlock on 8 x 256 x 80 x 80; (c) the kernels at these
              shapes (rows `ZOO_ROWS`).
+ 18. int8    the int8 (w8a8) serving mode (csrc/int8_conv.cu): (a) at every
+             distinct shape of TSCD-Large's 133 quantized convs (2 frames)
+             and at ragged ones (M and N off the tiles, C_in 48, k 3 with
+             pad 0), the abs max, the quantized tensors and the packed
+             weights equal to their plain versions, the conv's int32 sums
+             equal, its dequantized output within 1 ulp of fp32 and bf16;
+             (b) the shape classes with the most operations at 32 frames:
+             the conv's device and call time, bound (1979 TOP/s), plain
+             version, torch._int_mm for the 1x1 ones, cuDNN's bf16 conv,
+             the quantize and abs-max passes; (c) TSCD-Large's window at
+             fp32 and at bf16, fp, dynamic and static (calibrated on the
+             window's 32 frames in chunks of 8): window ms and frames/s of
+             CUDA graph replays, the int8 kernels' launches in a traced
+             replay (126 convs dynamic, 133 static; no wrapper launch) and
+             in an eager window (the wrappers' counts), raw outputs against
+             fp (max, p99.9); (d) the selftest window, card against the
+             CPU port, dynamic and static. The kernels line gets the
+             `int8_conv` row.
 The kernels phase also checks the attention's streaming route (q > 128)
 against its plain version: masks (all keys but one invalid, all
 invalid), bit-identical calls, q = k = 960 at d 64 (fp32 and bf16 q/k/v,
@@ -308,6 +326,7 @@ and at bf16 and names the op behind the first non-finite gradient.
 """
 
 import contextlib
+import itertools
 import json
 import os
 import random
@@ -7155,12 +7174,501 @@ def zoo_phase(torch, counters):
         "nms": {"yolov7_L_fp32_bf16": nms}}}
 
 
+# -- int8 (w8a8) serving: the hand int8 conv (csrc/int8_conv.cu) -------------
+
+INT8_ROW = {"int8_conv": ("tscd_torch/csrc/int8_conv.cu",
+                          "no Pallas kernel: the XLA int8 conv of "
+                          "tscd_tpu/models/blocks.py:347-353")}
+H100_INT8_OPS = 1979e12         # int8 tensor cores, dense, H100 SXM data sheet
+# each int8 kernel as a device trace names it
+INT8_TRACE = {"conv": "int8_conv_mma", "quantize": "int8_quantize", "absmax": "int8_absmax"}
+# their launches in a TSCD-Large window (126 quantized convs with dynamic
+# scales, 133 with static ones: dark2's C_in 64 convs join at C_in >= 32)
+INT8_WINDOW = {"dynamic": {"conv": 126, "quantize": 126, "absmax": 126},
+               "static": {"conv": 133, "quantize": 133, "absmax": 0}}
+INT8_CHUNK = 8                  # calibration frames a chunk (bench.py:377-385)
+INT8_TIMED_CLASSES = 6          # shape classes timed, by MACs a window (and a 1x1 one)
+INT8_NUDGES = 8                 # the CPU's own spread: draws of frames an ulp off
+INT8_SPREAD_CAP = 7.0           # the spread's mean bound over the 0.1 rule, at most
+INT8_BF16_SPREAD = 2.0          # bf16 window's p99.9 |int8 - fp| over the fp32 window's
+INT8_COLD_BYTES = 128 * 2 ** 20   # the timed passes' inputs, all copies: over the 50 MB L2
+INT8_EXTRA_SHAPES = (           # ragged cases: F, C_in, H, W, C_out, k, stride, pad
+    (3, 48, 17, 13, 72, 3, 1, 1), (2, 64, 20, 20, 40, 3, 1, 0), (1, 96, 7, 9, 136, 3, 2, 1))
+
+
+def int8_counters():
+    """The int8 wrappers, whose `.launches` count their kernels."""
+    from tscd_torch.ops.kernels import int8_conv as q8
+    return {"int8_conv": q8.int8_conv, "quantize_int8_activation": q8.quantize_int8_activation,
+            "abs_max": q8.abs_max, "pack_int8_weight": q8.pack_int8_weight}
+
+
+def int8_trace_counts(prof):
+    """Launches of each int8 kernel in a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    n = dict.fromkeys(INT8_TRACE, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for k, name in INT8_TRACE.items():
+                if name in e.key:
+                    n[k] += e.count
+    return n
+
+
+def int8_window_shapes(torch, model, x, te, L, G):
+    """Each int8 conv of one window of `model` in the current int8 mode as
+    (F, Cp, H, W, C_out, k, stride, pad), in call order (eager)."""
+    from tscd_torch.ops.kernels import int8_conv as q8
+    shapes, conv = [], q8.int8_conv
+
+    def record(xq, wq, *a, stride, pad, **kw):
+        shapes.append((xq.shape[0], xq.shape[3], xq.shape[1], xq.shape[2], wq.shape[0],
+                       wq.shape[1], stride, pad))
+        return conv(xq, wq, *a, stride=stride, pad=pad, **kw)
+    record.launches = 0     # the wrapper counts on the name it is called by
+    q8.int8_conv = record
+    try:
+        with torch.no_grad():
+            model(x, te, L, G)
+    finally:
+        q8.int8_conv = conv
+    return shapes
+
+
+def int8_macs(shape):
+    """Multiply-adds of one int8 conv call (F, Cp, H, W, C_out, k, stride, pad)."""
+    from tscd_torch.ops.kernels.int8_conv import out_size
+    F, C, H, W, N, k, stride, pad = shape
+    return F * out_size(H, k, stride, pad) * out_size(W, k, stride, pad) * N * k * k * C
+
+
+def int8_inputs(torch, dev, rng, F, C, H, W, N, k, dtype):
+    import numpy as np
+    x = torch.as_tensor(rng.normal(0, 2, (F, C, H, W)).astype(np.float32), device=dev).to(dtype)
+    w = torch.as_tensor(rng.normal(0, 1, (N, C, k, k)).astype(np.float32), device=dev)
+    s_w = torch.clamp_min(w.abs().amax((1, 2, 3)), 1e-8) / 127.0
+    b = torch.as_tensor(rng.normal(0, 0.5, N).astype(np.float32), device=dev)
+    return x, w, s_w, b
+
+
+def int8_ulps(torch, got, want):
+    """max |got - want| in ulps of want's dtype at |want|."""
+    import numpy as np
+    ulp = np.spacing(np.abs(want.float().cpu().numpy())).astype(np.float32)
+    if want.dtype == torch.bfloat16:
+        ulp = ulp * 2.0 ** 16
+    return float((np.abs(got.float().cpu().numpy() - want.float().cpu().numpy()) / ulp).max())
+
+
+def int8_passes_equal(torch, x, amax=None):
+    """The abs max and the quantize pass (dynamic and per-channel scales) of
+    x (fp32 or bf16) against their plain versions: {check: equal}. The
+    dynamic pass quantizes by `amax` where given, else by its own."""
+    from tscd_torch.ops.kernels import int8_conv as q8
+    tag = "" if x.dtype == torch.float32 else "_" + str(x.dtype).split(".")[-1]
+    got = q8.abs_max(x)
+    amax = got if amax is None else amax
+    chan = q8.div127(x.float().abs().amax((0, 2, 3)))
+    return {"abs_max" + tag: torch.equal(got, x.abs().amax().float().reshape(1)),
+            "quantize_dynamic" + tag: torch.equal(q8.quantize_int8_activation(x, amax),
+                                                  q8.quantize_reference(x, amax, "dynamic")),
+            "quantize_channel" + tag: torch.equal(
+                q8.quantize_int8_activation(x, chan, "channel"),
+                q8.quantize_reference(x, chan, "channel"))}
+
+
+def int8_check_shape(torch, dev, rng, shape):
+    """One shape's kernels against their plain versions on the card: the
+    abs max and the quantized tensor (dynamic and per-channel scales), of
+    fp32 and of bf16 input, and the packed weights equal; the conv's int32
+    sums equal; the dequantized, activated output within one ulp of the
+    output dtype (fp32 and bf16)."""
+    from tscd_torch.ops.kernels import int8_conv as q8
+    F, C, H, W, N, k, stride, pad = shape
+    x, w, s_w, b = int8_inputs(torch, dev, rng, F, C, H, W, N, k, torch.float32)
+    amax = q8.abs_max(x)
+    xq = q8.quantize_int8_activation(x, amax)
+    wq = q8.pack_int8_weight(w, s_w)
+    eq = {**int8_passes_equal(torch, x), **int8_passes_equal(torch, x.to(torch.bfloat16)),
+          "pack": torch.equal(wq, q8.pack_reference(w, s_w))}
+    acc = q8.int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act="silu",
+                       out_dtype=torch.float32, amax=amax, out_int32=True)
+    eq["sums"] = torch.equal(acc, q8.int8_conv_reference(xq, wq, stride, pad))
+    ulps, err = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        got = q8.int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act="silu", out_dtype=dtype,
+                           amax=amax)
+        want = q8.epilogue_reference(acc, q8.dynamic_scale(amax), s_w, b, "silu", dtype)
+        ulps[str(dtype).split(".")[-1]] = int8_ulps(torch, got, want)
+        if dtype == torch.float32:
+            err = float((got - want).abs().max())
+    ok = all(eq.values()) and all(u <= 1 for u in ulps.values())
+    return {"shape": list(shape), "equal": eq, "ulps": ulps, "max_abs_err": err, "pass": ok}
+
+
+def int8_timed_shape(torch, dev, rng, shape, per_window):
+    """One shape class at the window's 32 frames: the conv's device time
+    (`ms`) and a call's (`call_ms`), its bound, its plain version's time,
+    torch._int_mm's on the same int8 operands for a 1x1 conv (no one
+    PyTorch call computes the 3x3 one), cuDNN's bf16 conv at the shape,
+    and the quantize and abs-max passes at their bytes bounds. At this
+    batch too the kernels are held to their plain versions as
+    `int8_check_shape` holds them (the passes on fp32 and bf16 input, the
+    conv's sums and its fp32 output): `pass`."""
+    import torch.nn.functional as Fn
+
+    from tscd_torch.ops.kernels import int8_conv as q8
+    F, C, H, W, N, k, stride, pad = shape
+    x, w, s_w, b = int8_inputs(torch, dev, rng, F, C, H, W, N, k, torch.float32)
+    amax = q8.abs_max(x)
+    xq = q8.quantize_int8_activation(x, amax)
+    wq = q8.pack_int8_weight(w, s_w)
+    Ho, Wo = q8.out_size(H, k, stride, pad), q8.out_size(W, k, stride, pad)
+    M = F * Ho * Wo
+    run = lambda: q8.int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act="silu",   # noqa: E731
+                               out_dtype=torch.float32, amax=amax)
+    acc = q8.int8_conv_reference(xq, wq, stride, pad)
+    eq = {**int8_passes_equal(torch, x), **int8_passes_equal(torch, x.to(torch.bfloat16)),
+          "sums": torch.equal(q8.int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act="silu",
+                                           out_dtype=torch.float32, amax=amax, out_int32=True),
+                              acc)}
+    ulps = int8_ulps(torch, run(), q8.epilogue_reference(acc, q8.dynamic_scale(amax), s_w, b,
+                                                         "silu", torch.float32))
+    del acc
+    checked = {"equal": eq, "ulps_fp32": ulps, "pass": all(eq.values()) and ulps <= 1}
+    nbytes = xq.numel() + wq.numel() + 4 * M * N + 8 * N + 4
+    b_ms, b_by = bound(nbytes, (2.0 * M * N * k * k * C, H100_INT8_OPS))
+    rec = dict(shape={"F": F, "C_in": C, "H": H, "W": W, "C_out": N, "k": k, "stride": stride,
+                      "pad": pad}, launches_a_window=per_window,
+               **timed(torch, run, 20, INT8_TRACE["conv"]), bound_ms=b_ms, bound_by=b_by,
+               tera_ops=2.0 * M * N * k * k * C / 1e12,
+               plain_ms=cuda_ms(torch, lambda: q8.epilogue_reference(
+                   q8.int8_conv_reference(xq, wq, stride, pad), q8.dynamic_scale(amax), s_w, b,
+                   "silu", torch.float32), 2, 1))
+    rec.update(checked)
+    rec["library_ms"] = None
+    rec["library"] = "none: no one PyTorch call computes a k x k int8 conv"
+    if k == 1 and stride == 1:
+        a, bm = xq.view(M, -1), wq.view(N, -1).t()
+        rec["library"] = "torch._int_mm (M, C_in) x (C_in, C_out) int8 -> int32"
+        try:        # a yardstick only: the port never calls it
+            rec["library_ms"] = cuda_ms(torch, lambda: torch._int_mm(a, bm), 20)
+        except RuntimeError as e:
+            rec["library"] += f" refused the operands: {str(e)[:200]}"
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    rec["cudnn_bf16_ms"] = cuda_ms(torch, lambda: Fn.conv2d(xb, wb, stride=stride, padding=pad),
+                                   20)
+    q_bytes = 4 * x.numel() + xq.numel()
+    qb_ms, _ = bound(q_bytes)
+    ab_ms, _ = bound(4 * x.numel())
+    # the passes read x from device memory, as their bound counts: calls
+    # take turns over copies of x that together exceed the 50 MB L2
+    copies = [x] + [x.clone() for _ in range(-(-INT8_COLD_BYTES // (4 * x.numel())) - 1)]
+    turn = itertools.cycle(copies)
+    rec["quantize"] = dict(**timed(torch, lambda: q8.quantize_int8_activation(next(turn), amax),
+                                   20, INT8_TRACE["quantize"]),
+                           bound_ms=qb_ms, bound_by="bytes", copies=len(copies),
+                           plain_ms=cuda_ms(torch, lambda: q8.quantize_reference(
+                               next(turn), amax, "dynamic"), 5),
+                           library_ms=None, library="none: torch.quantize_per_tensor clips to "
+                           "-128 and keeps NCHW")
+    rec["abs_max"] = dict(**timed(torch, lambda: q8.abs_max(next(turn)), 20,
+                                  INT8_TRACE["absmax"]),
+                          bound_ms=ab_ms, bound_by="bytes", copies=len(copies),
+                          plain_ms=cuda_ms(torch, lambda: next(turn).abs().amax(), 20),
+                          library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
+                              next(turn), float("inf")), 20),
+                          library="torch.linalg.vector_norm(x, inf)")
+    del copies, turn
+    del x, w, xq, wq
+    return rec
+
+
+def int8_spread_rule(got, want, fp, spread=()):
+    """The rule that holds an int8 output `got` to a reference int8 output
+    `want` of the same model (here and in tests/test_torch_port_int8.py):
+    mean |got - want| <= 0.1 x mean |want - fp| and max |got - want| <=
+    max |want - fp|, or, where larger, the farthest of `spread` (the
+    reference's own int8 outputs with its inputs or scales an ulp off) from
+    `want`. The spread widens the mean bound to INT8_SPREAD_CAP x the 0.1
+    rule at most, under mean |want - fp|, so that a route that does not
+    quantize (got = fp) fails. Returns (distances, bounds, pass)."""
+    import numpy as np
+    d = np.abs(got - want)
+    jd = np.abs(want - fp)
+    rule = 0.1 * float(jd.mean())
+    mean_b = min(max([rule] + [float(np.abs(s - want).mean()) for s in spread]),
+                 INT8_SPREAD_CAP * rule)
+    max_b = max([float(jd.max())] + [float(np.abs(s - want).max()) for s in spread])
+    dist = {"mean": float(d.mean()), "max": float(d.max())}
+    return dist, {"mean": mean_b, "max": max_b}, (
+        rule > 0 and dist["mean"] <= mean_b and dist["max"] <= max_b)
+
+
+def int8_small_part(torch):
+    """(d) The selftest TSCD's int8 window, dynamic and static (scales
+    calibrated on the CPU, used by both), on the card against the CPU
+    port's int8 window (plain versions) by `int8_spread_rule`, the CPU's
+    own spread taken over INT8_NUDGES draws of the frames an ulp off."""
+    import numpy as np
+
+    from tscd_torch.exp.tscd_large import selftest_exp
+    from tscd_torch.models.blocks import int8_eval, quantize_int8
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    from tscd_torch.utils.model_utils import prepare_int8, set_int8_scales
+    exp = selftest_exp()
+    L, G = exp.lframe_val, exp.gframe_val
+    cpu = random_init_(exp.get_model(device="cpu"), exp.seed)
+    dev = exp.get_model(device=card(torch))
+    dev.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(61)
+    x = torch.as_tensor(rng.integers(0, 256, (L + G, *exp.test_size, 3)).astype(np.float32))
+    te = torch.as_tensor(get_timing_signal_1d(np.arange(L + G)))
+    nudged = [torch.nextafter(x, torch.where(torch.as_tensor(
+        np.random.default_rng(s).uniform(size=x.shape) < 0.5), 1e9, -1e9).float())
+        for s in range(INT8_NUDGES)]
+    with torch.no_grad():
+        fp = cpu(x, te, L, G)["raw_outputs"].numpy()
+    for m in (cpu, dev):
+        prepare_int8(m)
+    scales = quantize_int8(cpu, x, te, L, G)
+    for m in (cpu, dev):
+        set_int8_scales(m, scales)
+    out = {}
+    for mode in ("dynamic", "static"):
+        with int8_eval(static=mode == "static"), torch.no_grad():
+            want = cpu(x, te, L, G)["raw_outputs"].numpy()
+            spread = [cpu(xn, te, L, G)["raw_outputs"].numpy() for xn in nudged]
+            got = dev(x.to(card(torch)), te.to(card(torch)), L, G)["raw_outputs"].cpu().numpy()
+        dist, bnd, ok = int8_spread_rule(got, want, fp, spread)
+        out[mode] = {"card_vs_cpu": dist, "bound": bnd, "pass": ok}
+    emit({"phase": "int8", "check": "selftest int8 window, card against the CPU port",
+          "raw_outputs": out, "tolerance": "int8_spread_rule, the CPU's own spread over "
+          f"{INT8_NUDGES} draws of the frames an ulp off, at most {INT8_SPREAD_CAP} x the "
+          "0.1 rule",
+          "pass": all(o["pass"] for o in out.values())})
+    if not all(o["pass"] for o in out.values()):
+        raise AssertionError(f"int8 selftest card against CPU: {out}")
+
+
+def int8_window_part(torch, counters, model, exp, x, te, dtype, card_name):
+    """(c) TSCD-Large's window in int8, fp and then dynamic and static
+    scales (calibrated on the window's frames in chunks of INT8_CHUNK,
+    each from a fresh matcher state): the raw outputs against the same
+    model's fp ones (max, p99.9), the wrappers' launches of an eager window
+    (every count set to 0 just before), each mode's window as a CUDA graph
+    (captured at the first dispatch, then 5 replays: window ms by CUDA
+    events, frames/s), and one replay traced (each int8 kernel's launches,
+    INT8_WINDOW's, the wrappers' counts 0, the int8 kernels' device time)."""
+    import numpy as np
+
+    from tscd_torch.core.predict import make_predict_fn
+    from tscd_torch.models.blocks import int8_eval, quantize_int8_scan
+    from tscd_torch.ops.position import get_timing_signal_1d
+    from tscd_torch.utils.model_utils import prepare_int8, set_int8_scales
+    L, G = exp.lframe_val, exp.gframe_val
+    F = L + G
+    every = {**counters, **int8_counters()}
+    with torch.no_grad():
+        raw_fp = model(x, te, L, G)["raw_outputs"].float().cpu().numpy()
+    wins = [(x, torch.as_tensor(get_timing_signal_1d(np.arange(w, w + F)), device=x.device))
+            for w in range(6)]
+    res = {}
+
+    def windows(mode):
+        # a predict function (and its graphs' memory) for each mode
+        pred = make_predict_fn(model, L, G, exp.nmsthre, exp.test_conf)
+        with mode:
+            pred.dispatch(*wins[0], False, None)         # eager, then captured
+            torch.cuda.synchronize()
+            evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                   for _ in wins[1:]]
+            t0 = time.perf_counter()
+            for (xw, tw), (a, b) in zip(wins[1:], evs):
+                a.record()
+                pred.dispatch(xw, tw, False, None)
+                b.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ms = [a.elapsed_time(b) for a, b in evs]
+            for c in every.values():
+                c.launches = 0
+            with traced(torch) as prof:
+                pred.dispatch(*wins[1], False, None)
+                torch.cuda.synchronize()
+            wrapped = {k: c.launches for k, c in every.items()}
+        del pred
+        free_card(torch)
+        from torch.autograd import DeviceType
+        dev_ms = {k: sum(e.self_device_time_total for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and n in e.key) / 1e3
+                  for k, n in INT8_TRACE.items()}
+        dev_ms["all"] = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and LEAD_IN not in e.key) / 1e3
+        return {"window_ms": ms, "median_window_ms": float(np.median(ms)),
+                "frames_per_s": F * len(ms) / wall, "replay_launches": int8_trace_counts(prof),
+                "replay_wrapper_launches": wrapped, "replay_device_ms": dev_ms}
+
+    res["fp"] = windows(contextlib.nullcontext())
+    prepare_int8(model, None if dtype == "fp32" else exp.sd32)
+    chunks = [(x[i:i + INT8_CHUNK], te[i:i + INT8_CHUNK]) for i in range(0, F, INT8_CHUNK)]
+    for mode in ("dynamic", "static"):
+        if mode == "static":
+            t0 = time.perf_counter()
+            scales = quantize_int8_scan(model, chunks, fn=lambda xa, ta: model(
+                xa, ta, L, xa.shape[0] - L))
+            set_int8_scales(model, scales)
+            torch.cuda.synchronize()
+            calib_s = time.perf_counter() - t0
+        ctx = lambda: int8_eval(static=mode == "static")   # noqa: E731
+        for c in every.values():
+            c.launches = 0
+        with ctx(), torch.no_grad():
+            raw = model(x, te, L, G)["raw_outputs"].float().cpu().numpy()
+        torch.cuda.synchronize()
+        eager = {k: c.launches for k, c in every.items()}
+        rec = windows(ctx())
+        rec["eager_wrapper_launches"] = eager
+        rec["raw_delta_vs_fp"] = distance(raw, raw_fp)
+        rec["finite"] = bool(np.isfinite(raw).all())
+        if mode == "static":
+            rec["calibration_s"] = calib_s
+            rec["calibrated_convs"] = len(scales)
+        want = INT8_WINDOW[mode]
+        ok = (rec["finite"] and rec["replay_launches"] == want
+              and not any(rec["replay_wrapper_launches"].values())
+              and eager["int8_conv"] == want["conv"] and eager["abs_max"] == want["absmax"]
+              and eager["quantize_int8_activation"] == want["quantize"])
+        rec["pass"] = ok
+        res[mode] = rec
+        if not ok:
+            emit({"phase": "int8", "dtype": dtype, "mode": mode, **rec})
+            raise AssertionError(f"int8 {dtype} {mode} window: {rec}")
+    emit({"phase": "int8", "config": f"TSCD-Large 1+31 frames 576px P=50, {dtype}",
+          "card": card_name, "windows": res})
+    return res
+
+
+def int8_phase(torch, counters):
+    """int8 (w8a8) serving (tscd_tpu/models/blocks.py's int8_eval) on the
+    card: (a) the int8 kernels against their plain versions at every
+    distinct shape of TSCD-Large's quantized convs at F = 2 and at ragged
+    shapes; (b) the largest shape classes timed at the window's 32 frames;
+    (c) TSCD-Large's window in int8, fp32 and bf16 models, dynamic and
+    static scales (`int8_window_part`); (d) the selftest window card
+    against CPU (`int8_small_part`). Returns the kernels line's int8_conv
+    row and its launches."""
+    import numpy as np
+
+    from tscd_torch.models.blocks import int8_eval, quantize_int8
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.ops.position import get_timing_signal_1d
+    from tscd_torch.utils.model_utils import prepare_int8, set_int8_scales
+    t_phase = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True
+                         ).stdout.strip().splitlines()
+    card_name = smi[0] if smi else "not read"
+    dev = card(torch)
+    exp = large_exp()
+    L, G = exp.lframe_val, exp.gframe_val
+    F, (H, W) = L + G, exp.test_size
+    rng = np.random.default_rng(60)
+    model = random_init_(exp.get_model(device=dev), exp.seed)
+    exp.sd32 = model.state_dict()
+    x = torch.as_tensor(rng.integers(0, 256, (F, H, W, 3), dtype=np.uint8), device=dev)
+    te = torch.as_tensor(get_timing_signal_1d(np.arange(F)), device=dev)
+
+    # the quantized convs' shapes: a 2-frame window of the same model
+    prepare_int8(model)
+    with int8_eval():
+        dyn = int8_window_shapes(torch, model, x[:2], te[:2], 1, 1)
+    set_int8_scales(model, quantize_int8(model, x[:2], te[:2], 1, 1))
+    with int8_eval(static=True):
+        sta = int8_window_shapes(torch, model, x[:2], te[:2], 1, 1)
+    if (len(dyn), len(sta)) != (INT8_WINDOW["dynamic"]["conv"], INT8_WINDOW["static"]["conv"]):
+        raise AssertionError(f"{len(dyn)} / {len(sta)} quantized convs a window")
+    distinct = sorted(set(sta))
+    checks = [int8_check_shape(torch, dev, rng, s) for s in distinct + list(INT8_EXTRA_SHAPES)]
+    bad = [c for c in checks if not c["pass"]]
+    emit({"phase": "int8", "check": "kernels against plain versions", "shapes": len(checks),
+          "distinct_window_shapes": len(distinct), "failed": bad,
+          "max_ulps": {d: max(c["ulps"][d] for c in checks) for d in ("float32", "bfloat16")},
+          "tolerance": "abs max, quantized tensors, packed weights, int32 sums equal; "
+                       "dequantized outputs within 1 ulp of fp32 and of bf16",
+          "pass": not bad})
+    if bad:
+        raise AssertionError(f"int8 kernels differ from their plain versions: {bad[:3]}")
+
+    # (b) the shape classes with the most operations a window, at F = 32
+    macs = {}
+    for s in sta:
+        macs[s] = macs.get(s, 0) + int8_macs(s)
+    ranked = sorted(macs, key=lambda s: -macs[s])
+    top = ranked[:INT8_TIMED_CLASSES]
+    top += [s for s in ranked if s[5] == 1][:1]    # and a 1x1 one, beside torch._int_mm
+    classes = {}
+    for s in top:
+        shape = (F,) + s[1:]
+        classes["x".join(map(str, s[1:]))] = int8_timed_shape(
+            torch, dev, rng, shape, {"dynamic": dyn.count(s), "static": sta.count(s)})
+        free_card(torch)
+    ops = {m: 2.0 * F / 2 * sum(int8_macs(s) for s in calls) for m, calls in
+           (("dynamic", dyn), ("static", sta))}
+    bad = [n for n, c in classes.items() if not c["pass"]]
+    emit({"phase": "int8", "card": card_name, "shape_classes": classes,
+          "window_tera_ops": {m: v / 1e12 for m, v in ops.items()},
+          "window_ops_bound_ms": {m: v / H100_INT8_OPS * 1e3 for m, v in ops.items()},
+          "check": f"kernels against plain versions at F = {F}", "failed": bad,
+          "pass": not bad})
+    if bad:
+        raise AssertionError(f"int8 kernels differ from their plain versions at F = {F}: "
+                             f"{ {n: classes[n]['equal'] for n in bad} }")
+
+    # (c) the windows, fp32 and bf16
+    windows = {"fp32": int8_window_part(torch, counters, model, exp, x, te, "fp32", card_name)}
+    del model
+    free_card(torch)
+    m16 = bf16_model(torch, exp, exp.sd32, dev)
+    windows["bf16"] = int8_window_part(torch, counters, m16, exp, x, te, "bf16", card_name)
+    del m16
+    free_card(torch)
+    # the bf16 window's int8 error is int8's: within INT8_BF16_SPREAD x the
+    # fp32 window's (p99.9 |int8 - fp| of each model's raw outputs)
+    spread = {m: {d: windows[d][m]["raw_delta_vs_fp"]["p999"] for d in windows}
+              for m in ("dynamic", "static")}
+    ok = all(s["bf16"] <= INT8_BF16_SPREAD * s["fp32"] for s in spread.values())
+    emit({"phase": "int8", "check": "bf16 window's int8 error against the fp32 window's",
+          "p999_int8_vs_fp": spread, "tolerance": f"bf16 <= {INT8_BF16_SPREAD} x fp32",
+          "pass": ok})
+    if not ok:
+        raise AssertionError(f"int8 bf16 window farther from fp than the fp32 one: {spread}")
+    # (d) card against CPU
+    int8_small_part(torch)
+
+    main = classes[next(iter(classes))]
+    row = dict(main, max_abs_err=max(c["max_abs_err"] for c in checks),
+               shape_classes=classes,
+               launches_a_window={d: {m: windows[d][m]["replay_launches"]["conv"]
+                                      for m in ("dynamic", "static")} for d in windows},
+               window_ms={d: {m: windows[d][m]["median_window_ms"]
+                              for m in ("fp", "dynamic", "static")} for d in windows},
+               frames_per_s={d: {m: windows[d][m]["frames_per_s"]
+                                 for m in ("fp", "dynamic", "static")} for d in windows})
+    emit({"phase": "int8", "seconds": time.time() - t_phase, "card": card_name,
+          "window_ms": row["window_ms"], "frames_per_s": row["frames_per_s"]})
+    return {"rows": {"int8_conv": row},
+            "launches": {"int8_conv": windows["fp32"]["dynamic"]["replay_launches"]["conv"]}}
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
           "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "backbones", "zoo",
-          "trace_lead_in")
+          "int8", "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
 
@@ -7287,6 +7795,9 @@ def main() -> int:
     launches.update(zoo["launches"])
     for row, per_run in zoo["per_run"].items():
         rows[row]["launches_zoo"] = per_run
+    int8 = int8_phase(torch, counters)
+    rows.update(int8["rows"])
+    launches.update(int8["launches"])
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}
@@ -7305,7 +7816,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
     shaped = {**HEAD_ROWS, **RECIPE_ROWS, **YOLOV_ROWS, **OVIS_PLUS_ROWS, **ZOO_ROWS}
-    sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in shaped.items()}}
+    sources = {**KERNELS, **{n: KERNELS[base] for n, (base, _) in shaped.items()}, **INT8_ROW}
     for name, (_, shape) in shaped.items():
         rows[name]["shape"] = shape
     below = below_bound(rows)

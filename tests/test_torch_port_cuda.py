@@ -40,7 +40,11 @@ the CPU's detections (1e-4 as sets); the stem at the P6 ELAN widths (80
 and 96 channels, 2 x 1280 x 1280, fp32 and bf16) at the stem's
 tolerances, the solver on a DETR criterion's 100 x 100 cost exactly, and
 YOLOv7-tiny and YOLOv8 against the CPU port, 1e-4 of the largest decoded
-value.
+value; the int8 kernels (the abs max, the quantize pass, the weight
+packing, the conv's int32 sums) equal to their plain versions, the
+dequantized output within one ulp of fp32 and of bf16, and the selftest
+int8 window on the card against the CPU port by
+tests/test_torch_port_int8.py's rule.
 """
 
 import numpy as np
@@ -52,6 +56,7 @@ from tscd_torch.ops import hungarian as phu
 from tscd_torch.ops.kernels import focus_stem as pfs
 from tscd_torch.ops.kernels import fused_attention as pfa
 from tscd_torch.ops.kernels import hungarian as pkh
+from tscd_torch.ops.kernels import int8_conv as pq8
 from tscd_torch.ops.kernels import nms as pkn
 
 
@@ -1090,3 +1095,83 @@ def test_cuda_yolov7_tiny_and_yolov8_match_cpu(fp32_card, name):
             want = cpu(x, train=train)["decoded"]
             got = dev(x.to(fp32_card), train=train)["decoded"].cpu()
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# -- the int8 serving mode's kernels (csrc/int8_conv.cu) ---------------------
+
+INT8_SHAPES = [   # F, C_in, H, W, C_out, k, stride, pad
+    (2, 128, 36, 36, 128, 3, 1, 1), (2, 256, 36, 36, 128, 1, 1, 0),
+    (2, 512, 36, 36, 512, 3, 2, 1),              # 36 -> 18, stride 2
+    (3, 48, 17, 13, 72, 3, 1, 1),                # C_in 48, ragged M and N
+    (2, 64, 20, 20, 40, 3, 1, 0),                # k 3 with pad 0, C_out 40
+    (1, 1024, 18, 18, 1024, 1, 1, 0)]
+
+
+def _int8_inputs(card, rng, F, C, H, W, N, k, dtype=torch.float32):
+    x = torch.from_numpy(rng.normal(0, 2, (F, C, H, W)).astype(np.float32)).to(card, dtype)
+    w = torch.from_numpy(rng.normal(0, 1, (N, C, k, k)).astype(np.float32)).to(card)
+    s_w = torch.clamp_min(w.abs().amax((1, 2, 3)), 1e-8) / 127.0
+    b = torch.from_numpy(rng.normal(0, 0.5, N).astype(np.float32)).to(card)
+    return x, w, s_w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_quantize_and_pack_match_plain(card, dtype):
+    """The abs max, the quantize pass (dynamic and per-channel scales) and
+    the weight packing equal their plain versions element for element."""
+    rng = np.random.default_rng(31)
+    x, w, s_w, _ = _int8_inputs(card, rng, 3, 48, 17, 13, 72, 3, dtype)
+    amax = pq8.abs_max(x)
+    assert torch.equal(amax.cpu(), x.cpu().abs().amax().float().reshape(1))
+    n0 = pq8.quantize_int8_activation.launches
+    for scale, mode in ((amax, "dynamic"), (x.float().abs().amax((0, 2, 3)) / 100.0, "channel")):
+        got = pq8.quantize_int8_activation(x, scale, mode)
+        assert torch.equal(got.cpu(), pq8.quantize_reference(x.cpu(), scale.cpu(), mode))
+    assert pq8.quantize_int8_activation.launches == n0 + 2
+    assert torch.equal(pq8.pack_int8_weight(w, s_w).cpu(), pq8.pack_reference(w.cpu(), s_w.cpu()))
+    with pytest.raises(ValueError, match="contiguous"):
+        pq8.quantize_int8_activation(x.transpose(2, 3), amax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_conv_matches_plain(card, shape, dtype):
+    """The conv's int32 sums equal the plain version's exactly; the
+    dequantized, activated output is within one ulp of the output dtype of
+    the plain epilogue on the same sums (expf's last bit)."""
+    F, C, H, W, N, k, stride, pad = shape
+    rng = np.random.default_rng(F + C + k)
+    x, w, s_w, b = _int8_inputs(card, rng, F, C, H, W, N, k, dtype)
+    amax = pq8.abs_max(x)
+    xq = pq8.quantize_int8_activation(x, amax)
+    wq = pq8.pack_int8_weight(w, s_w)
+    kw = dict(stride=stride, pad=pad, act="silu", out_dtype=dtype, amax=amax)
+    n0 = pq8.int8_conv.launches
+    acc = pq8.int8_conv(xq, wq, s_w, b, out_int32=True, **kw)
+    want = pq8.int8_conv_reference(xq.cpu(), wq.cpu(), stride, pad)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu(), want)
+    for act in ("silu", "lrelu", "id"):
+        kw["act"] = act
+        got = pq8.int8_conv(xq, wq, s_w, b, **kw).cpu().float()
+        ref = pq8.epilogue_reference(acc, pq8.dynamic_scale(amax), s_w, b, act, dtype).cpu()
+        ulp = torch.from_numpy(np.spacing(ref.float().abs().numpy()).astype(np.float32))
+        if dtype == torch.bfloat16:
+            ulp = ulp * 2.0 ** 16
+        assert bool(((got - ref.float()).abs() <= ulp).all()), act
+    assert pq8.int8_conv.launches == n0 + 4
+
+
+@pytest.mark.cuda
+def test_cuda_int8_selftest_window_matches_cpu(fp32_card):
+    """The selftest TSCD in int8, dynamic and static (scales calibrated on
+    the CPU), on the card against the CPU port's int8 (plain versions), by
+    tests/test_torch_port_int8.py's rule: mean |card - CPU| within 0.1 of
+    the CPU's mean |int8 - fp32|, max within its max, or within the CPU's
+    own spread on frames an ulp off (a rounding flip, once set off by
+    fp32 sums in another order, sets off others downstream), that spread
+    counting up to 0.7 of the CPU's mean |int8 - fp32|
+    (`chip_smoke.int8_spread_rule`)."""
+    import chip_smoke
+    chip_smoke.int8_small_part(torch)

@@ -245,7 +245,8 @@ def test_yolov_demo_online_matches_online_stream(frames_dir, yolov_ckpts, tmp_pa
 
 def test_demo_image_saves_drawn_jpeg(frames_dir, tmp_path):
     """demo image on a YOLOX exp: the saved file is the drawn image's JPEG;
-    video and webcam raise naming cv2.VideoCapture, --int8 raises."""
+    video and webcam raise naming cv2.VideoCapture; --int8 serves the same
+    image in the int8 mode."""
     from tscd_torch.tools import demo
     frame = os.path.join(frames_dir, sorted(os.listdir(frames_dir))[0])
     (f, drawn, boxes, scores, cls_ids, ms), = demo.main(
@@ -257,14 +258,15 @@ def test_demo_image_saves_drawn_jpeg(frames_dir, tmp_path):
     for mode in ("video", "webcam"):
         with pytest.raises(NotImplementedError, match="VideoCapture"):
             demo.main([mode, "-n", "ovis_still_selftest", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        demo.main(["image", "-n", "ovis_still_selftest", "--device", "cpu", "--int8"])
+    (f8, drawn8, *_), = demo.main(["image", "-n", "ovis_still_selftest", "--path", frame,
+                                   "--device", "cpu", "--conf", "0.0", "--int8"])
+    assert f8 == f and drawn8.shape == drawn.shape
 
 
 def test_demo_tools_refuse_what_is_not_ported(frames_dir, tmp_path):
     """A video file in place of a frame directory raises naming
-    cv2.VideoCapture; --int8 / --int8-calib raise naming queue 1 item 9; a
-    tool with no --device asks for the card."""
+    cv2.VideoCapture; --int8 / --int8-calib, ported, run; a tool with no
+    --device asks for the card."""
     from tscd_torch.tools import tscd_demo, vid_demo
     base = ["--exp", "selftest", "-c", SELFTEST_CKPT, "--output_dir", str(tmp_path)]
     video = tmp_path / "clip.mp4"
@@ -272,8 +274,8 @@ def test_demo_tools_refuse_what_is_not_ported(frames_dir, tmp_path):
     with pytest.raises(NotImplementedError, match="VideoCapture"):
         tscd_demo.main(base + ["--path", str(video), "--device", "cpu"])
     for flag in (["--int8"], ["--int8-calib", "2"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            vid_demo.main(base + ["--path", frames_dir, "--device", "cpu"] + flag)
+        res = vid_demo.main(base + ["--path", frames_dir, "--device", "cpu"] + flag)
+        assert len(res["dets"]) == N_FRAMES
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tscd_demo.main(base + ["--path", frames_dir])

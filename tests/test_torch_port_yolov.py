@@ -237,7 +237,8 @@ def test_vid_eval_cli_at_lframe_0_matches_jax(yolov_model, tmp_path, monkeypatch
     videos, every frame refined and evaluated) from a JAX msgpack: each
     window's rows (classes exactly, the rest 1e-4) and the COCO stats
     (1e-4) equal JAX's predict function (yolov_trainer.py:68-111) through
-    JAX's VIDEvaluator."""
+    JAX's VIDEvaluator; with `--int8` (ported) it evaluates the same
+    windows."""
     from tscd_torch.core import yolov_trainer
     from tscd_torch.tools import vid_eval
     exp, _, variables, _, window = yolov_model
@@ -250,8 +251,11 @@ def test_vid_eval_cli_at_lframe_0_matches_jax(yolov_model, tmp_path, monkeypatch
                         lambda *a, **k: _recording_pipelined(real(*a, **k), prows))
     got = vid_eval.main(["--exp", "yolov_selftest", "-c", str(ckpt), "--device", "cpu",
                          "--output", str(tmp_path / "res.json")])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        vid_eval.main(["--exp", "yolov_selftest", "-c", str(ckpt), "--int8"])
+    n_fp = len(prows)
+    got8 = vid_eval.main(["--exp", "yolov_selftest", "-c", str(ckpt), "--device", "cpu",
+                          "--int8"])
+    assert "mAP" in got8 and len(prows) == 2 * n_fp
+    del prows[n_fp:]
 
     jrows = []
 

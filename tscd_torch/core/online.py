@@ -16,8 +16,8 @@ one by one; the padded window, whose every effect is discarded, is not
 run here.)
 
 On a card each step is one replayed CUDA graph (`core.predict.
-WindowGraph`, captured at the first step of each frame shape, dtype and
-K): the frame goes into a static buffer, and the bank's tensors are the
+WindowGraph`, captured at the first step of each frame shape, dtype,
+K and int8 mode): the frame goes into a static buffer, and the bank's tensors are the
 graph's static buffers, updated in place inside the graph, so the bank
 never leaves the card and a step reads nothing back. CPU tensors take
 the eager path (device="cpu").
@@ -28,6 +28,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.blocks import int8_graph_key, int8_mode
 from ..models.yolov import YOLOVOnline, yolov_eval_postprocess
 from ..ops.postprocess import Detections
 from .predict import WindowGraph
@@ -76,9 +77,9 @@ class OnlineStream:
 
     def _dispatch(self, frames) -> Tuple[Detections, torch.Tensor]:
         x = torch.as_tensor(frames)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or int8_mode().calibrate:
             return self._run(x.to(self.device))
-        key = (tuple(x.shape), x.dtype)
+        key = (tuple(x.shape), x.dtype, int8_graph_key(self.model))
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = WindowGraph(self._run, (x,), self.device)

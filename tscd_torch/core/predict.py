@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..models.blocks import int8_graph_key, int8_mode
 from ..models.matching import MatcherState, init_matcher_state
 from ..models.tscd import TSCD, tscd_eval_postprocess
 from ..ops.postprocess import Detections
@@ -77,7 +78,8 @@ def detection_rows(refined: Detections) -> List[np.ndarray]:
             for f in range(r.mask.shape[0])]
 
 
-def window_predict_fn(run: Callable, inputs: Callable, device: torch.device):
+def window_predict_fn(run: Callable, inputs: Callable, device: torch.device,
+                      model: torch.nn.Module):
     """The streaming evaluator's step around one window's program:
     inputs(imgs, te, resume, state) gives the window's host-side tensors
     (the frames and the time embedding first), run(*tensors) on the
@@ -90,7 +92,10 @@ def window_predict_fn(run: Callable, inputs: Callable, device: torch.device):
     (numpy or tensors, uint8 as the loader ships them) upload with
     non_blocking copies, which from pinned memory do not wait. On a card
     the window is a replayed CUDA graph (captured at the first dispatch
-    of each frame shape and dtype). `predict.dispatch_eager` runs the same
+    of each frame shape and dtype, and of each int8 mode and preparation of
+    `model`, `models.blocks.int8_graph_key`: a graph captured in fp never
+    replays under int8, nor the reverse; calibration runs eagerly, as its
+    records are Python-side). `predict.dispatch_eager` runs the same
     window launch by launch: the reference that a replay is held equal
     to, and the path for code that must watch the window's Python calls.
     `predict.materialize` copies the Detections to the host as per-frame
@@ -102,11 +107,11 @@ def window_predict_fn(run: Callable, inputs: Callable, device: torch.device):
         return run(x.to(device, non_blocking=True), t.to(device, non_blocking=True), *rest)
 
     def dispatch(imgs, te, resume: bool, state):
-        if device.type != "cuda":
+        if device.type != "cuda" or int8_mode().calibrate:
             return dispatch_eager(imgs, te, resume, state)
         tensors = inputs(imgs, te, resume, state)
         x, t = tensors[:2]
-        key = (tuple(x.shape), x.dtype, tuple(t.shape))
+        key = (tuple(x.shape), x.dtype, tuple(t.shape), int8_graph_key(model))
         graph = graphs.get(key)
         if graph is None:
             graph = graphs[key] = WindowGraph(run, tensors, device)
@@ -151,4 +156,4 @@ def make_predict_fn(model: TSCD, lframe: int, gframe: int,
         st = state if (resume and state is not None) else fresh
         return (torch.as_tensor(imgs), torch.as_tensor(te, dtype=torch.float32), *st)
 
-    return window_predict_fn(run, inputs, device)
+    return window_predict_fn(run, inputs, device, model)

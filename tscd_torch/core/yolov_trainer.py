@@ -69,4 +69,4 @@ def make_predict_fn(model, lframe: int, gframe: int, nms_thresh: float = 0.5,
     def inputs(imgs, te, resume, state):
         return torch.as_tensor(imgs), torch.as_tensor(te, dtype=torch.float32)
 
-    return window_predict_fn(run, inputs, model.device)
+    return window_predict_fn(run, inputs, model.device, model)

@@ -1,7 +1,6 @@
 """Conv primitives of the detection core (counterpart of
 tscd_tpu/models/blocks.py; reference network_blocks.py). NCHW,
-BatchNorm with eps 1e-5. The int8 machinery of the JAX package is not
-ported.
+BatchNorm with eps 1e-5.
 
 BatchNorm mode, as the JAX modules' `train` argument: each forward takes
 `stats`, None for eval-mode BN (the running statistics), or a dict for
@@ -17,14 +16,30 @@ on load) and the conv and the activation run in it; BatchNorm keeps fp32
 parameters and runs in fp32 on the conv's output, which is then cast
 back (blocks.py:231-245). `utils.model_utils.fuse_model` folds the BN
 into the conv: the conv then has a bias and `bn` is None (JAX:
-`use_bias`)."""
+`use_bias`).
 
-from typing import Dict, Optional, Sequence, Tuple
+int8 (w8a8) serving, as JAX's (blocks.py:32-200, 248-353): inside
+`int8_eval()` a BaseConv with eval-mode BN (`stats` None), groups 1 and
+C_in >= the mode's threshold runs the hand int8 conv
+(`ops.kernels.int8_conv`): BN folded into the weights, int8 weights with
+one scale an output channel, int8 activations with one scale over the
+whole batch (dynamic: max |x| / 127 a call) or calibrated (static: per
+input channel maxima recorded by `quantize_int8` / `quantize_int8_scan`
+under `int8_eval(calibrate=True)`, half their spread moved into the
+weights), int32 sums, then dequant, bias and the activation. The weights
+are prepared once by `utils.model_utils.prepare_int8` (from fp32 weights)
+and kept on each BaseConv outside its state_dict; a model in int8 mode
+without it raises."""
+
+import contextlib
+import contextvars
+from typing import Callable, Dict, Iterable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels import int8_conv as q8
 from ..ops.kernels.focus_stem import focus_stem, rearrange_weight
 
 # new running statistics of a train-mode forward: {BatchNorm module:
@@ -72,6 +87,120 @@ def run(seq: nn.Sequential, x: torch.Tensor,
     return x
 
 
+# --- int8 (w8a8) serving mode ------------------------------------------
+# The mode lives in one ContextVar holding an immutable tuple, as JAX's
+# (blocks.py:46-63): concurrent threads each see their own context's mode.
+# JAX reads it when it traces; the port runs eagerly and reads it at each
+# forward, so a CUDA graph captured in one mode must not replay in another
+# (`int8_graph_key`, which core/predict.py puts in its graphs' keys).
+class Int8Mode(NamedTuple):
+    enable: bool = False
+    static: bool = False
+    calibrate: bool = False
+    scope: Optional[Tuple[Tuple[str, ...], ...]] = None
+    qat: bool = False
+
+
+_INT8_MODE: "contextvars.ContextVar[Int8Mode]" = contextvars.ContextVar(
+    "tscd_int8_mode", default=Int8Mode())
+
+# Only convs with C_in >= this quantize (JAX's gates and their defaults,
+# blocks.py:64-80): dynamic scales pay a max pass a call, static ones do not.
+INT8_MIN_CIN = 128
+INT8_MIN_CIN_STATIC = 32
+
+_NOT_PORTED = ("int8 {}: not ported (ROADMAP queue 1 item 2.8; the port serves "
+               "int8 dynamic, calibrate and static only)")
+
+
+def int8_mode() -> Int8Mode:
+    return _INT8_MODE.get()
+
+
+def _int8_min_cin() -> int:
+    # calibration must cover every layer the static mode will use
+    mode = _INT8_MODE.get()
+    return INT8_MIN_CIN_STATIC if (mode.static or mode.calibrate) else INT8_MIN_CIN
+
+
+def int8_eval_enabled() -> bool:
+    return _INT8_MODE.get().enable
+
+
+def set_int8_eval(enable: bool) -> None:
+    """Sticky (non-scoped) toggle for CLI tools; affects only the current
+    thread/context (the mode is a ContextVar)."""
+    _INT8_MODE.set(_INT8_MODE.get()._replace(enable=bool(enable)))
+
+
+@contextlib.contextmanager
+def int8_eval(enable: bool = True, static: bool = False, calibrate: bool = False,
+              scope=None, qat: bool = False):
+    """int8 serving mode for the forwards inside the block. `calibrate=True`
+    records each quantizing conv's per-input-channel maxima of its fp
+    activations (`quantize_int8`); `static=True` serves with them. JAX's
+    `scope` (quantize a module subtree only) and `qat` (fake-quant for
+    training) raise: not ported."""
+    if scope is not None:
+        raise NotImplementedError(_NOT_PORTED.format("scope"))
+    if qat:
+        raise NotImplementedError(_NOT_PORTED.format("qat"))
+    token = _INT8_MODE.set(Int8Mode(enable=bool(enable), static=bool(static),
+                                    calibrate=bool(calibrate)))
+    try:
+        yield
+    finally:
+        _INT8_MODE.reset(token)
+
+
+def int8_graph_key(model: nn.Module) -> Optional[tuple]:
+    """What a captured forward of `model` depends on beyond its inputs'
+    shapes: None in fp, else the mode and the identity of the model's int8
+    preparation (weights and scales, `prepare_int8`). A graph captured
+    under one key must replay under that key only."""
+    mode = _INT8_MODE.get()
+    if not mode.enable:
+        return None
+    return (mode.static, mode.calibrate, getattr(model, "_int8_token", None))
+
+
+def _int8_convs(model: nn.Module):
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, BaseConv) and getattr(m, "_int8", None) is not None]
+
+
+def quantize_int8(model: nn.Module, *sample_args, **kwargs) -> Dict[str, torch.Tensor]:
+    """Calibrate static int8 activation scales (JAX's quantize_int8,
+    blocks.py:132-140): `model(*sample_args, **kwargs)` under
+    `int8_eval(calibrate=True)`. Returns {BaseConv name: act_scale (C_in,)},
+    each max |x| / 127 per input channel of that conv's fp activations;
+    serve with `utils.model_utils.set_int8_scales(model, scales)` and
+    `int8_eval(static=True)`."""
+    return quantize_int8_scan(model, [sample_args], **kwargs)
+
+
+def quantize_int8_scan(model: nn.Module, chunks: Iterable[Sequence],
+                       fn: Optional[Callable] = None, **kwargs) -> Dict[str, torch.Tensor]:
+    """Calibration over several windows or frame chunks (JAX's
+    quantize_int8_scan, blocks.py:143-200): `fn(*chunk, **kwargs)` (default
+    the model) for each chunk under `int8_eval(calibrate=True)`, the
+    per-conv maxima max-folded across chunks. Each chunk runs as given (a
+    window from the initial matcher state, as JAX's scan body). The
+    calibrate forward observes the fp activations, so a chunked fold equals
+    a one-shot calibration exactly. Returns the scales as `quantize_int8`."""
+    convs = _int8_convs(model)
+    if not convs:
+        raise ValueError("quantize_int8 needs the int8 weights: run "
+                         "utils.model_utils.prepare_int8(model, ...) first")
+    for _, m in convs:
+        m._int8.act_scale = None
+    run = fn or model
+    with int8_eval(calibrate=True), torch.no_grad():
+        for chunk in chunks:
+            run(*chunk, **kwargs)
+    return {n: m._int8.act_scale for n, m in convs if m._int8.act_scale is not None}
+
+
 def get_activation(name: str = "silu") -> nn.Module:
     if name in ("silu", "swish"):
         return nn.SiLU()
@@ -98,15 +227,94 @@ class BaseConv(nn.Module):
                               bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
         self.act = get_activation(act)
+        self.act_name = {"swish": "silu", "identity": "id", None: "id"}.get(act, act)
+        self._int8 = None       # Int8Weights, from utils.model_utils.prepare_int8
 
     def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None,
                 valid: bool = False) -> torch.Tensor:
         c = self.conv
+        if (stats is None and c.groups == 1 and _INT8_MODE.get().enable
+                and x.shape[1] >= _int8_min_cin()):
+            return self._int8_forward(x, 0 if valid else c.padding[0])
         y = (F.conv2d(x, c.weight, c.bias, c.stride, 0, c.dilation, c.groups)
              if valid else c(x))
         if self.bn is not None:
             y = batch_norm(self.bn, y, stats)
         return self.act(y)
+
+    def _int8_forward(self, x: torch.Tensor, pad: int) -> torch.Tensor:
+        """The w8a8 route (blocks.py:248-353): calibrate (the fp32 BN-folded
+        conv, recording max |x| / 127 per input channel), dynamic (one
+        scale over the whole batch, formed on the device) or static (the
+        calibrated x_scale and the weights that absorbed its spread)."""
+        q = self._int8
+        if q is None:
+            raise ValueError("int8_eval needs the int8 weights: run "
+                             "utils.model_utils.prepare_int8(model, state_dict) first")
+        mode = _INT8_MODE.get()
+        dtype = self.conv.weight.dtype
+        stride = self.conv.stride[0]
+        if mode.calibrate:
+            xf = x.float()
+            seen = q8.div127(xf.abs().amax((0, 2, 3)))
+            q.act_scale = seen if q.act_scale is None else torch.maximum(q.act_scale, seen)
+            # frame by frame: a conv's sums for one frame then never depend
+            # on the others (oneDNN and cuDNN pick their algorithms by the
+            # batch), so a chunked calibration equals a one-shot one exactly
+            y = torch.cat([F.conv2d(xf[i:i + 1], q.w_eff, stride=stride, padding=pad)
+                           for i in range(xf.shape[0])])
+            y = y + q.b_eff[None, :, None, None]
+            return self.act(y.to(dtype))
+        if mode.static:
+            if q.static is None:
+                raise ValueError(
+                    "int8_eval(static=True) needs calibrated activation scales: run "
+                    "quantize_int8(model, *sample_batch) first and pass its scales to "
+                    "utils.model_utils.set_int8_scales(model, scales)")
+            wq, s_w, x_scale, s_t = q.static
+            xq = q8.quantize_int8_activation(x.contiguous(), x_scale, "channel")
+            return q8.int8_conv(xq, wq, s_w, q.b_eff, stride=stride, pad=pad,
+                                act=self.act_name, out_dtype=dtype, s_x=s_t)
+        wq, s_w = q.dynamic
+        x = x.contiguous()
+        amax = q8.abs_max(x)
+        xq = q8.quantize_int8_activation(x, amax, "dynamic")
+        return q8.int8_conv(xq, wq, s_w, q.b_eff, stride=stride, pad=pad,
+                            act=self.act_name, out_dtype=dtype, amax=amax)
+
+
+class Int8Weights:
+    """A BaseConv's int8 preparation (`utils.model_utils.prepare_int8`),
+    kept outside its state_dict: the BN-folded fp32 weight and bias, the
+    dynamic route's packed int8 weights and scales (wq, s_w), the static
+    route's (wq, s_w, x_scale, s_t) where scales were given, and the
+    calibration record `act_scale`."""
+
+    def __init__(self, w_eff: torch.Tensor, b_eff: torch.Tensor):
+        self.w_eff, self.b_eff = w_eff, b_eff
+        self.dynamic = pack_weights(w_eff)
+        self.static: Optional[Tuple[torch.Tensor, ...]] = None
+        self.act_scale: Optional[torch.Tensor] = None
+
+    def set_scales(self, act_scale: torch.Tensor) -> None:
+        """The static route's quantities from calibrated maxima
+        (blocks.py:290-304): e_c = sqrt(s_c / geometric mean), clipped to
+        [1/16, 16], s_t = max(s_c / e_c), x_scale = e_c s_t, weights w_eff
+        e_c (s_w taken after that)."""
+        s_c = torch.clamp_min(act_scale.to(self.w_eff.device, torch.float32), 1e-8)
+        e_c = torch.sqrt(s_c / torch.exp(torch.mean(torch.log(s_c))))
+        e_c = torch.clamp(e_c, 1.0 / 16, 16.0)
+        s_t = torch.amax(s_c / e_c).reshape(1)
+        wq, s_w = pack_weights(self.w_eff * e_c[None, :, None, None])
+        self.static = (wq, s_w, (e_c * s_t).contiguous(), s_t)
+
+
+def pack_weights(w_eff: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(packed int8 weights, s_w): s_w = max(max |w| over (C, k, k), 1e-8) /
+    127 per output channel (blocks.py:308-309), the weights round(w / s_w)
+    in the conv kernel's layout."""
+    s_w = q8.div127(torch.clamp_min(w_eff.abs().amax((1, 2, 3)), 1e-8))
+    return q8.pack_int8_weight(w_eff.contiguous(), s_w), s_w
 
 
 class DWConv(nn.Module):

@@ -7,6 +7,9 @@ the JAX package:
                       the XLA lowering of tscd_tpu/ops/hungarian.py (n > 128)
   nms              <- the IoU matrix and XLA scan of tscd_tpu/ops/nms.py
                       (no Pallas kernel)
+  int8_conv        <- the XLA int8 conv of tscd_tpu/models/blocks.py:347-353
+                      (no Pallas kernel): abs max, quantize, weight packing
+                      and the implicit-GEMM conv of the int8 serving mode
 
 Each module holds the wrapper (launches the kernel on a CUDA tensor and
 counts the launch in `<wrapper>.launches`), the plain PyTorch version of
@@ -14,3 +17,10 @@ the same function (taken for CPU tensors only), and a note on what bounds
 the kernel. Sources live in `tscd_torch/csrc/`; `library.load()` builds
 them with nvcc at first use.
 """
+
+from . import int8_conv
+from .int8_conv import (abs_max, epilogue_reference, int8_conv_reference, pack_int8_weight,
+                        pack_reference, quantize_int8_activation, quantize_reference)
+
+__all__ = ["int8_conv", "abs_max", "quantize_int8_activation", "pack_int8_weight",
+           "quantize_reference", "pack_reference", "int8_conv_reference", "epilogue_reference"]

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "tscd_focus_stem": [_P] * 4 + [_I] * 5 + [_P],
     "tscd_focus_stem_bf16": [_P] * 3 + [_I] * 6 + [_P],
     "tscd_focus_stem_bf16_config": [_I] * 4 + [ctypes.POINTER(_I)],
+    "tscd_int8_absmax": [_P, ctypes.c_longlong, _I, _P, _P],
+    "tscd_int8_quantize": [_P] + [_I] * 6 + [_P, _I, _P, _P],
+    "tscd_int8_conv": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,8 @@ prints each image's detections and time, draws them (`utils.visualize.vis`
 with COCO's names) and, with --save_result, writes
 `<output_dir>/<exp_name>/vis_res/<file name>` as JPEG (`data.image.imwrite`).
 Without -c the weights are random. `video` and `webcam` raise: they need
-cv2.VideoCapture. `--int8` raises: int8 is not ported.
+cv2.VideoCapture. `--int8` serves the model in JAX's w8a8 int8 mode with
+dynamic activation scales (`models.blocks.int8_eval`).
 """
 
 import argparse
@@ -48,7 +49,9 @@ def make_parser():
     parser.add_argument("--nms", type=float, default=0.45)
     parser.add_argument("--tsize", type=int, default=None)
     parser.add_argument("--save_result", action="store_true")
-    parser.add_argument("--int8", action="store_true", help="not ported (raises)")
+    parser.add_argument("--int8", action="store_true",
+                        help="w8a8 int8 serving mode (dynamic activation scales; "
+                        "models/blocks.py int8_eval)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the card (cuda) unless given")
     parser.add_argument("opts", nargs="*")
@@ -107,10 +110,9 @@ def run(args):
     scores, class ids, ms) per image."""
     from tscd_torch.data.image import imread, imwrite
     from tscd_torch.exp import get_exp
+    from tscd_torch.tools.tscd_eval import int8_serving
     from tscd_torch.utils.visualize import vis
 
-    if args.int8:
-        raise NotImplementedError("--int8: int8 serving is not ported (ROADMAP queue 1 item 9)")
     if args.demo in ("video", "webcam"):
         raise NotImplementedError(f"demo {args.demo!r} needs cv2.VideoCapture's decoders, "
                                   "which the port does not have; run `image` on frames")
@@ -121,18 +123,20 @@ def run(args):
     if args.tsize:
         exp.test_size = (args.tsize, args.tsize)
     predictor = Predictor(exp, args.ckpt, args.conf, args.nms, args.device)
+    mode = int8_serving(args, predictor.model)
     save_dir = os.path.join(exp.output_dir, exp.exp_name, "vis_res")
     files = [args.path] if os.path.isfile(args.path) else get_image_list(args.path)
     results = []
-    for f in files:
-        img = imread(f)
-        boxes, scores, cls_ids, dt = predictor.inference(img)
-        print(f"{f}: {len(boxes)} dets in {dt * 1000:.1f} ms")
-        out = vis(img, boxes, scores, cls_ids, args.conf, COCO_CLASSES)
-        if args.save_result:
-            os.makedirs(save_dir, exist_ok=True)
-            imwrite(os.path.join(save_dir, os.path.basename(f)), out)
-        results.append((f, out, boxes, scores, cls_ids, dt * 1000))
+    with mode:
+        for f in files:
+            img = imread(f)
+            boxes, scores, cls_ids, dt = predictor.inference(img)
+            print(f"{f}: {len(boxes)} dets in {dt * 1000:.1f} ms")
+            out = vis(img, boxes, scores, cls_ids, args.conf, COCO_CLASSES)
+            if args.save_result:
+                os.makedirs(save_dir, exist_ok=True)
+                imwrite(os.path.join(save_dir, os.path.basename(f)), out)
+            results.append((f, out, boxes, scores, cls_ids, dt * 1000))
     return results
 
 

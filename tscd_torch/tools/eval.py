@@ -8,8 +8,10 @@ Evaluates the exp's val set on the card (or the device given) and prints
 mAP and AP50. `-c` takes a port checkpoint or state_dict `.pth` (its
 "model" entry, the EMA weights, where it has one) or a JAX `.msgpack`
 (variables, or a JAX training checkpoint's EMA weights); a key the
-checkpoint lacks raises. `--int8` (JAX's w8a8 serving mode) is not ported
-yet and raises. Exp overrides (`key value` pairs) go after every flag.
+checkpoint lacks raises. `--int8` serves the model in JAX's w8a8 int8
+mode with dynamic activation scales (`models.blocks.int8_eval`, the hand
+int8 conv on a card). Exp overrides (`key value` pairs) go after every
+flag.
 """
 
 import argparse
@@ -29,7 +31,8 @@ def make_parser():
     parser.add_argument("--nms", type=float, default=None)
     parser.add_argument("--tsize", type=int, default=None)
     parser.add_argument("--int8", action="store_true",
-                        help="JAX's w8a8 int8 serving mode: not ported (raises)")
+                        help="w8a8 int8 serving mode (dynamic activation scales; "
+                        "models/blocks.py int8_eval)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the card (cuda) unless given")
     parser.add_argument("--output", type=str, default=None,
@@ -42,11 +45,10 @@ def main(argv=None):
     from tscd_torch.core.trainer import make_predict_fn
     from tscd_torch.device import resolve_device
     from tscd_torch.exp import get_exp
+    from tscd_torch.tools.tscd_eval import int8_serving
     from tscd_torch.train.checkpoint import load_checkpoint
 
     args = make_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8: int8 eval is not ported yet (ROADMAP queue 1 item 9)")
     exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else "yolox_l"))
     exp.merge(args.opts)
     if args.conf is not None:
@@ -63,8 +65,9 @@ def main(argv=None):
                        f"e.g. {res.missing_keys[:5]}")
     evaluator = exp.get_evaluator()
     evaluator.batch_size = args.batch_size
-    result = evaluator.evaluate(make_predict_fn(model, exp.num_classes, exp.test_conf,
-                                                exp.nmsthre))
+    with int8_serving(args, model):
+        result = evaluator.evaluate(make_predict_fn(model, exp.num_classes, exp.test_conf,
+                                                    exp.nmsthre))
     print(result.get("mAP"), result.get("AP50"))
     if args.output:
         with open(args.output, "w") as f:

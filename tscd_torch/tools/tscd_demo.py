@@ -15,8 +15,10 @@ window. `--post` runs REPP. Each frame is drawn (`utils.visualize.vis`,
 boxes at or above `--conf`) and written to `<output_dir>/tscd_out.mp4` as
 Motion JPEG in MP4 (`utils.video.VideoWriter`; the JAX tool writes MPEG-4
 Part 2 there, which the card's machine cannot encode). `-c` takes what
-tscd_eval's does (a JAX `.msgpack`, or a `.pth`). `--int8` and
-`--int8-calib` raise: int8 is not ported.
+tscd_eval's does (a JAX `.msgpack`, or a `.pth`). `--int8` serves in the
+w8a8 int8 mode with dynamic scales; `--int8-calib K` calibrates static
+scales on the video's first K windows (`calib_windows`, as the JAX tool
+builds them, from a second random.Random(42)) and serves with them.
 """
 
 import argparse
@@ -45,29 +47,52 @@ def make_parser(prog="TSCD demo (PyTorch port)", default_exp="tscd_large"):
     parser.add_argument("--post", action="store_true", help="REPP tubelet post-processing")
     parser.add_argument("--save_result", action="store_true", default=True,
                         help="the JAX tool's flag: the video is always written")
-    parser.add_argument("--int8", action="store_true", help="not ported (raises)")
+    parser.add_argument("--int8", action="store_true",
+                        help="w8a8 int8 serving mode (dynamic activation scales; "
+                        "models/blocks.py int8_eval)")
     parser.add_argument("--int8-calib", type=int, default=0, metavar="K",
-                        help="not ported (raises)")
+                        help="with --int8: calibrate STATIC activation scales on the "
+                        "video's first K windows and serve with them; 0 = dynamic scales")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the card (cuda) unless given")
     parser.add_argument("opts", nargs="*")
     return parser
 
 
+def calib_windows(L: int, G: int, n: int, k: int) -> List[List[int]]:
+    """The frame indices of the first k calibration windows of an n-frame
+    video, as JAX's demos build them (tools/tscd_demo.py:121-150,
+    tools/vid_demo.py:118-147): L consecutive local frames a window (stride
+    L, the last padded with its last frame) and G global ones drawn by a
+    random.Random(42) of their own from the frames outside it; with L = 0,
+    G consecutive frames a window, padded alike."""
+    crng = random.Random(42)
+    out = []
+    for lo in range(0, n, L or G):
+        if len(out) >= k:
+            break
+        li = list(range(lo, min(lo + (L or G), n)))
+        li += [li[-1]] * ((L or G) - len(li))
+        if L:
+            pool = [i for i in range(n) if i not in li] or li
+            li = li + [crng.choice(pool) for _ in range(G)]
+        out.append(li)
+    return out
+
+
 def prepare(args, default_exp: str):
     """(exp, frames, letterboxed uint8 frames (N, H, W, 3), ratios, the
-    predict function of the exp's model with the checkpoint's weights) for
-    a demo's arguments: the exp of -f / --exp (else `default_exp`) with the
+    predict function of the exp's model with the checkpoint's weights, the
+    int8 mode to run it in (`tscd_eval.int8_serving`)) for a demo's
+    arguments: the exp of -f / --exp (else `default_exp`) with the
     overrides and --nms applied."""
     from tscd_torch.data.transforms import letterbox
     from tscd_torch.device import resolve_device
     from tscd_torch.exp import get_exp
-    from tscd_torch.tools.tscd_eval import load_weights
+    from tscd_torch.ops.position import get_timing_signal_1d
+    from tscd_torch.tools.tscd_eval import int8_serving, load_weights
     from tscd_torch.utils.video import read_frames
 
-    if args.int8 or args.int8_calib:
-        raise NotImplementedError("--int8 / --int8-calib: int8 serving is not ported "
-                                  "(ROADMAP queue 1 item 9)")
     exp = get_exp(args.exp_file, args.exp or (None if args.exp_file else default_exp))
     exp.merge(args.opts)
     if args.nms is not None:
@@ -84,7 +109,12 @@ def prepare(args, default_exp: str):
         ratios.append(r)
     model = exp.get_model(device=resolve_device(args.device))
     load_weights(model, args.ckpt)
-    return exp, frames, np.stack(processed), ratios, exp.get_predict_fn(model)
+    processed = np.stack(processed)
+    predict = exp.get_predict_fn(model)
+    windows = ((processed[idxs], get_timing_signal_1d(np.asarray(idxs, np.float32), 256))
+               for idxs in calib_windows(exp.lframe_val, exp.gframe_val, len(frames),
+                                         args.int8_calib))
+    return exp, frames, processed, ratios, predict, int8_serving(args, model, windows, predict)
 
 
 def draw_and_write(args, exp, frames, ratios, all_dets, class_names) -> Dict:
@@ -148,10 +178,11 @@ def run(args) -> Dict:
     vis, "path", "frames", "drawn", "ms_per_frame"}."""
     from tscd_torch.data.vid import VID_CLASSES
 
-    exp, frames, processed, ratios, predict = prepare(args, "tscd_large")
+    exp, frames, processed, ratios, predict, mode = prepare(args, "tscd_large")
     traj = bool(getattr(exp, "traj_linking", False))
     t0 = time.time()
-    all_dets = run_windows(exp, frames, processed, predict, traj)
+    with mode:
+        all_dets = run_windows(exp, frames, processed, predict, traj)
     dt = time.time() - t0
     ms = 1000 * dt / len(frames)
     print(f"inference: {ms:.1f} ms/frame ({len(frames) / dt:.1f} fps)")

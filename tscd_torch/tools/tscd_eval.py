@@ -11,11 +11,15 @@ given) and prints mAP and AP50. `-c` takes the port's own state_dict
 of reference modules the port has no counterpart for are skipped, a
 missing key raises. `--tnum N` evaluates the first N val windows only; -1 all.
 `--dataset ovis` reads the exp's OVIS json (`dataset_name`), as JAX's
-flag does.
+flag does. `--int8` serves the model in JAX's w8a8 int8 mode with dynamic
+activation scales (`models.blocks.int8_eval`, the hand int8 conv on a
+card); `--int8-calib K` first calibrates static scales on the first K val
+windows (each from a fresh matcher state) and serves with them.
 Exp overrides (`key value` pairs) go after every flag.
 """
 
 import argparse
+import contextlib
 import json
 import random
 
@@ -39,8 +43,42 @@ def make_parser(prog="TSCD eval (PyTorch port)",
                         help="torch device; the card (cuda) unless given")
     parser.add_argument("--output", type=str, default=None,
                         help="json dump of the result dict")
+    parser.add_argument("--int8", action="store_true",
+                        help="w8a8 int8 serving mode (dynamic activation scales; "
+                        "models/blocks.py int8_eval)")
+    parser.add_argument("--int8-calib", type=int, default=0, metavar="K",
+                        help="with --int8: calibrate STATIC activation scales on the "
+                        "first K val windows and serve with them; 0 = dynamic scales")
     parser.add_argument("opts", nargs="*")
     return parser
+
+
+def int8_serving(args, model, windows=(), predict=None):
+    """The int8 mode `args` ask for (JAX's --int8 / --int8-calib K; a CLI
+    without --int8-calib serves dynamic scales), as a context to evaluate
+    in: a null one without --int8; else the model's int8 weights prepared
+    (from its fp32 weights) and, with --int8-calib K, static scales
+    calibrated on the first K of `windows` ((imgs, te) pairs), each run by
+    `predict.dispatch_eager` from a fresh state."""
+    from tscd_torch.models.blocks import int8_eval, quantize_int8_scan
+    from tscd_torch.utils.model_utils import prepare_int8, set_int8_scales
+
+    calib = getattr(args, "int8_calib", 0)
+    if not (args.int8 or calib):
+        return contextlib.nullcontext()
+    prepare_int8(model)
+    if not calib:
+        return int8_eval()
+    chunks = []
+    for imgs, te in windows:
+        if len(chunks) == calib:
+            break
+        chunks.append((imgs, te))
+    scales = quantize_int8_scan(
+        model, chunks, fn=lambda imgs, te: predict.dispatch_eager(imgs, te, False, None))
+    set_int8_scales(model, scales)
+    print(f"int8: calibrated static scales on {len(chunks)} windows")
+    return int8_eval(static=True)
 
 
 def load_weights(model, ckpt: str) -> None:
@@ -92,7 +130,12 @@ def run(args, default_exp: str):
     load_weights(model, args.ckpt)
 
     loader = exp.get_eval_loader(pin_memory=device.type == "cuda")
-    result = exp.get_evaluator(loader).evaluate(exp.get_predict_fn(model))
+    predict = exp.get_predict_fn(model)
+    F = exp.lframe_val + exp.gframe_val
+    mode = int8_serving(args, model, ((b["imgs"][:F], b["time_embedding"][:F])
+                                      for b in loader), predict)
+    with mode:
+        result = exp.get_evaluator(loader).evaluate(predict)
     print(result.get("mAP"), result.get("AP50"))
     if args.output:
         with open(args.output, "w") as f:

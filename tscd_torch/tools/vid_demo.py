@@ -10,7 +10,8 @@ JPEG in MP4), with the YOLOV exp and the JAX tool's chunking
 consecutive chunks of G frames, the last padded with its last frame, and
 keeps every frame's detections; one with local frames runs len // L windows
 of L consecutive local frames and G global frames drawn by
-random.Random(42) from the others. `--post` runs REPP.
+random.Random(42) from the others. `--post` runs REPP. `--int8` and
+`--int8-calib K` are tscd_demo's.
 """
 
 import random
@@ -63,9 +64,10 @@ def run(args) -> Dict:
     "ms_per_frame"}, as tscd_demo.run."""
     from tscd_torch.data.vid import VID_CLASSES
 
-    exp, frames, processed, ratios, predict = prepare(args, "yolov_l")
+    exp, frames, processed, ratios, predict, mode = prepare(args, "yolov_l")
     t0 = time.time()
-    all_dets = run_windows(exp, frames, processed, predict)
+    with mode:
+        all_dets = run_windows(exp, frames, processed, predict)
     dt = time.time() - t0
     ms = 1000 * dt / len(frames)
     print(f"inference: {ms:.1f} ms/frame ({len(frames) / dt:.1f} fps)")

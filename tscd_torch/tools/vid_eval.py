@@ -9,28 +9,23 @@ Runs the exp's val windows (YOLOV-L's: 0 local + 32 global frames at 576
 px) through the model on the card (or the device given) and prints mAP
 and AP50; with lframe 0 every frame of a window is evaluated. `-c`, `--dataset`,
 `--lframe`, `--gframe`, `--tnum`, `--device`, `--output` and the exp
-overrides (`key value` pairs, after every flag) are tscd_eval's.
-`--int8` (JAX's w8a8 serving mode) is not ported yet and raises.
+overrides (`key value` pairs, after every flag) are tscd_eval's, and so
+are `--int8` (JAX's w8a8 serving mode, dynamic scales) and `--int8-calib
+K` (static scales calibrated on the first K val windows).
 """
 
 from . import tscd_eval
 
 
 def make_parser():
-    parser = tscd_eval.make_parser(
+    return tscd_eval.make_parser(
         "YOLOV eval (PyTorch port)",
         "yolov_l (default), yolov_s, v++_base, v++_base_decoupleReg, v++_large, "
         "v_plus_base, ... or yolov_selftest")
-    parser.add_argument("--int8", action="store_true",
-                        help="JAX's w8a8 int8 serving mode: not ported (raises)")
-    return parser
 
 
 def main(argv=None):
-    args = make_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8: int8 eval is not ported yet (ROADMAP queue 1 item 9)")
-    return tscd_eval.run(args, "yolov_l")
+    return tscd_eval.run(make_parser().parse_args(argv), "yolov_l")
 
 
 if __name__ == "__main__":

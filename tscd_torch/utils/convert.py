@@ -512,6 +512,27 @@ def state_dict_from_flax(variables: Mapping[str, Mapping],
     return out
 
 
+def scales_from_flax_quant(quant: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """JAX's `quant` collection (the calibrated `act_scale` of each
+    quantizing BaseConv under its flax module path, blocks.py:288-289) ->
+    the port's scales dict {BaseConv name: act_scale (C_in,) fp32}, for
+    `utils.model_utils.set_int8_scales(model, scales)`. BaseConvs JAX
+    recorded no scale for are left out."""
+    from ..models.blocks import BaseConv
+    template = model.state_dict()
+    towers, bb, elan = yolov_towers(template), backbone_layout(template), elan_layout(template)
+    flat = flatten_tree(quant)
+    out = {}
+    for name, m in model.named_modules():
+        if not isinstance(m, BaseConv):
+            continue
+        path = flax_module_path(f"{name}.conv.weight", towers, bb, elan)
+        key = None if path is None else path[:-1] + ("act_scale",)
+        if key in flat:
+            out[name] = torch.from_numpy(np.array(flat[key], np.float32))
+    return out
+
+
 def _mha_kernel(arr: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
     """A flax attention projection's kernel as a 2-d (in, out) matrix:
     query/key/value (dim, heads, head_dim) -> (dim, heads head_dim), out

@@ -1,7 +1,8 @@
 """Inference-time transforms (counterpart of
 tscd_tpu/utils/model_utils.py: `fuse_conv_bn_params` :45 and
 `fused_batch_stats` :78; reference model_utils.py fuse_conv_and_bn and
-fuse_model).
+fuse_model), and the int8 serving mode's weight preparation
+(`prepare_int8`, `set_int8_scales`).
 
 Folding BatchNorm into the conv before it: the conv weight absorbs
 gamma / sqrt(var + eps) per output channel and the BN becomes the bias
@@ -16,12 +17,13 @@ so a folded port model equals the unfolded forward up to rounding and
 differs from JAX's folded forward by that factor, about 5e-6 relative.
 """
 
+import itertools
 from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
-from ..models.blocks import BaseConv
+from ..models.blocks import BaseConv, Int8Weights
 
 BN_EPS = 1e-5
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
@@ -79,4 +81,72 @@ def fuse_model(model: nn.Module,
                 w.shape[0], dtype=w.dtype, device=w.device))
             m.bn = None
     model.load_state_dict(folded)
+    return model
+
+
+_INT8_TOKENS = itertools.count(1)
+
+
+def prepare_int8(model: nn.Module,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> nn.Module:
+    """Prepares every groups-1 BaseConv of `model` for the int8 serving
+    mode (`models.blocks.int8_eval`), in place, and returns the model: the
+    BN-folded fp32 weight and bias, as JAX folds them at each int8 forward
+    (blocks.py:266-272: s = gamma / sqrt(var + 1e-5), w s, beta - mean s;
+    a BaseConv whose BN is folded already takes its fp32 weight and bias,
+    JAX's `use_bias` branch), the packed int8 weights and their scales.
+    They stay on each BaseConv, outside the state_dict, on its device, and
+    replace any earlier preparation: call it again after new weights.
+
+    The weights come from `state_dict`, the fp32 state_dict of the model
+    (unfolded, or folded by `fuse_conv_bn_state_dict`), since JAX quantizes
+    fp32 parameters and a bf16 model's conv weights were rounded on load.
+    Without it they come from the model, whose conv weights must then be
+    fp32. Static scales come after it, by `set_int8_scales`."""
+    convs = [(n, m) for n, m in model.named_modules()
+             if isinstance(m, BaseConv) and m.conv.groups == 1]
+    if state_dict is not None:
+        sd = fuse_conv_bn_state_dict(state_dict) if any(
+            m.bn is None and (n + "." if n else "") + "bn.running_mean" in state_dict
+            for n, m in convs) else state_dict
+    else:
+        if any(m.conv.weight.dtype != torch.float32 for _, m in convs):
+            raise ValueError("prepare_int8 quantizes fp32 weights: pass the fp32 "
+                             "state_dict of a model that computes in bf16")
+        sd = model.state_dict()
+    f32 = torch.float32
+    for n, m in convs:
+        dev = m.conv.weight.device
+        p = n + "." if n else ""
+        w = sd[p + "conv.weight"].to(dev, f32)
+        if m.bn is not None:
+            gamma, beta, mean, var = (sd[p + "bn." + k].to(dev, f32) for k in _BN_LEAVES[:4])
+            s = gamma / torch.sqrt(var + BN_EPS)
+            w_eff = w * s[:, None, None, None]
+            b_eff = beta - mean * s
+        else:
+            w_eff = w
+            b = sd.get(p + "conv.bias")
+            b_eff = (b.to(dev, f32) if b is not None
+                     else torch.zeros(w.shape[0], dtype=f32, device=dev))
+        m._int8 = Int8Weights(w_eff.contiguous(), b_eff.contiguous())
+    model._int8_token = next(_INT8_TOKENS)
+    return model
+
+
+def set_int8_scales(model: nn.Module, scales: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Gives the prepared BaseConvs of `model` (`prepare_int8`) their
+    static route from calibrated scales ({BaseConv name: act_scale (C_in,)},
+    `models.blocks.quantize_int8`'s result), in place, and returns the
+    model. It touches only the scales and what is derived from them; a name
+    that is not a prepared BaseConv raises."""
+    convs = {n: m for n, m in model.named_modules()
+             if isinstance(m, BaseConv) and m._int8 is not None}
+    missing = [n for n in scales if n not in convs]
+    if missing:
+        raise KeyError(f"set_int8_scales: {missing[:5]} name no BaseConv prepared by "
+                       "prepare_int8")
+    for n, s in scales.items():
+        convs[n]._int8.set_scales(s)
+    model._int8_token = next(_INT8_TOKENS)
     return model
