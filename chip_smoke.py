@@ -294,6 +294,20 @@ Phases, each of which raises on failure (so the run exits non-zero):
              fp (max, p99.9); (d) the selftest window, card against the
              CPU port, dynamic and static. The kernels line gets the
              `int8_conv` row.
+ 19. int8_train the int8 training knobs on TSCD-Large's stage-2 step (4 +
+             12 frames at 576 px), fp32 and bf16: fp, the frozen int8
+             backbone and QAT (`int8_conv_ste`), each from the same state:
+             finite losses, the frozen backbone bit-unchanged, the head
+             moved, the int8 launches a step (wrappers and trace), step
+             ms; the QAT window bit-equal to int8 serving; the STE conv
+             against its plain version. The int8_conv row gets its
+             launches a training step.
+ 20. export  `tscd_torch.tools.export`: YOLOX-L --raw at 640 through
+             AOTInductor (compiled in a background process started after
+             the setup build) and the C++ runner with the C++ ops, its
+             detections against the port's; YOLOX-L --int8 bit-equal to
+             eager; TSCD-Large's --video step equal to eager over 2
+             carried windows.
 The kernels phase also checks the attention's streaming route (q > 128)
 against its plain version: masks (all keys but one invalid, all
 invalid), bit-identical calls, q = k = 960 at d 64 (fp32 and bf16 q/k/v,
@@ -491,7 +505,7 @@ def odd_replays(ks):
                          for i, g in enumerate(groups) if g != ref]
 
 
-def timed(torch, fn, reps, kernel, warmup=2, attempts=3):
+def timed(torch, fn, reps, kernel, warmup=2, attempts=3, bound_ms=None):
     """One call's times in ms: `ms`, the self device time of the CUDA
     kernels whose names hold `kernel`, from torch.profiler over `reps`
     calls (and `ms_by_kernel` where a call launches several); `call_ms`,
@@ -500,7 +514,9 @@ def timed(torch, fn, reps, kernel, warmup=2, attempts=3):
     once a call, so the trace must hold `reps` of each: one that holds
     fewer, or none at all, lost records (PERF.md §7) and is taken again,
     `attempts` times in all, before it raises. One that holds more
-    raises at once."""
+    raises at once. Where the call's `bound_ms` is given, a trace whose
+    `ms` is under it misread its records (the card cannot be faster) and
+    is taken again likewise."""
     from torch.autograd import DeviceType
     call_ms = cuda_ms(torch, fn, reps, warmup)
     for attempt in range(1, attempts + 1):
@@ -511,18 +527,20 @@ def timed(torch, fn, reps, kernel, warmup=2, attempts=3):
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and kernel in e.key]
         counts = {e.key[:60]: e.count for e in evs}
-        if evs and all(n == reps for n in counts.values()):
+        ms = sum(e.self_device_time_total for e in evs) / 1e3 / reps
+        under = bound_ms is not None and ms < bound_ms
+        if evs and all(n == reps for n in counts.values()) and not under:
             break
         seq = launch_records(trace_events(prof, os.path.join(HERE, "build",
                                                              "trace_timed_incomplete.json")))
         emit({"phase": "trace", "timed": kernel, "reps": reps, "counts": counts,
               "attempt": attempt, "host_launches": len(seq),
-              "lost_at": [i for i, (_, ks) in enumerate(seq) if not ks]})
+              "lost_at": [i for i, (_, ks) in enumerate(seq) if not ks],
+              **({"ms_under_bound": [ms, bound_ms]} if under else {})})
         if any(n > reps for n in counts.values()) or attempt == attempts:
-            raise AssertionError(f"{kernel}: {counts} launches in the trace of {reps} calls "
-                                 f"({attempt} traces)")
-    out = dict(ms=sum(e.self_device_time_total for e in evs) / 1e3 / reps,
-               call_ms=call_ms)
+            raise AssertionError(f"{kernel}: {counts} launches in the trace of {reps} calls, "
+                                 f"{ms} ms (bound {bound_ms}) ({attempt} traces)")
+    out = dict(ms=ms, call_ms=call_ms)
     if attempt > 1:
         out["traces"] = attempt
     if len(evs) > 1:       # a call of several launches: each one's share
@@ -2367,7 +2385,7 @@ def train_phase(torch, counters, steps=8):
     opt = state.optimizer
     lrs = [opt.lr(opt.count - n), opt.lr(opt.count - 1)]
     want = {"focus_stem": n, "fused_dual_attention": 2 * n,
-            "hungarian": exp.lframe * n, "nms": 0}
+            "hungarian": exp.lframe * n, "nms": 0, **NO_INT8}
     if n != steps or launches != want or backward_calls != 2 * n:
         raise AssertionError(f"{n} steps (of {steps}); wrapper launches {launches} != {want} "
                              f"or {backward_calls} attention backwards")
@@ -2924,7 +2942,8 @@ def train_bf16_phase(torch, counters, steps=8):
     ms, wall, peak = timed_steps(torch, run, steps, reset=reset)
     n = steps + 2
     launches = {name: c.launches for name, c in counters.items()}
-    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0,
+            **NO_INT8}
     if launches != want or fa.fused_dual_attention.backward_calls != 2 * n:
         raise AssertionError(f"train_bf16: wrapper launches {launches} != {want}")
     host = [{k: float(v) for k, v in r.items()} for r in losses]
@@ -3101,7 +3120,8 @@ def train_bn_phase(torch, counters, steps=4):
     ms, _, peak = timed_steps(torch, run, steps)
     launches = {name: c.launches for name, c in counters.items()}
     n = steps + 2
-    want = {"focus_stem": 0, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    want = {"focus_stem": 0, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0,
+            **NO_INT8}
     after = model.state_dict()
     running = [k for k in after if ".running_" in k]
     moved = sum(not torch.equal(after[k], sd0[k]) for k in running)
@@ -3183,7 +3203,7 @@ def train_backbone_grad_phase(torch, counters, steps=3):
     n, n_remat = 3 + 2 * (steps + 2), 1 + steps + 2
     # remat's backward recomputes the backbone's forward, the stem's kernel included
     want = {"focus_stem": n + n_remat, "fused_dual_attention": 2 * n, "hungarian": L * n,
-            "nms": 0}
+            "nms": 0, **NO_INT8}
     if launches != want:
         raise AssertionError(f"train_backbone_grad: wrapper launches {launches} != {want}")
     model.stop_backbone_grad, model.remat_backbone = False, False
@@ -3258,7 +3278,8 @@ def train_window_batch_phase(torch, counters):
     ms, _, peak = timed_steps(torch, lambda: train_step(st, *batch, L, G), 2, warmup=1)
     launches = {name: c.launches for name, c in counters.items()}
     n = 2 + 2 + 2 * 3           # windows: the step, the two alone, 3 timed steps
-    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0}
+    want = {"focus_stem": n, "fused_dual_attention": 2 * n, "hungarian": L * n, "nms": 0,
+            **NO_INT8}
     ok = (grad_err <= WINDOW_GRAD_TOL and lr_x2 and launches == want
           and set(mean) == set(grads) - set(n for n in names if n.startswith("backbone")))
     emit({"phase": "train_window_batch",
@@ -3440,7 +3461,7 @@ def eval_cli_phase(torch, counters):
     # the first window runs eagerly, then its graph is captured (the
     # wrappers run again, recording), then 31 replays run no Python
     per_window = window_launches(1, exp.lframe_val, bf16=False)
-    want_wrapped = {name: 2 * per_window[name] for name in counters}
+    want_wrapped = {name: 2 * per_window.get(name, 0) for name in counters}
     # a trace that holds fewer launches than the run made, and of no row
     # more, lost records (PERF.md §7): the CLI's run is traced again, 3
     # times in all
@@ -4868,7 +4889,7 @@ def still_phase(torch, counters):
         n = {k: c.launches for k, c in counters.items()}
         batches = -(-32 // 8)
         if n != {"focus_stem": batches, "fused_dual_attention": 0, "hungarian": 0,
-                 "nms": batches}:
+                 "nms": batches, **NO_INT8}:
             raise AssertionError(f"eval at {e.test_size}: wrapper launches {n}")
         passes[name] = {"test_size": list(e.test_size), "nmsthre": e.nmsthre,
                         "test_conf": e.test_conf, "ms_per_image": res.get("ms_per_image"),
@@ -7191,9 +7212,12 @@ INT8_TIMED_CLASSES = 6          # shape classes timed, by MACs a window (and a 1
 INT8_NUDGES = 8                 # the CPU's own spread: draws of frames an ulp off
 INT8_SPREAD_CAP = 7.0           # the spread's mean bound over the 0.1 rule, at most
 INT8_BF16_SPREAD = 2.0          # bf16 window's p99.9 |int8 - fp| over the fp32 window's
-INT8_COLD_BYTES = 128 * 2 ** 20   # the timed passes' inputs, all copies: over the 50 MB L2
+INT8_COLD_BYTES = 256 * 2 ** 20   # the timed passes' inputs, all copies: 5x the 50 MB L2
 INT8_EXTRA_SHAPES = (           # ragged cases: F, C_in, H, W, C_out, k, stride, pad
     (3, 48, 17, 13, 72, 3, 1, 1), (2, 64, 20, 20, 40, 3, 1, 0), (1, 96, 7, 9, 136, 3, 2, 1))
+
+
+NO_INT8 = {"int8_conv": 0, "quantize_int8_activation": 0, "abs_max": 0, "pack_int8_weight": 0}
 
 
 def int8_counters():
@@ -7340,7 +7364,8 @@ def int8_timed_shape(torch, dev, rng, shape, per_window):
     b_ms, b_by = bound(nbytes, (2.0 * M * N * k * k * C, H100_INT8_OPS))
     rec = dict(shape={"F": F, "C_in": C, "H": H, "W": W, "C_out": N, "k": k, "stride": stride,
                       "pad": pad}, launches_a_window=per_window,
-               **timed(torch, run, 20, INT8_TRACE["conv"]), bound_ms=b_ms, bound_by=b_by,
+               **timed(torch, run, 20, INT8_TRACE["conv"], bound_ms=b_ms), bound_ms=b_ms,
+               bound_by=b_by,
                tera_ops=2.0 * M * N * k * k * C / 1e12,
                plain_ms=cuda_ms(torch, lambda: q8.epilogue_reference(
                    q8.int8_conv_reference(xq, wq, stride, pad), q8.dynamic_scale(amax), s_w, b,
@@ -7366,14 +7391,14 @@ def int8_timed_shape(torch, dev, rng, shape, per_window):
     copies = [x] + [x.clone() for _ in range(-(-INT8_COLD_BYTES // (4 * x.numel())) - 1)]
     turn = itertools.cycle(copies)
     rec["quantize"] = dict(**timed(torch, lambda: q8.quantize_int8_activation(next(turn), amax),
-                                   20, INT8_TRACE["quantize"]),
+                                   20, INT8_TRACE["quantize"], bound_ms=qb_ms),
                            bound_ms=qb_ms, bound_by="bytes", copies=len(copies),
                            plain_ms=cuda_ms(torch, lambda: q8.quantize_reference(
                                next(turn), amax, "dynamic"), 5),
                            library_ms=None, library="none: torch.quantize_per_tensor clips to "
                            "-128 and keeps NCHW")
     rec["abs_max"] = dict(**timed(torch, lambda: q8.abs_max(next(turn)), 20,
-                                  INT8_TRACE["absmax"]),
+                                  INT8_TRACE["absmax"], bound_ms=ab_ms),
                           bound_ms=ab_ms, bound_by="bytes", copies=len(copies),
                           plain_ms=cuda_ms(torch, lambda: next(turn).abs().amax(), 20),
                           library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
@@ -7567,10 +7592,7 @@ def int8_phase(torch, counters):
     from tscd_torch.ops.position import get_timing_signal_1d
     from tscd_torch.utils.model_utils import prepare_int8, set_int8_scales
     t_phase = time.time()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True
-                         ).stdout.strip().splitlines()
-    card_name = smi[0] if smi else "not read"
+    card_name = card_name_and_limit()
     dev = card(torch)
     exp = large_exp()
     L, G = exp.lframe_val, exp.gframe_val
@@ -7663,12 +7685,520 @@ def int8_phase(torch, counters):
             "launches": {"int8_conv": windows["fp32"]["dynamic"]["replay_launches"]["conv"]}}
 
 
+# -- int8 training: a frozen int8 backbone, and QAT through the int8 conv ----
+
+INT8_TRAIN_CONFIG = ("TSCD-Large 4+12 frames 576px P=50, fix_bn, stop_backbone_grad, "
+                     "constant LR 0.01, each step from the same state")
+INT8_TRAIN_STEPS = 3             # timed steps a dtype and mode, after 1
+INT8_STE_TOL = 1e-4              # of each gradient's largest value (see int8_ste_part)
+# the STE conv at main-path shapes of TSCD-Large's training window (16 frames at
+# 576 px): F, C_in, H, W, C_out, k, stride, pad, act
+INT8_STE_SHAPES = ((16, 256, 72, 72, 256, 3, 1, 1, "silu"), (16, 512, 36, 36, 256, 1, 1, 0, "silu"),
+                   (16, 256, 72, 72, 30, 1, 1, 0, "id"))
+
+
+def card_name_and_limit():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    return smi[0] if smi else "not read"
+
+
+def int8_ste_part(torch):
+    """`int8_conv_ste` (the QAT conv: abs max, quantize, packing and the
+    int8 conv forward; the STE backward's identity-epilogue conv and its
+    two cuDNN products) against `int8_conv_ste_reference` (fp32 float conv
+    of the fake-quantized values, autograd) on the same inputs, at
+    INT8_STE_SHAPES, fp32: its output against the serving route's
+    (`int8_conv` on the same packed weights, equal bit for bit, as it
+    launches the same kernels) and against the reference (whose fp32 sums
+    of up to 9 x 256 x 127^2 integers may round), and dx, dw, db within
+    INT8_STE_TOL of each gradient's largest value (the products sum in
+    another order; the backward recomputes its pre-activation from exact
+    sums)."""
+    import numpy as np
+
+    from tscd_torch.ops.kernels import int8_conv as q8
+    dev = card(torch)
+    rng = np.random.default_rng(70)
+    out = []
+    for shape in INT8_STE_SHAPES:
+        F, C, H, W, N, k, stride, pad, act = shape
+        x = torch.as_tensor(rng.normal(0, 2, (F, C, H, W)).astype(np.float32), device=dev)
+        w = torch.as_tensor((rng.normal(0, 1, (N, C, k, k)) / np.sqrt(C * k * k))
+                            .astype(np.float32), device=dev)
+        b = torch.as_tensor(rng.normal(0, 0.1, N).astype(np.float32), device=dev)
+        g = torch.as_tensor(rng.normal(0, 1, (F, N, q8.out_size(H, k, stride, pad),
+                                              q8.out_size(W, k, stride, pad)))
+                            .astype(np.float32), device=dev)
+        ins = [[t.clone().requires_grad_(True) for t in (x, w, b)] for _ in range(2)]
+        y = q8.int8_conv_ste(*ins[0], stride=stride, pad=pad, act=act, out_dtype=torch.float32)
+        yr = q8.int8_conv_ste_reference(*ins[1], stride, pad, act, torch.float32)
+        with torch.no_grad():
+            amax = q8.abs_max(x)
+            s_w = q8.weight_scale(w)
+            serve = q8.int8_conv(q8.quantize_int8_activation(x, amax), q8.pack_int8_weight(w, s_w),
+                                 s_w, b, stride=stride, pad=pad, act=act,
+                                 out_dtype=torch.float32, amax=amax)
+        y.backward(g)
+        yr.backward(g)
+        grads = {n: float((a.grad - r.grad).abs().max() / r.grad.abs().max())
+                 for n, a, r in zip(("dx", "dw", "db"), ins[0], ins[1])}
+        rec = {"shape": list(shape[:8]), "act": act,
+               "forward_equals_serving": torch.equal(y.detach(), serve),
+               "forward_vs_reference_max_abs": float((y - yr).abs().max()),
+               "grad_rel_err": grads}
+        rec["pass"] = rec["forward_equals_serving"] and max(grads.values()) <= INT8_STE_TOL
+        out.append(rec)
+        del x, w, b, g, ins, y, yr, serve
+        free_card(torch)
+    emit({"phase": "int8_train", "check": "int8_conv_ste against the serving conv and "
+          "int8_conv_ste_reference", "shapes": out,
+          "tolerance": f"forward = serving bit for bit; dx, dw, db within {INT8_STE_TOL} of "
+                       "the reference's largest", "pass": all(r["pass"] for r in out)})
+    if not all(r["pass"] for r in out):
+        raise AssertionError(f"int8_conv_ste: {out}")
+    return out
+
+
+def int8_serving_equal(torch, model, x, te, L, G, sd):
+    """TSCD-Large's eval window under QAT (`int8_eval(qat=True)`: the STE
+    conv on the live weights) against the dynamic int8 serving route
+    (`prepare_int8(model, sd)`, `int8_eval()`): raw outputs bit for bit;
+    `sd` the live weights in fp32 (what QAT folds)."""
+    from tscd_torch.models.blocks import int8_eval
+    from tscd_torch.utils.model_utils import prepare_int8
+    prepare_int8(model, sd)
+    with torch.no_grad():
+        with int8_eval():
+            serve = model(x, te, L, G)["raw_outputs"]
+        with int8_eval(qat=True):
+            qat = model(x, te, L, G)["raw_outputs"]
+    drop_int8(model)            # the serving preparation is not the steps'
+    return torch.equal(serve, qat)
+
+
+def drop_int8(model):
+    """Drops every BaseConv's int8 preparation (`prepare_int8`)."""
+    for m in model.modules():
+        if hasattr(m, "_int8"):
+            m._int8 = None
+
+
+def int8_train_phase(torch, counters):
+    """JAX's int8 training knobs (tscd_trainer.py:253-277) on TSCD-Large's
+    stage-2 step at the `train` phase's shape, fp32 and bf16 (fp32
+    masters), each mode from the same state: fp, the frozen int8 backbone
+    (`int8_eval(scope=(("backbone",),))`, its weights prepared from the fp32
+    masters) and QAT (`int8_eval(qat=True)`: every eligible conv, the
+    head's too, runs `int8_conv_ste`). Checks: finite losses; the frozen
+    backbone bit-unchanged and the head moved; the int8 wrappers' launches
+    a step (each step alike) and, in a traced step, the int8 kernels the
+    device ran equal to them; each mode's step ms (CUDA events) beside
+    the fp step's. Then each dtype's eval window under QAT bit-equal to
+    the dynamic int8 serving route, and `int8_conv_ste` against its
+    reference (`int8_ste_part`)."""
+    import numpy as np
+
+    from tscd_torch.core.tscd_trainer import int8_step_context, prepare_frozen_int8
+    from tscd_torch.models.tscd import random_init_
+    from tscd_torch.train.optim import GroupedSGD
+    from tscd_torch.train.step import init_train_state, train_step
+    t_phase = time.time()
+    card_name = card_name_and_limit()
+    exp = large_exp()
+    dev = card(torch)
+    L, G = exp.lframe, exp.gframe
+    sd32 = random_init_(exp.get_model(device=dev), exp.seed).state_dict()
+    x, lab, te = bench_train_inputs(torch, dev, exp.input_size[0], L, L + G)
+    int8 = tuple(NO_INT8)
+    res, per_step = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        model = train_model(torch, exp, sd32, dev, dtype, stop_backbone_grad=True)
+        opt = GroupedSGD(model.named_parameters(), lambda i: 0.01, freeze_prefixes=("backbone",),
+                         masters=sd32)
+        st = init_train_state(model, opt, exp.ema_decay)
+        params = dict(model.named_parameters())
+        start = {n: t.clone() for n, t in opt.updated.items()}
+        # the frozen backbone: its parameters and (at bf16) their fp32 masters
+        backbone = {n: t for n, t in list(params.items()) + [
+            ("master." + n, m) for n, m in opt.masters.items()] if "backbone." in n}
+        backbone0 = {n: t.detach().clone() for n, t in backbone.items()}
+
+        @torch.no_grad()
+        def reset():
+            for n, t in start.items():
+                opt.updated[n].copy_(t)
+                if n in opt.masters:
+                    params[n].copy_(t)
+                opt.trace[n].zero_()
+            opt.count = 0
+        res[tag] = {}
+        for mode in (None, "frozen_backbone", "qat"):
+            reset()
+            if mode == "frozen_backbone":
+                prepare_frozen_int8(model, st.model_state())
+            losses = []
+
+            def run():
+                with int8_step_context(mode):
+                    losses.append(train_step(st, x, lab, te, L, G))
+            for c in counters.values():
+                c.launches = 0
+            ms, _, peak = timed_steps(torch, run, INT8_TRAIN_STEPS, warmup=1, reset=reset)
+            n = INT8_TRAIN_STEPS + 1
+            counts = {k: counters[k].launches for k in int8}
+            step_counts = {k: v // n for k, v in counts.items()}
+            frozen = len(backbone) > 0 and all(torch.equal(t, backbone0[n])
+                                               for n, t in backbone.items())
+            moved = sum(not torch.equal(t, start[n]) for n, t in opt.updated.items())
+            host = [{k: float(v) for k, v in r.items()} for r in losses]
+            finite = all(np.isfinite(v) for r in host for v in r.values())
+            rec = {"step_ms": ms, "median_step_ms": float(np.median(ms)), "peak_mem_gb": peak,
+                   "losses_first": host[0], "finite": finite, "backbone_unchanged": frozen,
+                   "head_params_moved": moved, "int8_launches_a_step": step_counts}
+            if mode is not None:
+                reset()
+                if mode == "frozen_backbone":
+                    prepare_frozen_int8(model, st.model_state())
+                for c in counters.values():
+                    c.launches = 0
+                with traced(torch) as prof:
+                    run()
+                    torch.cuda.synchronize()
+                rec["traced_int8_kernels"] = int8_trace_counts(prof)
+                rec["traced_wrapper_launches"] = {k: counters[k].launches for k in int8}
+            if mode == "frozen_backbone":
+                ok = (step_counts["int8_conv"] > 0 and step_counts["pack_int8_weight"] == 0
+                      and step_counts["int8_conv"] == step_counts["abs_max"]
+                      == step_counts["quantize_int8_activation"])
+            elif mode == "qat":
+                ok = (step_counts["abs_max"] > 0 and step_counts["int8_conv"] > step_counts["abs_max"]
+                      and step_counts["abs_max"] == step_counts["quantize_int8_activation"]
+                      == step_counts["pack_int8_weight"])
+            else:
+                ok = not any(counts.values())
+            ok = ok and all(v == step_counts[k] * n for k, v in counts.items())
+            if mode is not None:
+                tw, tk = rec["traced_wrapper_launches"], rec["traced_int8_kernels"]
+                # the trace's kernels against the wrappers' counts of that step
+                # (the packing launches the quantize kernel)
+                ok = ok and tw == step_counts and tk == {
+                    "conv": tw["int8_conv"], "absmax": tw["abs_max"],
+                    "quantize": tw["quantize_int8_activation"] + tw["pack_int8_weight"]}
+            rec["pass"] = bool(ok and finite and frozen and moved > 0)
+            res[tag][mode or "fp"] = rec
+            if not rec["pass"]:
+                emit({"phase": "int8_train", "dtype": tag, "mode": mode or "fp", **rec})
+                raise AssertionError(f"int8_train {tag} {mode}: {rec}")
+        drop_int8(model)
+        reset()
+        model.eval()
+        live = {k: v.float() for k, v in model.state_dict().items()}
+        res[tag]["qat_window_equals_serving"] = int8_serving_equal(
+            torch, model, x, te, L, G, live)
+        per_step[tag] = {m: res[tag][m]["int8_launches_a_step"] for m in ("frozen_backbone", "qat")}
+        emit({"phase": "int8_train", "config": INT8_TRAIN_CONFIG, "dtype": tag,
+              "card": card_name, "modes": res[tag]})
+        if not res[tag]["qat_window_equals_serving"]:
+            raise AssertionError(f"int8_train {tag}: the QAT window differs from int8 serving")
+        del model, opt, st, params, start
+        free_card(torch)
+    ste = int8_ste_part(torch)
+    emit({"phase": "int8_train", "seconds": time.time() - t_phase, "card": card_name,
+          "median_step_ms": {d: {m: res[d][m]["median_step_ms"] for m in ("fp", "frozen_backbone",
+                                                                          "qat")} for d in res}})
+    return {"per_step": per_step, "ste": ste}
+
+
+# -- export: the hand kernels as torch ops, torch.export, AOTInductor ---------
+
+EXPORT_DIR = os.path.join(HERE, "build", "export")
+EXPORT_SIZE = 640
+EXPORT_CONF = 0.001      # random weights score near their 1e-2 x 1e-2 prior
+EXPORT_MAX_OUT = 30
+# the runner against the port: the package's fused pointwise ops round
+# otherwise than eager's BN and SiLU (raw outputs 3.5e-6 of the largest
+# apart on an H100), and random weights' box sides (exp of a raw
+# output, up to thousands of px) carry a raw output's relative error into
+# the box, whose corners cx -+ w/2 cancel: each coordinate within 1e-4 of
+# its box's largest |coordinate| plus the 2 decimals the runner prints,
+# scores within the 4 it prints
+EXPORT_RAW_TOL = 1e-4    # raw outputs, of the largest
+EXPORT_BOX_RTOL = 1e-4
+EXPORT_BOX_ATOL = 0.01
+EXPORT_SCORE_TOL = 2e-4
+RUNNER_ITERS = 20
+
+
+def cxx_builds():
+    """The export phase's C++ builds (csrc/torch_ops.cpp linked to the
+    kernel library, csrc/host/aoti_runner.cpp), on two threads; {name:
+    (path, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tscd_torch.ops.kernels import library
+    from tscd_torch.utils import native
+    t0 = time.time()
+    timed_build = lambda fn: (fn(), time.time() - t0)   # noqa: E731
+    with ThreadPoolExecutor(2) as pool:
+        futs = {"ops": pool.submit(timed_build, library.torch_ops_library),
+                "runner": pool.submit(timed_build, native.aoti_runner)}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def raw_export():
+    """YOLOX-L --raw through the export CLI in a process of its own, as a
+    user runs it (torch.export, the .pt2 round trip, AOTInductor's
+    compile), with nothing else on the card or the host meanwhile; its
+    JSON record, with the seconds the process took."""
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    out = os.path.join(EXPORT_DIR, "yolox_l_raw.pt2")
+    t0 = time.time()
+    rr = subprocess.run(
+        [sys.executable, "-m", "tscd_torch.tools.export", "-n", "yolox_l",
+         "--tsize", str(EXPORT_SIZE), "--raw", "--output", out], cwd=HERE,
+        capture_output=True, text=True, timeout=900)
+    if rr.returncode != 0:
+        raise AssertionError(f"export --raw failed:\n{rr.stderr[-4000:]}")
+    rec = json.loads(rr.stdout.strip().splitlines()[-1])
+    return dict(rec, cli_s=time.time() - t0)
+
+
+# a process that loads only torch and the op library of csrc/torch_ops.cpp
+# (no Python `tscd` ops, whose names it registers), runs each case's op on
+# the card and saves the outputs
+_CXX_OPS_SCRIPT = """
+import sys, torch
+torch.ops.load_library(sys.argv[1])
+cases = torch.load(sys.argv[2])
+outs = [getattr(torch.ops.tscd, name)(*args) for name, args in cases]
+torch.cuda.synchronize()
+torch.save([o.cpu() for o in outs], sys.argv[3])
+"""
+
+
+def cxx_op_cases(torch, dev, C=256, HW=80, stem=(1, EXPORT_SIZE, EXPORT_SIZE, 64)):
+    """Seeded inputs for each op of csrc/torch_ops.cpp at YOLOX-L's export
+    shapes: the stem (fp32 out, and bf16 out from uint8 and from fp32
+    frames) on (F, H, W, 3) frames to O channels, the abs max and the
+    dynamic and per-channel quantize passes on fp32 and bf16 (1, C, HW,
+    HW) maps, the weight packing of a (C, C, 3, 3) conv, and the conv at
+    stride 1 and 2 with each scale kind, activation and output type.
+    Returns [(case name, op name, args)]."""
+    g = torch.Generator().manual_seed(0)
+    randn = lambda *s: torch.randn(*s, generator=g).to(dev)             # noqa: E731
+    rand = lambda *s: torch.rand(*s, generator=g).to(dev)               # noqa: E731
+    Fs, Hs, Ws, O = stem
+    frames_u8 = torch.randint(0, 256, (Fs, Hs, Ws, 3), generator=g, dtype=torch.uint8).to(dev)
+    frames = frames_u8.float()
+    stem_w = (randn(O, 12, 3, 3) * 0.1, rand(O) + 0.5, randn(O))
+    x = randn(1, C, HW, HW) * 3
+    w = randn(C, C, 3, 3) * 0.05
+    s_w = w.abs().amax((1, 2, 3)) / 127
+    amax = x.abs().amax().reshape(1)
+    s_c = x.abs().amax((0, 2, 3)) / 127
+    ops = torch.ops.tscd
+    xq = ops.int8_quantize(x, amax, 0)
+    wq = ops.int8_quantize(w, s_w, 2)
+    bias = randn(C)
+    s_x = amax / 127
+    cases = [("stem fp32", "focus_stem", (frames, *stem_w)),
+             ("stem bf16 uint8", "focus_stem_bf16", (frames_u8, *stem_w)),
+             ("stem bf16 fp32", "focus_stem_bf16", (frames, *stem_w))]
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        cases += [(f"absmax {dt}", "int8_absmax", (xd,)),
+                  (f"quantize dynamic {dt}", "int8_quantize", (xd, amax, 0)),
+                  (f"quantize channel {dt}", "int8_quantize", (xd, s_c, 1))]
+    cases.append(("pack row", "int8_quantize", (w, s_w, 2)))
+    for stride in (1, 2):
+        for static, act, out in ((False, 1, 0), (True, 3, 1), (False, 0, 2)):
+            cases.append((f"conv s{stride} {'static' if static else 'dynamic'} act {act} "
+                          f"out {out}", "int8_conv",
+                          (xq, wq, s_w, bias, s_x if static else amax, stride, 1, static,
+                           act, out)))
+    return cases
+
+
+def cxx_ops_against_python(torch, ops_lib, dev, **shapes):
+    """Each op of csrc/torch_ops.cpp (in a process that loads the op
+    library, as the runner does) against the Python op of the same name
+    (`ops/kernels/ops.py`, its CUDA launcher) on the same card inputs
+    (`cxx_op_cases`): bit for bit. Returns {case: record}, `pass` in each."""
+    cases = cxx_op_cases(torch, dev, **shapes)
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    cin, cout = (os.path.join(EXPORT_DIR, f"cxx_ops.{k}.pt") for k in ("in", "out"))
+    torch.save([(name, args) for _, name, args in cases], cin)
+    rr = subprocess.run([sys.executable, "-c", _CXX_OPS_SCRIPT, str(ops_lib), cin, cout],
+                        capture_output=True, text=True, timeout=300)
+    if rr.returncode != 0:
+        raise AssertionError(f"the C++ ops failed:\n{rr.stderr[-4000:]}")
+    got = torch.load(cout)
+    out = {}
+    for (case, name, args), g in zip(cases, got):
+        want = getattr(torch.ops.tscd, name)(*args).cpu()
+        same = g.dtype == want.dtype and g.shape == want.shape
+        err = float((g.double() - want.double()).abs().max()) if same else None
+        out[case] = {"op": name, "shape": list(want.shape), "dtype": str(want.dtype),
+                     "max_abs_err": err, "pass": bool(same and torch.equal(g, want))}
+    for f in (cin, cout):
+        os.remove(f)
+    return out
+
+
+def runner_rows(stdout):
+    return [[float(v) for v in ln.split()[1:]] for ln in stdout.splitlines()
+            if ln.startswith("det ")]
+
+
+def runner_against_port(torch, exp, package, ops_lib, runner, dev, iters=0):
+    """The C++ runner (`runner`, with the op library `ops_lib`) on the
+    AOTInductor `package` of `exp`'s YOLOX exported --raw at its square
+    test size, on the synthetic image, against the port: the eager forward
+    of the same seeded model (`tools.export.build_model`) through the same
+    decode and NMS (ctypes): the raw outputs within EXPORT_RAW_TOL of the
+    largest, count and classes equal, boxes within EXPORT_BOX_RTOL of their
+    box's largest coordinate plus EXPORT_BOX_ATOL, scores within
+    EXPORT_SCORE_TOL; the printed lines compared. With `iters`, the
+    runner's ms an image (upload, forward, read back; host clock) and the
+    eager port's the same way (CUDA events). Returns the record, `pass`
+    in it."""
+    import numpy as np
+
+    from tscd_torch.tools import export as ex
+    from tscd_torch.utils.native import synth_image, yolox_decode_nms
+    size, C = exp.test_size[0], exp.num_classes
+    raw_path = os.path.join(os.path.dirname(package), "runner_raw.f32")
+    cmd = [str(runner), "--package", package, "--ops", str(ops_lib), "--height", str(size),
+           "--width", str(size), "--classes", str(C), "--conf", str(EXPORT_CONF),
+           "--max-out", str(EXPORT_MAX_OUT), "--iters", str(iters), "--dump-raw", raw_path]
+    t0 = time.time()
+    rr = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    run_s = time.time() - t0
+    if rr.returncode != 0:
+        raise AssertionError(f"aoti_runner failed:\n{rr.stderr[-4000:]}")
+    rec = {"runner_s": run_s}
+    model = ex.build_model(exp, None, dev, False)
+    fwd = ex.StillForward(model, raw=True)
+    host = torch.as_tensor(synth_image(size, size))
+    with torch.no_grad():
+        raw = fwd(host.to(dev))[0].cpu().numpy()
+        if iters:       # as the runner times an image: upload, forward, read back
+            rec["runner_ms_per_image"] = float([ln for ln in rr.stderr.splitlines()
+                                                if ln.startswith("ms_per_image")][0].split()[1])
+            rec["eager_ms_per_image"] = ex._cuda_ms(lambda: fwd(host.to(dev)).cpu())
+    hw = [(size // st, size // st) for st in (8, 16, 32)]
+    want = yolox_decode_nms(raw, hw, (8, 16, 32), C, EXPORT_CONF, 0.45, EXPORT_MAX_OUT)
+    want = np.concatenate([want[:, :4], (want[:, 4] * want[:, 5])[:, None], want[:, 6:7]], 1)
+    got = np.asarray(runner_rows(rr.stdout)).reshape(-1, 6)
+    fmt = lambda rows: ["det %.2f %.2f %.2f %.2f %.4f %d" % (*r[:5], int(r[5]))  # noqa: E731
+                        for r in rows]
+    raw_err = float(np.abs(np.fromfile(raw_path, np.float32).reshape(raw.shape) - raw).max()
+                    / np.abs(raw).max())
+    same = len(got) == len(want) and len(got) > 0
+    err = {"raw_rel": raw_err}
+    ok = same
+    if same:
+        d = np.abs(got[:, :4] - want[:, :4])
+        scale = np.abs(want[:, :4]).max(1, keepdims=True)
+        err.update(boxes=float(d.max()), boxes_rel_to_box=float((d / np.maximum(scale, 1)).max()),
+                   scores=float(np.abs(got[:, 4] - want[:, 4]).max()))
+        ok = (np.array_equal(got[:, 5], want[:, 5])
+              and bool((d <= EXPORT_BOX_RTOL * scale + EXPORT_BOX_ATOL).all())
+              and err["scores"] <= EXPORT_SCORE_TOL)
+    ok = bool(ok and raw_err <= EXPORT_RAW_TOL)
+    del model, fwd
+    return dict(rec, detections=len(got), detections_port=len(want),
+                printed_lines_equal=fmt(got) == fmt(want), max_abs_err=err,
+                tolerance={"raw_rel": EXPORT_RAW_TOL, "boxes": f"{EXPORT_BOX_RTOL} x the box's "
+                           f"largest |coordinate| + {EXPORT_BOX_ATOL} px",
+                           "scores": EXPORT_SCORE_TOL, "count_and_classes": "equal"},
+                **{"pass": ok})
+
+
+def export_phase(torch, counters):
+    """`tscd_torch.tools.export` on the card, each part alone on the card
+    and the host: (a) YOLOX-L --raw at 640 (in a process of its own, as a
+    user runs the CLI: torch.export, the saved .pt2 round trip, then
+    AOTInductor), the C++ ops of csrc/torch_ops.cpp against the Python
+    ops bit for bit (`cxx_ops_against_python`), and the C++ runner on the
+    package with those ops, its detections on the synthetic image against
+    the Python port's (the eager forward, then the same decode and NMS
+    through ctypes: the runner's raw output within EXPORT_RAW_TOL of the
+    largest, count and classes equal, boxes within EXPORT_BOX_RTOL of
+    their box's largest coordinate plus EXPORT_BOX_ATOL, scores within
+    EXPORT_SCORE_TOL, and the printed lines compared), its ms per image
+    beside the eager forward's; (b) YOLOX-L --int8: the exported
+    program's output bit-equal to the eager int8 port; (c) TSCD-Large
+    --video: the exported streaming step over 2 windows, the state
+    carried, equal to the eager port (TF32 off). Each with its export
+    seconds and exported and eager ms."""
+    from tscd_torch.exp import get_exp
+    from tscd_torch.tools import export as ex
+    t_phase = time.time()
+    card_name = card_name_and_limit()
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    builds = cxx_builds()
+    emit({"phase": "export", "builds": {k: {"path": str(p), "s": s}
+                                        for k, (p, s) in builds.items()}})
+    ops_lib, runner = builds["ops"][0], builds["runner"][0]
+    dev = card(torch)
+
+    # (a) --raw, AOTInductor, the C++ ops and the runner
+    raw_rec = raw_export()
+    cxx = cxx_ops_against_python(torch, ops_lib, dev)
+    ok_cxx = all(r["pass"] for r in cxx.values())
+    emit({"phase": "export", "part": "cxx_ops", "card": card_name, "cases": cxx,
+          "tolerance": "bit-equal", "pass": ok_cxx})
+    free_card(torch)
+    if not ok_cxx:
+        raise AssertionError(f"the C++ ops against the Python ops: {cxx}")
+    exp = get_exp(None, "yolox_l")
+    exp.test_size = (EXPORT_SIZE, EXPORT_SIZE)
+    a = runner_against_port(torch, exp, raw_rec["package"], ops_lib, runner, dev, RUNNER_ITERS)
+    ok_a = a["pass"] and raw_rec["ops"] == ["tscd.focus_stem.default"]
+    a = {"config": f"YOLOX-L 80 classes {EXPORT_SIZE}px fp32, seeded weights", **raw_rec, **a,
+         "pass": ok_a}
+    emit({"phase": "export", "part": "raw", "card": card_name, **a})
+    free_card(torch)
+    if not ok_a:
+        raise AssertionError(f"export --raw: the runner against the port: {a}")
+
+    # (b) --int8 and (c) --video, in this process
+    exp = get_exp(None, "yolox_l")
+    exp.test_size = (EXPORT_SIZE, EXPORT_SIZE)
+    b = ex.export(exp, output=os.path.join(EXPORT_DIR, "yolox_l_int8.pt2"), int8=True,
+                  device=dev)
+    emit({"phase": "export", "part": "int8", "card": card_name,
+          "config": f"YOLOX-L {EXPORT_SIZE}px, w8a8 dynamic", **b})
+    free_card(torch)
+    c = ex.export(large_exp(), output=os.path.join(EXPORT_DIR, "tscd_large_video.pt2"),
+                  video=True, device=dev)
+    emit({"phase": "export", "part": "video", "card": card_name,
+          "config": "TSCD-Large 1+31 frames 576px P=50 fp32, TF32 off, 2 windows carried",
+          **c})
+    free_card(torch)
+    int8_ops = {"tscd.focus_stem.default", "tscd.int8_absmax.default",
+                "tscd.int8_conv.default", "tscd.int8_quantize.default"}
+    video_ops = {"tscd.focus_stem.default", "tscd.fused_dual_attention.default",
+                 "tscd.linear_sum_assignment.default", "tscd.nms_sorted.default"}
+    ok = b["equal"] and set(b["ops"]) == int8_ops and c["equal"] and set(c["ops"]) == video_ops
+    emit({"phase": "export", "seconds": time.time() - t_phase, "card": card_name,
+          "cxx_ops_bit_equal": ok_cxx, "raw_runner_matches_port": ok_a, "int8_bit_equal": b["equal"],
+          "video_equal_2_windows": c["equal"], "pass": bool(ok)})
+    if not ok:
+        raise AssertionError(f"export: int8 equal {b['equal']} ops {b['ops']}, video equal "
+                             f"{c['equal']} ops {c['ops']}")
+    return {"raw": a, "int8": b, "video": c}
+
+
 # the phases `--phase` runs alone: each takes (torch, counters); `train`
 # runs the trainer and the four parts of the rest of JAX's trainer
 PHASES = ("full", "bf16", "eval", "files", "train", "train_bf16", "train_bn",
           "train_backbone_grad", "train_window_batch", "train_bf16_chain", "heads", "still",
           "ovis", "yolov", "ovis_yolov_plus", "yolov_online", "demo", "backbones", "zoo",
-          "int8", "trace_lead_in")
+          "int8", "int8_train", "export", "trace_lead_in")
 PHASE_PARTS = {"train": ("train", "train_bf16", "train_bn", "train_backbone_grad",
                          "train_window_batch")}
 
@@ -7693,7 +8223,10 @@ def below_bound(rows):
 
 
 def kernel_counters():
-    """Every hand kernel's wrapper, whose `.launches` counts its launches."""
+    """Every hand kernel's wrapper, whose `.launches` counts its launches:
+    the four kernels of the window and the int8 wrappers (`int8_counters`),
+    which run in the int8 serving windows and in the int8 training steps
+    (phase `int8_train`); every other phase requires them at 0."""
     from tscd_torch.ops.kernels import focus_stem as fs
     from tscd_torch.ops.kernels import fused_attention as fa
     from tscd_torch.ops.kernels import hungarian as hu
@@ -7701,7 +8234,8 @@ def kernel_counters():
     return {"focus_stem": fs.focus_stem,
             "fused_dual_attention": fa.fused_dual_attention,
             "hungarian": hu.linear_sum_assignment,
-            "nms": kn.nms_sorted}
+            "nms": kn.nms_sorted,
+            **int8_counters()}
 
 
 def phase_main(torch, name):
@@ -7798,6 +8332,11 @@ def main() -> int:
     int8 = int8_phase(torch, counters)
     rows.update(int8["rows"])
     launches.update(int8["launches"])
+    int8_train = int8_train_phase(torch, counters)
+    rows["int8_conv"]["launches_per_train_step"] = {
+        d: {m: n["int8_conv"] for m, n in per.items()} for d, per in int8_train["per_step"].items()}
+    rows["int8_conv"]["ste"] = int8_train["ste"]
+    export_phase(torch, counters)
     rows["fused_dual_attention"]["backward"]["launches_per_train_step"] = {
         "calls": per_step["fused_dual_attention_backward_calls"],
         "kernels": per_step["fused_dual_attention_backward_kernels"]}

@@ -44,7 +44,16 @@ value; the int8 kernels (the abs max, the quantize pass, the weight
 packing, the conv's int32 sums) equal to their plain versions, the
 dequantized output within one ulp of fp32 and of bf16, and the selftest
 int8 window on the card against the CPU port by
-tests/test_torch_port_int8.py's rule.
+tests/test_torch_port_int8.py's rule; each `tscd::` op launching its
+kernel once a call, the QAT conv's forward equal to the serving route's
+and its STE gradients within 1e-4 of the largest of its reference's,
+torch.export of a small int8 YOLOX (bit-equal) and of the selftest TSCD's
+streaming step (equal over 2 windows), and a small YOLOX's AOTInductor
+package through the C++ runner against the eager port (raw outputs 1e-4
+of the largest, detections' count and classes equal, boxes 1e-4 of their
+box's largest coordinate plus 0.01 px, scores 2e-4), each op of
+csrc/torch_ops.cpp bit-equal to its Python op, and select_proposals at
+pre_topk 750 on the card equal to the CPU port.
 """
 
 import numpy as np
@@ -1175,3 +1184,165 @@ def test_cuda_int8_selftest_window_matches_cpu(fp32_card):
     (`chip_smoke.int8_spread_rule`)."""
     import chip_smoke
     chip_smoke.int8_small_part(torch)
+
+
+# -- the kernels as torch ops, the QAT conv, export ------------------------------
+
+@pytest.mark.cuda
+def test_cuda_each_op_launches_its_kernel(card):
+    """Each `tscd::` op on CUDA tensors is its kernel's launcher: its
+    wrapper's count moves by one a call, and the result equals the
+    wrapper's own (which goes through the same op)."""
+    rng = np.random.default_rng(40)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(card)  # noqa: E731
+    x = f(2, 16, 12, 3) * 50
+    w3, scale, shift = f(8, 12, 3, 3), f(8).abs() + 0.5, f(8)
+    boxes = torch.tensor([[[0., 0., 2., 2.], [0., 0., 2., 2.1], [5., 5., 6., 6.]]], device=card)
+    valid = torch.ones(1, 3, dtype=torch.bool, device=card)
+    cases = [(pfs.focus_stem, lambda: torch.ops.tscd.focus_stem(x, w3, scale, shift)),
+             (pfs.focus_stem, lambda: torch.ops.tscd.focus_stem_bf16(x, w3, scale, shift)),
+             (pkh.linear_sum_assignment, lambda: torch.ops.tscd.linear_sum_assignment(f(1, 5, 5))),
+             (pkn.nms_sorted, lambda: torch.ops.tscd.nms_sorted(boxes, valid, 0.5)),
+             (pkn.pack, lambda: torch.ops.tscd.nms_pack(boxes, 0.5)),
+             (pq8.abs_max, lambda: torch.ops.tscd.int8_absmax(f(2, 40, 6, 5))),
+             (pq8.quantize_int8_activation,
+              lambda: torch.ops.tscd.int8_quantize(f(2, 40, 6, 5), f(40).abs() + 0.1, 1)),
+             (pq8.pack_int8_weight,
+              lambda: torch.ops.tscd.int8_quantize(f(8, 40, 3, 3), f(8).abs() + 0.1, 2))]
+    for wrapper, call in cases:
+        n0 = wrapper.launches
+        call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1, wrapper.__name__
+    assert torch.equal(torch.ops.tscd.focus_stem(x, w3, scale, shift),
+                       pfs.focus_stem(x, w3, scale, shift))
+    assert torch.ops.tscd.nms_sorted(boxes, valid, 0.5).tolist() == [[True, False, True]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,dtype", [("silu", torch.float32), ("lrelu", torch.float32),
+                                       ("silu", torch.bfloat16)])
+def test_cuda_int8_conv_ste_matches_reference(fp32_card, act, dtype):
+    """The QAT conv on the card (`int8_conv_ste`, `_Int8ConvSTE`): its
+    forward equals the dynamic serving route's launches bit for bit; its
+    STE gradients (dx, dw, db) are within 1e-4 of the largest of
+    `int8_conv_ste_reference`'s on the card at fp32 (the same cuDNN
+    products; the recomputed pre-activation from exact int32 sums), and
+    within 2^-7 of the largest at bf16, where the reference's
+    pre-activation comes from cuDNN's fp32 conv, whose algorithms round,
+    and a bf16 rounding flip of it moves a gradient by a bf16 ulp (3.1e-3
+    of the largest, measured on an H100)."""
+    rng = np.random.default_rng(41)
+    card = fp32_card
+    x = torch.from_numpy(rng.normal(0, 2, (2, 96, 20, 20)).astype(np.float32)).to(card, dtype)
+    w = torch.from_numpy((rng.normal(0, 1, (64, 96, 3, 3)) / 30).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 0.1, 64).astype(np.float32)).to(card)
+    ins = [[t.clone().requires_grad_(True) for t in (x, w, b)] for _ in range(2)]
+    n0 = pq8.int8_conv.launches
+    y = pq8.int8_conv_ste(*ins[0], stride=1, pad=1, act=act, out_dtype=dtype)
+    yr = pq8.int8_conv_ste_reference(*ins[1], 1, 1, act, dtype)
+    with torch.no_grad():
+        amax = pq8.abs_max(x)
+        s_w = pq8.weight_scale(w)
+        serve = pq8.int8_conv(pq8.quantize_int8_activation(x, amax), pq8.pack_int8_weight(w, s_w),
+                              s_w, b, stride=1, pad=1, act=act, out_dtype=dtype, amax=amax)
+    assert torch.equal(y.detach(), serve)
+    g = torch.from_numpy(rng.normal(size=tuple(y.shape)).astype(np.float32)).to(card, dtype)
+    y.backward(g)
+    yr.backward(g)
+    assert pq8.int8_conv.launches == n0 + 3        # forward, serving, the backward's recompute
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, r in zip(ins[0], ins[1]):
+        assert float((a.grad.float() - r.grad.float()).abs().max()) <= \
+            tol * float(r.grad.float().abs().max())
+
+
+def _yolox_tiny():
+    from tscd_torch.exp import get_exp
+    exp = get_exp(None, "yolox_s")
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 5
+    exp.test_size = (128, 128)
+    return exp
+
+
+@pytest.mark.cuda
+def test_cuda_int8_and_video_exports_equal_eager(fp32_card, tmp_path):
+    """torch.export on the card: a small YOLOX's int8 forward (the C_in
+    gate at 16) bit-equal to the eager port, and the selftest TSCD's
+    streaming step equal to it over 2 windows, the state carried."""
+    from tscd_torch.exp.tscd_large import selftest_exp
+    from tscd_torch.models import blocks as pblk
+    from tscd_torch.tools import export as ex
+    old = pblk.INT8_MIN_CIN
+    pblk.INT8_MIN_CIN = 16
+    try:
+        rec = ex.export(_yolox_tiny(), output=str(tmp_path / "i.pt2"), int8=True, raw=True,
+                        device="cuda")
+    finally:
+        pblk.INT8_MIN_CIN = old
+    assert rec["equal"] and "tscd.int8_conv.default" in rec["ops"]
+    rec = ex.export(selftest_exp(), output=str(tmp_path / "v.pt2"), video=True, device="cuda")
+    assert rec["equal"] and "tscd.linear_sum_assignment.default" in rec["ops"]
+
+
+@pytest.mark.cuda
+def test_cuda_aoti_runner_matches_port(fp32_card, tmp_path):
+    """A small YOLOX exported --raw and compiled by AOTInductor, run by the
+    C++ runner with the C++ ops: its detections on the synthetic image
+    against the port's eager forward (TF32 off, as the runner runs)
+    through the same decode and NMS, by chip_smoke.py's rule for YOLOX-L
+    (`runner_against_port`: raw outputs within 1e-4 of the largest, count
+    and classes equal, boxes within 1e-4 of their box's largest coordinate
+    plus 0.01 px, scores 2e-4)."""
+    import chip_smoke
+    from tscd_torch.ops.kernels import library
+    from tscd_torch.tools import export as ex
+    from tscd_torch.utils import native
+    exp = _yolox_tiny()
+    out = str(tmp_path / "y.pt2")
+    ex.export(exp, output=out, raw=True, device="cuda")
+    package = ex.aoti_package(torch.export.load(out), ex.package_path(out))["package"]
+    got = chip_smoke.runner_against_port(torch, exp, package, library.torch_ops_library(),
+                                         native.aoti_runner(), fp32_card)
+    assert got["pass"] and got["detections"] > 0, got
+
+
+@pytest.mark.cuda
+def test_cuda_torch_ops_library_equals_python_ops(card):
+    """Each op of csrc/torch_ops.cpp (the stem at fp32 and bf16 from uint8
+    and fp32 frames, the abs max, the quantize pass in its three modes,
+    the conv with each scale kind, activation and output type), run in a
+    process that loads only the op library as the runner does, equal bit
+    for bit to the Python op on the same card inputs at YOLOX-L's export
+    shapes (chip_smoke.py's `cxx_ops_against_python`)."""
+    import chip_smoke
+    from tscd_torch.ops.kernels import library
+    got = chip_smoke.cxx_ops_against_python(torch, library.torch_ops_library(), card)
+    assert len(got) == 16 and all(r["pass"] for r in got.values()), got
+
+
+@pytest.mark.cuda
+def test_cuda_select_proposals_equals_cpu(card):
+    """select_proposals_batch on the card (the hand NMS) at its default
+    pre_topk 750 over YOLOX's 8400 anchors at 640, ties in objectness and
+    in the best class, equal field for field to the CPU port; the single-
+    image form equal to its batch row."""
+    from tscd_torch.ops import postprocess as ppost
+    from tscd_torch.ops.kernels import nms as kn
+    rng = np.random.default_rng(0)
+    B, A, n_cls = 2, 8400, 30
+    d = np.empty((B, A, 5 + n_cls), np.float32)
+    d[..., :2] = rng.uniform(0, 640, (B, A, 2))
+    d[..., 2:4] = rng.uniform(4, 120, (B, A, 2))
+    d[..., 4] = rng.choice(np.linspace(0.05, 0.95, 19), (B, A))     # ties in objectness
+    d[..., 5:] = rng.uniform(0, 1, (B, A, n_cls))
+    d[:, :200, 5:] = 0.5                                             # ties in the best class
+    want = ppost.select_proposals_batch(torch.as_tensor(d), n_cls)
+    n0 = kn.nms_sorted.launches
+    got = ppost.select_proposals_batch(torch.as_tensor(d, device=card), n_cls)
+    assert kn.nms_sorted.launches == n0 + 1
+    for field, g, w in zip(ppost.Proposals._fields, got, want):
+        assert torch.equal(g.cpu(), w), field
+    one = ppost.select_proposals(torch.as_tensor(d[1], device=card), n_cls)
+    for g, w in zip(one, got):
+        assert torch.equal(g, w[1])

@@ -20,7 +20,8 @@ made from numpy seeds:
   - the train collate against JAX's collate_window (hsv_prob 0, flip
     probability 0 and 1), exactly;
   - the knobs the port does not run raise (the ported ones are held in
-    tests/test_torch_port_train_knobs.py), and the trainer runs an epoch
+    tests/test_torch_port_train_knobs.py and, the int8 ones, in
+    tests/test_torch_port_int8_train.py), and the trainer runs an epoch
     of the selftest exp on the committed fixture;
   - the repairs of the port: an exp file that sets a model knob builds
     and runs its model where JAX's TSCD takes the knob, and raises in
@@ -581,8 +582,12 @@ def test_knobs_the_port_does_not_run_raise(knob):
         with pytest.raises(ValueError, match="agg_type"):
             exp.get_trainer(device="cpu")
     else:
+        # the int8 knobs run (tests/test_torch_port_int8_train.py); with
+        # a mesh knob beside them the trainer still raises, naming it
         setattr(exp, knob, True)
-        with pytest.raises(NotImplementedError, match=knob):
+        assert exp.get_trainer(device="cpu").int8 is not None
+        exp.fsdp = True
+        with pytest.raises(NotImplementedError, match="fsdp"):
             exp.get_trainer(device="cpu")
 
 

@@ -4,7 +4,9 @@ yolox/core/tscd_trainer.py:90), on one card, fp32: `exp.window_batch`
 windows a step (0 meaning one, as on one card in JAX), the LR schedule
 times that count, `grad_accum`, `fix_bn` (else train-mode BatchNorm,
 whose statistics the step averages over the windows),
-`stop_backbone_grad` and `remat_backbone` as JAX's trainer runs them.
+`stop_backbone_grad` and `remat_backbone` as JAX's trainer runs them,
+and its int8 knobs (`int8_train_mode`: a frozen backbone forwarded in
+int8, or QAT through the hand int8 conv; tscd_trainer.py:253-277).
 
 JAX runs a step as one jitted program; here a step is an eager forward,
 backward, grouped SGD and EMA (`train.step.train_step`). The loader's
@@ -20,6 +22,7 @@ the values of JAX's cv2.resize of its float32 window (each window of a
 batch, as JAX flattens the window axis).
 """
 
+import contextlib
 import datetime
 import os
 import random
@@ -31,11 +34,46 @@ import torch
 
 from ..data.vid import multiscale_resize
 from ..device import resolve_device
+from ..models.blocks import int8_eval
 from ..models.tscd import random_init_
 from ..train.checkpoint import load_checkpoint, load_tolerant, save_checkpoint
-from ..train.step import TrainState, init_train_state, train_step
+from ..train.step import TrainState, init_train_state, train_step, tscd_window_loss
+from ..utils.model_utils import prepare_int8
 
 CKPT_EVERY = 2000    # updates between in-epoch checkpoints (tscd_trainer.py:346)
+INT8_BACKBONE = (("backbone",),)    # the frozen-int8 step's scope: the YOLOPAFPN
+
+
+def int8_train_mode(exp) -> Optional[str]:
+    """The int8 mode a stage-2 step of `exp` runs, gated and ordered as
+    JAX's trainer (tscd_trainer.py:253-277): "frozen_backbone" where
+    `int8_frozen_backbone`, `fix_bn` and "backbone" in `freeze_prefixes()`
+    (the backbone's forward in int8, the head fp); else "qat" where
+    `int8_qat` and `fix_bn` (every eligible conv, the head's too, runs the
+    STE conv); else None, fp. With `fix_bn` every BaseConv gets stats None,
+    JAX's train=False, so each eligible conv quantizes."""
+    if (getattr(exp, "int8_frozen_backbone", False) and exp.fix_bn
+            and "backbone" in tuple(exp.freeze_prefixes())):
+        return "frozen_backbone"
+    if getattr(exp, "int8_qat", False) and exp.fix_bn:
+        return "qat"
+    return None
+
+
+def int8_step_context(mode: Optional[str]):
+    """The int8 mode a step of `int8_train_mode`'s `mode` runs in."""
+    if mode == "frozen_backbone":
+        return int8_eval(scope=INT8_BACKBONE)
+    if mode == "qat":
+        return int8_eval(qat=True)
+    return contextlib.nullcontext()
+
+
+def prepare_frozen_int8(model, state_dict) -> None:
+    """The frozen backbone's int8 weights, folded from the fp32
+    `state_dict` (`TrainState.model_state()`: the fp32 masters at bf16):
+    run before the first frozen-int8 step and after any new weights."""
+    prepare_int8(model, state_dict, scope=INT8_BACKBONE)
 
 
 class TSCDTrainer:
@@ -43,9 +81,12 @@ class TSCDTrainer:
     flag, or a resumed checkpoint's) and returns the TrainState;
     `evaluate()` scores the EMA weights with the port's VIDEvaluator."""
 
+    window_loss = staticmethod(tscd_window_loss)
+
     def __init__(self, exp, args=None, val_loader=None, device=None):
         exp.check_train_knobs()
         self.exp = exp
+        self.int8 = int8_train_mode(exp)
         self.args = args
         if exp.seed is not None:     # the host RNGs (utils/seeding.py)
             random.seed(int(exp.seed))
@@ -93,6 +134,8 @@ class TSCDTrainer:
         if opt_ckpt is None or not opt.load_state_dict(opt_ckpt):
             opt.count = self.start_epoch * iters
         self.state = init_train_state(model, opt, exp.ema_decay)
+        if self.int8 == "frozen_backbone":
+            prepare_frozen_int8(model, self.state.model_state())
 
     def _loader(self, epoch: int):
         """The epoch's loader: augmented at every epoch, as JAX's;
@@ -146,10 +189,12 @@ class TSCDTrainer:
 
     def step(self, frames, labels, te) -> Dict[str, torch.Tensor]:
         """One update on a window (or a batch of windows) already on the
-        device."""
+        device, in the exp's int8 mode (`int8_train_mode`)."""
         exp = self.exp
-        return train_step(self.state, frames, labels, te, self.lframe,
-                          self.gframe, ota_mode=exp.ota_mode, fix_bn=exp.fix_bn)
+        with int8_step_context(self.int8):
+            return train_step(self.state, frames, labels, te, self.lframe,
+                              self.gframe, ota_mode=exp.ota_mode, fix_bn=exp.fix_bn,
+                              window_loss=self.window_loss)
 
     def _one_iter(self, batch, epoch: int, n: int, iters: int, data_t0: float):
         if self.exp.enable_multiscale:

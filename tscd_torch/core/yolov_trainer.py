@@ -13,14 +13,13 @@ postprocess only: JAX's predict function reads `refined` alone, and its
 jit drops `original`.
 """
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from ..models.yolov import yolov_eval_postprocess
 from ..ops.postprocess import Detections
 from ..train.losses import yolov_loss
-from ..train.step import train_step
 from .predict import window_predict_fn
 from .tscd_trainer import TSCDTrainer
 
@@ -43,12 +42,10 @@ def yolov_window_loss(model, frames, labels, time_emb, lframe, gframe, train, st
 
 class YOLOVTrainer(TSCDTrainer):
     """TSCDTrainer with the YOLOV window loss (`_window_losses`,
-    yolov_trainer.py:41-66); it evaluates through the exp's predict
-    function (`YOLOVExp.get_predict_fn`)."""
+    yolov_trainer.py:41-66), its int8 knobs included; it evaluates through
+    the exp's predict function (`YOLOVExp.get_predict_fn`)."""
 
-    def step(self, frames, labels, te) -> Dict[str, torch.Tensor]:
-        return train_step(self.state, frames, labels, te, self.lframe, self.gframe,
-                          fix_bn=self.exp.fix_bn, window_loss=yolov_window_loss)
+    window_loss = staticmethod(yolov_window_loss)
 
 
 def make_predict_fn(model, lframe: int, gframe: int, nms_thresh: float = 0.5,

@@ -118,11 +118,15 @@ class TSCDExp(BaseExp):
         self.window_batch = 0
         self.grad_accum = 1
         self.remat_backbone = False
-        # knobs of the JAX trainer the port does not run yet; each raises
-        # unless at this default (`check_train_knobs`)
+        # the mesh knobs of the JAX trainer, which the port does not run
+        # yet: each raises unless at this default (`check_train_knobs`)
         self.mesh_data = 1
         self.mesh_model = 1
         self.fsdp = False
+        # int8 stage-2 training (tscd_base.py:85-91, core.tscd_trainer.
+        # int8_train_mode): a frozen backbone forwarded in int8 under the
+        # trained fp head, or QAT of every eligible conv; each needs fix_bn,
+        # and the first wins where both are set
         self.int8_frozen_backbone = False
         self.int8_qat = False
 
@@ -176,15 +180,12 @@ class TSCDExp(BaseExp):
                 "head/cls_pred_", "head/reg_pred_", "head/obj_pred_")
 
     def check_train_knobs(self):
-        """Raises for a training knob the port does not run yet (int8,
-        meshes), and where `grad_accum` does not divide the window batch
-        (tscd_trainer.py:178-181)."""
-        leftovers = {"int8_frozen_backbone": ("int8_frozen_backbone", "2.8"),
-                     "int8_qat": ("int8_qat", "2.8"), "fsdp": ("a mesh", "8")}
-        for knob, (what, item) in leftovers.items():
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"{knob}: {what} is not ported yet (ROADMAP queue 1 item {item})")
+        """Raises for a training knob the port does not run yet (meshes),
+        and where `grad_accum` does not divide the window batch
+        (tscd_trainer.py:178-181). The int8 knobs run
+        (`core.tscd_trainer.int8_train_mode`)."""
+        if self.fsdp:
+            raise NotImplementedError("fsdp: a mesh is not ported yet (ROADMAP queue 1 item 8)")
         for knob in ("mesh_data", "mesh_model"):
             if int(getattr(self, knob) or 1) != 1:
                 raise NotImplementedError(

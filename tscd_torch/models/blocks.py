@@ -19,8 +19,9 @@ into the conv: the conv then has a bias and `bn` is None (JAX:
 `use_bias`).
 
 int8 (w8a8) serving, as JAX's (blocks.py:32-200, 248-353): inside
-`int8_eval()` a BaseConv with eval-mode BN (`stats` None), groups 1 and
-C_in >= the mode's threshold runs the hand int8 conv
+`int8_eval()` a BaseConv with eval-mode BN (`stats` None), groups 1,
+C_in >= the mode's threshold and a path in the mode's scope (where one is
+given) runs the hand int8 conv
 (`ops.kernels.int8_conv`): BN folded into the weights, int8 weights with
 one scale an output channel, int8 activations with one scale over the
 whole batch (dynamic: max |x| / 127 a call) or calibrated (static: per
@@ -29,7 +30,9 @@ under `int8_eval(calibrate=True)`, half their spread moved into the
 weights), int32 sums, then dequant, bias and the activation. The weights
 are prepared once by `utils.model_utils.prepare_int8` (from fp32 weights)
 and kept on each BaseConv outside its state_dict; a model in int8 mode
-without it raises."""
+without it raises. The training knobs: `int8_eval(scope=...)` (a frozen
+int8 backbone under a trained fp head) and `int8_eval(qat=True)` (the STE
+conv on the live weights, `BaseConv._qat_forward`)."""
 
 import contextlib
 import contextvars
@@ -109,10 +112,6 @@ _INT8_MODE: "contextvars.ContextVar[Int8Mode]" = contextvars.ContextVar(
 INT8_MIN_CIN = 128
 INT8_MIN_CIN_STATIC = 32
 
-_NOT_PORTED = ("int8 {}: not ported (ROADMAP queue 1 item 2.8; the port serves "
-               "int8 dynamic, calibrate and static only)")
-
-
 def int8_mode() -> Int8Mode:
     return _INT8_MODE.get()
 
@@ -136,21 +135,45 @@ def set_int8_eval(enable: bool) -> None:
 @contextlib.contextmanager
 def int8_eval(enable: bool = True, static: bool = False, calibrate: bool = False,
               scope=None, qat: bool = False):
-    """int8 serving mode for the forwards inside the block. `calibrate=True`
+    """int8 mode for the forwards inside the block. `calibrate=True`
     records each quantizing conv's per-input-channel maxima of its fp
-    activations (`quantize_int8`); `static=True` serves with them. JAX's
-    `scope` (quantize a module subtree only) and `qat` (fake-quant for
-    training) raise: not ported."""
-    if scope is not None:
-        raise NotImplementedError(_NOT_PORTED.format("scope"))
-    if qat:
-        raise NotImplementedError(_NOT_PORTED.format("qat"))
-    token = _INT8_MODE.set(Int8Mode(enable=bool(enable), static=bool(static),
-                                    calibrate=bool(calibrate)))
+    activations (`quantize_int8`); `static=True` serves with them. `scope`
+    (module-path prefixes, each a tuple of name components, e.g.
+    (("backbone",),) for a frozen-backbone train step) quantizes only the
+    BaseConvs under one of them (`stamp_int8_paths` names them). `qat=True`
+    runs the eligible convs as the differentiable STE conv
+    (`ops.kernels.int8_conv.int8_conv_ste`) on the live weights, so a
+    fix_bn train step fine-tunes against the int8 noise."""
+    token = _INT8_MODE.set(Int8Mode(
+        enable=bool(enable), static=bool(static), calibrate=bool(calibrate),
+        scope=tuple(tuple(p) for p in scope) if scope is not None else None,
+        qat=bool(qat)))
     try:
         yield
     finally:
         _INT8_MODE.reset(token)
+
+
+def stamp_int8_paths(model: nn.Module) -> nn.Module:
+    """Gives every BaseConv of `model` its path, the components of its
+    dotted name in `model` (("backbone", "backbone", "dark2", ...)), which
+    `int8_eval(scope=...)` matches against, as JAX's `_int8_in_scope`
+    matches a flax module's path: flax's ("backbone",) is the port's
+    `backbone...` (the YOLOPAFPN, its CSPDarknet and its FPN convs). Done
+    once, by `utils.model_utils.prepare_int8` and the trainers; the
+    forward only reads it."""
+    for name, m in model.named_modules():
+        if isinstance(m, BaseConv):
+            m._int8_path = tuple(name.split(".")) if name else ()
+    return model
+
+
+def in_int8_scope(path: Optional[Tuple[str, ...]],
+                  scope: Optional[Tuple[Tuple[str, ...], ...]]) -> bool:
+    """Whether a conv at `path` lies under one of `scope`'s prefixes, whole
+    components matched (blocks.py:136-141); every conv where scope is
+    None."""
+    return scope is None or any(path[:len(p)] == p for p in scope)
 
 
 def int8_graph_key(model: nn.Module) -> Optional[tuple]:
@@ -161,7 +184,8 @@ def int8_graph_key(model: nn.Module) -> Optional[tuple]:
     mode = _INT8_MODE.get()
     if not mode.enable:
         return None
-    return (mode.static, mode.calibrate, getattr(model, "_int8_token", None))
+    return (mode.static, mode.calibrate, mode.scope, mode.qat,
+            getattr(model, "_int8_token", None))
 
 
 def _int8_convs(model: nn.Module):
@@ -229,12 +253,13 @@ class BaseConv(nn.Module):
         self.act = get_activation(act)
         self.act_name = {"swish": "silu", "identity": "id", None: "id"}.get(act, act)
         self._int8 = None       # Int8Weights, from utils.model_utils.prepare_int8
+        self._int8_path = None  # its name's components, from stamp_int8_paths
 
     def forward(self, x: torch.Tensor, stats: Optional[BNStats] = None,
                 valid: bool = False) -> torch.Tensor:
         c = self.conv
         if (stats is None and c.groups == 1 and _INT8_MODE.get().enable
-                and x.shape[1] >= _int8_min_cin()):
+                and x.shape[1] >= _int8_min_cin() and self._in_scope()):
             return self._int8_forward(x, 0 if valid else c.padding[0])
         y = (F.conv2d(x, c.weight, c.bias, c.stride, 0, c.dilation, c.groups)
              if valid else c(x))
@@ -242,16 +267,28 @@ class BaseConv(nn.Module):
             y = batch_norm(self.bn, y, stats)
         return self.act(y)
 
+    def _in_scope(self) -> bool:
+        scope = _INT8_MODE.get().scope
+        if scope is None:
+            return True
+        if self._int8_path is None:
+            raise ValueError("int8_eval(scope=...) needs each BaseConv's path: run "
+                             "models.blocks.stamp_int8_paths(model) (prepare_int8 does)")
+        return in_int8_scope(self._int8_path, scope)
+
     def _int8_forward(self, x: torch.Tensor, pad: int) -> torch.Tensor:
         """The w8a8 route (blocks.py:248-353): calibrate (the fp32 BN-folded
-        conv, recording max |x| / 127 per input channel), dynamic (one
-        scale over the whole batch, formed on the device) or static (the
-        calibrated x_scale and the weights that absorbed its spread)."""
+        conv, recording max |x| / 127 per input channel), QAT (the STE conv
+        on the live weights, `_qat_forward`), dynamic (one scale over the
+        whole batch, formed on the device) or static (the calibrated
+        x_scale and the weights that absorbed its spread)."""
+        mode = _INT8_MODE.get()
+        if mode.qat and not mode.calibrate:
+            return self._qat_forward(x, pad)
         q = self._int8
         if q is None:
             raise ValueError("int8_eval needs the int8 weights: run "
                              "utils.model_utils.prepare_int8(model, state_dict) first")
-        mode = _INT8_MODE.get()
         dtype = self.conv.weight.dtype
         stride = self.conv.stride[0]
         if mode.calibrate:
@@ -281,6 +318,30 @@ class BaseConv(nn.Module):
         xq = q8.quantize_int8_activation(x, amax, "dynamic")
         return q8.int8_conv(xq, wq, s_w, q.b_eff, stride=stride, pad=pad,
                             act=self.act_name, out_dtype=dtype, amax=amax)
+
+    def _qat_forward(self, x: torch.Tensor, pad: int) -> torch.Tensor:
+        """QAT (blocks.py:322-339): BN folded from the live parameters at
+        every call, with autograd (w_eff = w gamma / sqrt(var + 1e-5), b_eff
+        = beta - mean s), so the gradients reach conv.weight, bn.weight and
+        bn.bias; then the STE conv with dynamic scales
+        (`q8.int8_conv_ste`). A prepared `Int8Weights` would be stale after
+        one step, so QAT never reads it. At bf16 the live conv weight is
+        the bf16 rounding of its fp32 master."""
+        if _INT8_MODE.get().static:
+            raise NotImplementedError("int8_eval(qat=True) runs dynamic scales; static "
+                                      "QAT scales are not ported")
+        c, bn = self.conv, self.bn
+        w = c.weight.float()
+        if bn is not None:
+            s = bn.weight / torch.sqrt(bn.running_var + 1e-5)
+            w_eff = w * s[:, None, None, None]
+            b_eff = bn.bias - bn.running_mean * s
+        else:
+            w_eff = w
+            b_eff = (c.bias.float() if c.bias is not None
+                     else torch.zeros(w.shape[0], dtype=torch.float32, device=w.device))
+        return q8.int8_conv_ste(x, w_eff, b_eff, stride=c.stride[0], pad=pad,
+                                act=self.act_name, out_dtype=c.weight.dtype)
 
 
 class Int8Weights:
@@ -313,7 +374,7 @@ def pack_weights(w_eff: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(packed int8 weights, s_w): s_w = max(max |w| over (C, k, k), 1e-8) /
     127 per output channel (blocks.py:308-309), the weights round(w / s_w)
     in the conv kernel's layout."""
-    s_w = q8.div127(torch.clamp_min(w_eff.abs().amax((1, 2, 3)), 1e-8))
+    s_w = q8.weight_scale(w_eff)
     return q8.pack_int8_weight(w_eff.contiguous(), s_w), s_w
 
 

@@ -52,7 +52,12 @@ _STATIC: Dict[tuple, torch.Tensor] = {}
 
 def _static(key: tuple, device: torch.device, make: Callable[[], np.ndarray]) -> torch.Tensor:
     """The shape-static tensor `make()` on `device`, built at its first
-    use and then read from this cache."""
+    use and then read from this cache. While torch.export or torch.compile
+    traces, it is built and not cached: the traced program keeps it as a
+    constant of its own, and a cached tracing tensor would reach later
+    eager calls."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(make(), device=device)
     k = key + (str(device),)
     t = _STATIC.get(k)
     if t is None:

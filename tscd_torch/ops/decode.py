@@ -23,13 +23,25 @@ def make_grids_and_strides(hw: Sequence[Tuple[int, int]],
     return np.concatenate(grids, 0), np.concatenate(strs, 0)
 
 
-@functools.lru_cache(maxsize=16)
-def _grid_tensors(hw: Tuple[Tuple[int, int], ...], strides: Tuple[int, ...],
-                  dtype: torch.dtype, device: torch.device):
-    # uploaded once per shape and device, not on every window
+def _make_grid_tensors(hw: Tuple[Tuple[int, int], ...], strides: Tuple[int, ...],
+                       dtype: torch.dtype, device: torch.device):
     grids, strs = make_grids_and_strides(hw, strides)
     return (torch.as_tensor(grids, dtype=dtype, device=device),
             torch.as_tensor(strs, dtype=dtype, device=device))
+
+
+# uploaded once per shape and device, not on every window
+_cached_grid_tensors = functools.lru_cache(maxsize=16)(_make_grid_tensors)
+
+
+def _grid_tensors(hw, strides, dtype, device):
+    """The grids and strides as tensors. While torch.export or
+    torch.compile traces they are built and not cached: the traced program
+    keeps them as its own constants, and a cached tracing tensor would
+    reach later eager calls."""
+    if torch.compiler.is_compiling():
+        return _make_grid_tensors(hw, strides, dtype, device)
+    return _cached_grid_tensors(hw, strides, dtype, device)
 
 
 def decode_outputs(outputs: torch.Tensor, hw: Sequence[Tuple[int, int]],

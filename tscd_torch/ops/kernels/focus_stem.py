@@ -146,10 +146,15 @@ def focus_stem(x: torch.Tensor, w3: torch.Tensor, scale: torch.Tensor,
     bf16 kernel reads uint8 frames as they are; other frames are read as
     fp32.
 
-    Differentiable in x (a floating image), w3, scale and shift through
-    `_Differentiable`, with JAX's backward rule; where no input needs a
-    gradient or grad mode is off, autograd records nothing."""
-    return _Differentiable.apply(x, w3, scale, shift, out_dtype)
+    The launch is the op `tscd::focus_stem` (fp32) or
+    `tscd::focus_stem_bf16` (`ops.py`), which a traced or exported graph
+    holds. Differentiable in x (a floating image), w3, scale and shift
+    through `_Differentiable`, with JAX's backward rule, where an input
+    needs a gradient and grad mode is on; otherwise the op is called
+    directly, and autograd records nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w3, scale, shift)):
+        return _Differentiable.apply(x, w3, scale, shift, out_dtype)
+    return _forward(x, w3, scale, shift, out_dtype)
 
 
 class _Differentiable(torch.autograd.Function):
@@ -180,12 +185,21 @@ class _Differentiable(torch.autograd.Function):
 
 
 def _forward(x, w3, scale, shift, out_dtype):
-    if x.device.type == "cpu":
-        return focus_stem_plain(x, w3, scale, shift, out_dtype)
-    if x.device.type != "cuda":
+    """The op of `out_dtype` (`ops.py`: tscd::focus_stem, fp32, or
+    tscd::focus_stem_bf16): on a CPU tensor the plain version, on a CUDA
+    tensor the launch."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"focus_stem: unsupported device {x.device}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"focus_stem writes fp32 or bf16, not {out_dtype}")
+    if out_dtype == torch.float32:
+        return torch.ops.tscd.focus_stem(x, w3, scale, shift)
+    if out_dtype == torch.bfloat16:
+        return torch.ops.tscd.focus_stem_bf16(x, w3, scale, shift)
+    raise ValueError(f"focus_stem writes fp32 or bf16, not {out_dtype}")
+
+
+def launch(x, w3, scale, shift, out_dtype):
+    """One launch of the kernel of `out_dtype` on CUDA tensors (the ops'
+    CUDA implementation)."""
     Fr, H, W, C = x.shape
     O = w3.shape[0]
     if C != 3 or w3.shape != (O, 4 * C, 3, 3):

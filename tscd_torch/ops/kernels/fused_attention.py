@@ -184,20 +184,23 @@ def fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score, key_valid,
     the launch (or, on the CPU, the plain version) and whose backward
     recomputes the plain math and returns its VJP, as `_fused_bwd_rule`
     differentiates `dual_attention_reference`. Where no input needs a
-    gradient or grad mode is off, autograd records nothing. `cls_score`
-    and `key_valid` (and `fg_score`) get no gradient (JAX returns zeros for
-    them)."""
-    return _Differentiable.apply(qc, kc, vc, qr, kr, vr, cls_score,
-                                 key_valid, fg_score, scale)
+    gradient or grad mode is off, the op is called directly and autograd
+    records nothing. `cls_score` and `key_valid` (and `fg_score`) get no
+    gradient (JAX returns zeros for them)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qc, kc, vc, qr, kr, vr)):
+        return _Differentiable.apply(qc, kc, vc, qr, kr, vr, cls_score,
+                                     key_valid, fg_score, scale)
+    return _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, fg_score, scale)
 
 
 def _forward(qc, kc, vc, qr, kr, vr, cls_score, key_valid, fg_score, scale):
-    if qc.device.type == "cpu":
-        return fused_dual_attention_plain(qc, kc, vc, qr, kr, vr, cls_score,
-                                          key_valid, scale, fg_score)
-    if qc.device.type != "cuda":
+    """The op `tscd::fused_dual_attention` (`ops.py`): on CPU tensors the
+    plain version, on CUDA tensors the launch of the query count's route."""
+    if qc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_dual_attention: unsupported device {qc.device}")
-    return _launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, fg_score, scale)
+    return torch.ops.tscd.fused_dual_attention(qc, kc, vc, qr, kr, vr, cls_score.detach(),
+                                               key_valid, None if fg_score is None
+                                               else fg_score.detach(), float(scale))
 
 
 class _Differentiable(torch.autograd.Function):
@@ -226,7 +229,7 @@ class _Differentiable(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
-def _launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, fg_score, scale):
+def launch(qc, kc, vc, qr, kr, vr, cls_score, key_valid, fg_score, scale):
     """One launch of the kernel of the query count's `route` on CUDA
     tensors. It counts one launch, though the split route runs as two
     kernels."""

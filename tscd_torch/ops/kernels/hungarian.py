@@ -81,15 +81,20 @@ def linear_sum_assignment_plain(cost: torch.Tensor) -> torch.Tensor:
 
 def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
     """(B, n, n) fp32 costs -> col4row (B, n) int32, the optimal column of
-    each row. A CPU tensor takes the plain version; a CUDA tensor
-    launches a kernel: one warp a matrix for n <= 128, one block a matrix
-    for 128 < n <= 4096."""
+    each row, through the op `tscd::linear_sum_assignment` (`ops.py`). A
+    CPU tensor takes the plain version; a CUDA tensor launches a kernel:
+    one warp a matrix for n <= 128, one block a matrix for 128 < n <=
+    4096. The cost carries no gradient through it."""
     if cost.dim() != 3 or cost.shape[1] != cost.shape[2]:
         raise ValueError(f"cost must be (B, n, n), got {tuple(cost.shape)}")
-    if cost.device.type == "cpu":
-        return linear_sum_assignment_plain(cost)
-    if cost.device.type != "cuda":
+    if cost.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linear_sum_assignment: unsupported device {cost.device}")
+    return torch.ops.tscd.linear_sum_assignment(cost.detach())
+
+
+def launch(cost: torch.Tensor) -> torch.Tensor:
+    """One launch of the solver of n on a CUDA cost (the op's CUDA
+    implementation)."""
     B, n, _ = cost.shape
     if not 1 <= n <= 4096:
         raise ValueError(f"n = {n} outside 1..4096")

@@ -23,6 +23,13 @@ The dynamic scale stays on the device: `int8_conv` and the quantize pass
 take the abs max itself (`amax=`) and form s_x = max(amax, 1e-8) / 127
 there, so a dynamic conv reads nothing back to the host.
 
+Each wrapper checks its arguments and calls its torch op (`ops.py`:
+tscd::int8_absmax, tscd::int8_quantize, tscd::int8_conv), whose CUDA
+implementation is the launcher (`launch_*`, which counts the launch) and
+whose CPU implementation is the plain version. `int8_conv_ste` is the QAT
+conv on these kernels, differentiable with JAX's straight-through
+gradients (plain version `int8_conv_ste_reference`).
+
 Beside them, the plain versions in the same arithmetic, which a CPU
 tensor takes: `quantize_reference`, `pack_reference`,
 `int8_conv_reference` (the int8 values as float64 through F.conv2d, cast
@@ -45,7 +52,10 @@ from . import library
 C_ALIGN = 32                    # the conv's k-step: channels pad to it
 ACTIVATIONS = ("id", "silu", "relu", "lrelu")   # the kernel's codes 0-3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+OUT_DTYPES = {v: k for k, v in _DTYPES.items()}   # the conv's output codes
+OUT_INT32 = 2                                      # and the int32 sums'
 MODES = {"dynamic": 0, "channel": 1, "row": 2}
+MODE_NAMES = {v: k for k, v in MODES.items()}
 
 
 def padded_channels(c: int) -> int:
@@ -99,12 +109,15 @@ def _check_device(what: str, *ts: torch.Tensor):
 
 def abs_max(x: torch.Tensor) -> torch.Tensor:
     """max |x| over the whole tensor, a (1,) fp32 tensor on x's device (no
-    host read). x fp32 or bf16."""
+    host read), through the op `tscd::int8_absmax`. x fp32 or bf16."""
     _check_device("abs_max", x)
     _require(x.dtype in _DTYPES, "abs_max", f"takes fp32 or bf16, got {x.dtype}")
     _require(x.numel() > 0, "abs_max", "takes a non-empty tensor")
-    if x.device.type == "cpu":
-        return x.abs().amax().float().reshape(1)
+    return torch.ops.tscd.int8_absmax(x.detach())
+
+
+def launch_absmax(x: torch.Tensor) -> torch.Tensor:
+    """One launch of the abs-max kernel (the op's CUDA implementation)."""
     out = torch.empty(1, dtype=torch.float32, device=x.device)
     lib = library.load()
     with torch.cuda.device(x.device):
@@ -151,7 +164,11 @@ def _check_quantize(x: torch.Tensor, scale: torch.Tensor, mode: str, what: str):
              f"{tuple(scale.shape)}")
 
 
-def _quantize(x: torch.Tensor, scale: torch.Tensor, mode: str, what: str) -> torch.Tensor:
+def launch_quantize(x: torch.Tensor, scale: torch.Tensor, mode: int) -> torch.Tensor:
+    """One launch of the quantize kernel (the op's CUDA implementation),
+    counted by `pack_int8_weight` for the weights' "row" mode and by
+    `quantize_int8_activation` otherwise."""
+    what = "pack_int8_weight" if mode == MODES["row"] else "quantize_int8_activation"
     Fn, C, H, W = x.shape
     _require(1 <= Fn <= 65535, what, f"takes 1 <= F <= 65535, got {Fn}")
     Cp = padded_channels(C)
@@ -159,8 +176,10 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor, mode: str, what: str) -> tor
     lib = library.load()
     with torch.cuda.device(x.device):
         rc = lib.tscd_int8_quantize(x.data_ptr(), _DTYPES[x.dtype], Fn, C, H, W, Cp,
-                                    scale.data_ptr(), MODES[mode], out.data_ptr(), _stream(x))
+                                    scale.data_ptr(), mode, out.data_ptr(), _stream(x))
     library.check(lib, rc, what)
+    counter = pack_int8_weight if mode == MODES["row"] else quantize_int8_activation
+    counter.launches += 1
     return out
 
 
@@ -169,15 +188,12 @@ def quantize_int8_activation(x: torch.Tensor, scale: torch.Tensor,
     """(F, C, H, W) fp32 or bf16 -> (F, H, W, Cp) int8, Cp = C rounded up
     to 32 (zero channels past C): clip(round(x / s), -127, 127), with s
     max(scale, 1e-8) / 127 for mode "dynamic" (scale the (1,) abs max) or
-    scale[c] for mode "channel" (the static (C,) x_scale)."""
+    scale[c] for mode "channel" (the static (C,) x_scale); the op
+    `tscd::int8_quantize`."""
     _require(mode in ("dynamic", "channel"), "quantize_int8_activation",
              f"mode dynamic or channel, got {mode!r}")
     _check_quantize(x, scale, mode, "quantize_int8_activation")
-    if x.device.type == "cpu":
-        return quantize_reference(x, scale, mode)
-    out = _quantize(x, scale, mode, "quantize_int8_activation")
-    quantize_int8_activation.launches += 1
-    return out
+    return torch.ops.tscd.int8_quantize(x.detach(), scale.detach(), MODES[mode])
 
 
 def pack_reference(w: torch.Tensor, s_w: torch.Tensor) -> torch.Tensor:
@@ -190,16 +206,13 @@ def pack_int8_weight(w: torch.Tensor, s_w: torch.Tensor) -> torch.Tensor:
     """BN-folded fp32 weights (N, C, k, k) and their per-output-channel
     scales (N,) -> the conv kernel's int8 layout (N, k, k, Cp), K in tap-
     major, channel-minor order, channels past C zero: round(w / s_w[n]).
-    The quantize kernel's clip cannot bind here (|w| / s_w <= 127)."""
+    The quantize kernel's clip cannot bind here (|w| / s_w <= 127); the op
+    `tscd::int8_quantize` in its "row" mode."""
     _require(w.dim() == 4 and w.shape[2] == w.shape[3], "pack_int8_weight",
              f"takes (N, C, k, k), got {tuple(w.shape)}")
     _require(w.dtype == torch.float32, "pack_int8_weight", f"takes fp32, got {w.dtype}")
     _check_quantize(w, s_w, "row", "pack_int8_weight")
-    if w.device.type == "cpu":
-        return pack_reference(w, s_w)
-    out = _quantize(w, s_w, "row", "pack_int8_weight")
-    pack_int8_weight.launches += 1
-    return out
+    return torch.ops.tscd.int8_quantize(w.detach(), s_w.detach(), MODES["row"])
 
 
 # -------------------------------------------------------------------- conv
@@ -259,23 +272,147 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor, bias: torch
     _require(s_w.dtype == bias.dtype == sx.dtype == torch.float32, what, "fp32 scales and bias")
     _require(out_dtype in _DTYPES, what, f"writes fp32 or bf16, got {out_dtype}")
     _require(act in ACTIVATIONS, what, f"takes activations {ACTIVATIONS}, got {act!r}")
-    if xq.device.type == "cpu":
-        acc = int8_conv_reference(xq, wq, stride, pad)
-        if out_int32:
-            return acc
-        sxv = dynamic_scale(amax) if s_x is None else s_x
-        return epilogue_reference(acc, sxv, s_w, bias, act, out_dtype)
-    out = torch.empty(Fn, N, Ho, Wo, dtype=torch.int32 if out_int32 else out_dtype,
-                      device=xq.device)
+    return torch.ops.tscd.int8_conv(xq, wq, s_w.detach(), bias.detach(), sx.detach(), stride,
+                                    pad, s_x is not None, ACTIVATIONS.index(act),
+                                    OUT_INT32 if out_int32 else _DTYPES[out_dtype])
+
+
+def launch_conv(xq, wq, s_w, bias, sx, stride: int, pad: int, static_scale: bool, act: int,
+                out_code: int) -> torch.Tensor:
+    """One launch of the conv kernel (the op's CUDA implementation)."""
+    Fn, H, W, Cp = xq.shape
+    N, k = wq.shape[:2]
+    Ho, Wo = out_size(H, k, stride, pad), out_size(W, k, stride, pad)
+    out = torch.empty(Fn, N, Ho, Wo, dtype=torch.int32 if out_code == OUT_INT32
+                      else OUT_DTYPES[out_code], device=xq.device)
     lib = library.load()
     with torch.cuda.device(xq.device):
         rc = lib.tscd_int8_conv(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), s_w.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), Fn, H, W, Cp, N, k, stride, pad,
-                                0 if s_x is None else 1, ACTIVATIONS.index(act),
-                                2 if out_int32 else _DTYPES[out_dtype], _stream(xq))
-    library.check(lib, rc, what)
+                                int(static_scale), act, out_code, _stream(xq))
+    library.check(lib, rc, "int8_conv")
     int8_conv.launches += 1
     return out
+
+
+# ----------------------------------------------------- QAT: the STE conv
+
+def weight_scale(w_eff: torch.Tensor) -> torch.Tensor:
+    """s_w = max(max |w| over (C, k, k), 1e-8) / 127 per output channel
+    (blocks.py:308-309)."""
+    return div127(torch.clamp_min(w_eff.abs().amax((1, 2, 3)), 1e-8))
+
+
+def _ste_round(v: torch.Tensor) -> torch.Tensor:
+    """round() with an identity gradient (JAX's `_ste_round`)."""
+    return v + (torch.round(v) - v).detach()
+
+
+def _clip127(v: torch.Tensor) -> torch.Tensor:
+    """clip(v, -127, 127) differentiated as `jnp.clip` is, min(max(v, -127),
+    127): gradient 1 inside, 0 outside, and 0.5 on a bound itself, where
+    max and min split a tie between their arguments (torch.maximum and
+    torch.minimum do, as jnp's do; torch.clamp passes 1 there). The value
+    that sets a dynamic scale always rounds onto a bound."""
+    lim = torch.full((), 127.0, dtype=v.dtype, device=v.device)
+    return torch.minimum(torch.maximum(v, -lim), lim)
+
+
+def int8_conv_ste_reference(x: torch.Tensor, w_eff: torch.Tensor, b_eff: torch.Tensor,
+                            stride: int, pad: int, act: str,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the QAT conv (blocks.py:322-339), differentiable:
+    x fake-quantized with the dynamic scale s_x = max(max |x|, 1e-8) / 127
+    and w_eff with s_w (both scales carry no gradient), clip(ste_round(x /
+    s_x), -127, 127) with JAX's mask, ste_round(w_eff / s_w), their float
+    conv in fp32, x (s_x s_w) + b_eff, cast to `out_dtype`, the
+    activation. x (F, C, H, W) fp32 or bf16, w_eff (N, C, k, k) and b_eff
+    (N,) fp32."""
+    xf = x.float()
+    s_x = dynamic_scale(xf.detach().abs().amax())
+    s_w = weight_scale(w_eff.detach())
+    xq = _clip127(_ste_round(xf / s_x))
+    wq = _ste_round(w_eff / s_w[:, None, None, None])
+    y = F.conv2d(xq, wq, stride=stride, padding=pad)
+    y = y * (s_x * s_w)[None, :, None, None] + b_eff[None, :, None, None]
+    return activation(y.to(out_dtype), act)
+
+
+def int8_conv_ste(x: torch.Tensor, w_eff: torch.Tensor, b_eff: torch.Tensor, *, stride: int,
+                  pad: int, act: str, out_dtype: torch.dtype) -> torch.Tensor:
+    """The QAT conv (JAX's `int8_eval(qat=True)`, blocks.py:322-339) on the
+    int8 kernels, differentiable in x, w_eff and b_eff with JAX's
+    straight-through gradients. Arguments as in `int8_conv_ste_reference`,
+    which a CPU tensor takes; a CUDA tensor runs `_Int8ConvSTE`."""
+    if x.device.type == "cpu":
+        return int8_conv_ste_reference(x, w_eff, b_eff, stride, pad, act, out_dtype)
+    _require(x.device.type == "cuda", "int8_conv_ste", f"unsupported device {x.device}")
+    return _Int8ConvSTE.apply(x, w_eff, b_eff, stride, pad, act, out_dtype)
+
+
+class _Int8ConvSTE(torch.autograd.Function):
+    """Forward: the serving path's launches on the live weights, so the
+    output is the dynamic int8 route's bit for bit (`abs_max`, the
+    quantize pass, `pack_int8_weight` of w_eff, `int8_conv` with the
+    activation in its epilogue): exact int32 sums, where JAX's fp32
+    fake-quant conv is exact only below 2^24. It keeps the int8 operands
+    (xq, wq: a quarter of x's fp32 bytes) and the scales.
+
+    Backward, the STE gradients, with g the upstream gradient through the
+    activation and gs = g (s_x s_w)[c]:
+      dx = conv_input_grad(gs, wq) m / s_x, m = 0.5 where |xq| = 127 and 1
+           elsewhere (jnp.clip's gradient; under a dynamic scale no value
+           rounds past 127, so the mask's 0 never occurs),
+      dw_eff = conv_weight_grad(xq, gs) / s_w,  db_eff = sum of g.
+    The two products are cuDNN's conv VJPs on the int8 values as fp32, as
+    JAX takes them from XLA's conv VJP. The activation stays in the
+    kernel's epilogue, which keeps the forward the serving launch itself;
+    its gradient needs the pre-activation, which the backward recomputes
+    by one more `int8_conv` launch with the identity epilogue on the kept
+    operands (bit-equal to the epilogue's own value before the
+    activation), rather than keeping an fp32 pre-activation tensor across
+    the step."""
+
+    @staticmethod
+    def forward(ctx, x, w_eff, b_eff, stride, pad, act, out_dtype):
+        x = x.contiguous()
+        amax = abs_max(x)
+        xq = quantize_int8_activation(x, amax, "dynamic")
+        s_w = weight_scale(w_eff.detach())
+        wq = pack_int8_weight(w_eff.detach().contiguous(), s_w)
+        b = b_eff.detach().float().contiguous()
+        ctx.save_for_backward(xq, wq, amax, s_w, b)
+        ctx.conf = (stride, pad, act, out_dtype, tuple(x.shape), x.dtype, tuple(w_eff.shape))
+        return int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act=act, out_dtype=out_dtype,
+                         amax=amax)
+
+    @staticmethod
+    def backward(ctx, g):
+        xq, wq, amax, s_w, b = ctx.saved_tensors
+        stride, pad, act, out_dtype, xshape, xdtype, wshape = ctx.conf
+        if act != "id":
+            pre = int8_conv(xq, wq, s_w, b, stride=stride, pad=pad, act="id",
+                            out_dtype=out_dtype, amax=amax)
+            with torch.enable_grad():
+                pre.requires_grad_(True)
+                g = torch.autograd.grad(activation(pre, act), pre, g)[0]
+        g = g.float()
+        s_x = dynamic_scale(amax)
+        gs = g * (s_x * s_w)[None, :, None, None]
+        C = xshape[1]
+        xf = xq[..., :C].permute(0, 3, 1, 2).float()
+        wf = wq[..., :C].permute(0, 3, 1, 2).float()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dxq = torch.nn.grad.conv2d_input(xshape, wf, gs, stride=stride, padding=pad)
+            m = torch.where(xf.abs() == 127, 0.5, 1.0)
+            dx = (dxq * m / s_x).to(xdtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(xf, wshape, gs, stride=stride, padding=pad)
+            dw = dw / s_w[:, None, None, None]
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 2, 3))
+        return dx, dw, db, None, None, None, None
 
 
 abs_max.launches = 0

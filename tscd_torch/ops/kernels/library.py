@@ -90,19 +90,26 @@ def _build(target: Path) -> None:
         obj.unlink()
 
 
+def _library_path() -> Path:
+    """The kernel library of the current sources and flags, built if
+    missing (call under `_lock`)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    target = _BUILD_DIR / f"libtscd_kernels_{h.hexdigest()[:16]}.so"
+    if not target.exists():
+        _build(target)
+    return target
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources():
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-        target = _BUILD_DIR / f"libtscd_kernels_{h.hexdigest()[:16]}.so"
-        if not target.exists():
-            _build(target)
+        target = _library_path()
         lib = ctypes.CDLL(str(target))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -120,3 +127,17 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(
             f"{what} launch failed: {lib.tscd_error_string(rc).decode()}")
+
+
+def torch_ops_library() -> Path:
+    """`csrc/torch_ops.cpp` (the C++ registration of the ops an exported
+    YOLOX meets, for a process without Python) built with g++ against
+    torch's headers and libraries and linked to the kernel library; built
+    at first use into `build/kernels/`, named by a hash of its source, its
+    flags and the kernel library. Returns its path. Never loaded into a
+    Python process, whose `tscd` ops `ops.py` registers."""
+    from ...utils.native import build_with_torch
+    with _lock:
+        kernels = _library_path()
+    return build_with_torch([_SRC_DIR / "torch_ops.cpp"], _BUILD_DIR, "libtscd_torch_ops",
+                            shared=True, extra=[str(kernels), f"-Wl,-rpath,{kernels.parent}"])

@@ -140,12 +140,17 @@ def _scratch(boxes_s: torch.Tensor):
 
 
 def pack(boxes_s: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """The pack alone (for checks): boxes (B, K, 4) fp32 in score order ->
-    tiles as `pack_plain` lays them out. A CPU tensor takes `pack_plain`;
-    a CUDA tensor launches the pack kernel."""
+    """The pack alone (for checks), the op `tscd::nms_pack` (`ops.py`):
+    boxes (B, K, 4) fp32 in score order -> tiles as `pack_plain` lays them
+    out. A CPU tensor takes `pack_plain`; a CUDA tensor launches the pack
+    kernel."""
     _check(boxes_s, None, "pack")
-    if boxes_s.device.type == "cpu":
-        return pack_plain(boxes_s, iou_threshold)
+    return torch.ops.tscd.nms_pack(boxes_s.detach(), float(iou_threshold))
+
+
+def launch_pack(boxes_s: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """One launch of the pack kernel on CUDA boxes (the op's CUDA
+    implementation)."""
     B, K = boxes_s.shape[:2]
     scratch, tiles = _scratch(boxes_s)
     valid = torch.ones(B, K, dtype=torch.bool, device=boxes_s.device)
@@ -162,12 +167,18 @@ def pack(boxes_s: torch.Tensor, iou_threshold: float) -> torch.Tensor:
 def nms_sorted(boxes_s: torch.Tensor, valid_s: torch.Tensor,
                iou_threshold: float) -> torch.Tensor:
     """boxes (B, K, 4) fp32 xyxy and valid (B, K) bool, both in score
-    order -> keep (B, K) bool in that order. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernels (K <= KMAX) and never
-    reads the host."""
+    order -> keep (B, K) bool in that order, through the op
+    `tscd::nms_sorted` (`ops.py`). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernels (K <= KMAX) and never reads the
+    host."""
     _check(boxes_s, valid_s, "nms_sorted")
-    if boxes_s.device.type == "cpu":
-        return nms_sorted_plain(boxes_s, valid_s, iou_threshold)
+    return torch.ops.tscd.nms_sorted(boxes_s.detach(), valid_s, float(iou_threshold))
+
+
+def launch_sorted(boxes_s: torch.Tensor, valid_s: torch.Tensor,
+                  iou_threshold: float) -> torch.Tensor:
+    """One launch of the pack and the walk on CUDA tensors (the op's CUDA
+    implementation)."""
     B, K = valid_s.shape
     scratch, _ = _scratch(boxes_s)
     keep = torch.empty(B, K, dtype=torch.bool, device=boxes_s.device)

@@ -2,7 +2,8 @@
 tscd_tpu/ops/postprocess.py), batched over a leading frame axis.
 
 Detection row convention: (x1, y1, x2, y2, obj, score, cls).
-`postprocess_dense` is the still-image detector's (YOLOX).
+`postprocess_dense` is the still-image detector's (YOLOX);
+`select_proposals` the reference's postpro_woclass.
 """
 
 from typing import NamedTuple
@@ -19,6 +20,16 @@ class Detections(NamedTuple):
     score: torch.Tensor   # (L, K) class prob (NMS key = obj*score)
     cls_id: torch.Tensor  # (L, K) int
     mask: torch.Tensor    # (L, K) bool
+
+
+class Proposals(NamedTuple):
+    boxes: torch.Tensor       # (B, P, 4) xyxy pixels
+    obj: torch.Tensor         # (B, P) objectness (sigmoided)
+    cls_conf: torch.Tensor    # (B, P) best class prob
+    cls_id: torch.Tensor      # (B, P) int
+    cls_scores: torch.Tensor  # (B, P, C) all class probs
+    idx: torch.Tensor         # (B, P) source anchor index
+    mask: torch.Tensor        # (B, P) bool validity
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -99,3 +110,40 @@ def postprocess_dense(decoded: torch.Tensor, num_classes: int, conf_thre: float 
     src = torch.gather(cand, 1, pick)
     return Detections(_take(boxes, src), _take(obj, src), _take(cls_conf, src),
                       _take(cls_id, src), out_scores > -float("inf"))
+
+
+_top_k = top_k
+
+
+def select_proposals_batch(decoded: torch.Tensor, num_classes: int, nms_thre: float = 0.75,
+                           top_k: int = 30, pre_topk: int = 750) -> Proposals:
+    """Proposal selection per image (tscd_tpu/ops/postprocess.py:34-61,
+    the reference's postpro_woclass, post_process.py:464) on decoded (B,
+    A, 5 + C) predictions (cxcywh pixels, sigmoided obj and classes): the
+    top `pre_topk` anchors by obj alone, class-aware NMS (the hand NMS
+    kernels) scored obj x best class prob, then the first `top_k`
+    survivors in that score order; fixed slots, the dead ones -inf-scored
+    and masked off. Ties go to the lower index, as lax.top_k breaks them."""
+    boxes = box_cxcywh_to_xyxy(decoded[..., :4])
+    obj = decoded[..., 4]
+    cls_scores = decoded[..., 5:5 + num_classes]
+    cls_conf, cls_id = cls_scores.amax(-1), cls_scores.argmax(-1)
+    top_obj, sort_idx = _top_k(obj, pre_topk)
+    nms_scores = top_obj * torch.gather(cls_conf, 1, sort_idx)
+    keep = batched_class_aware_nms(_take(boxes, sort_idx), nms_scores,
+                                   torch.gather(cls_id, 1, sort_idx),
+                                   torch.ones_like(nms_scores, dtype=torch.bool), nms_thre)
+    surv = torch.where(keep, nms_scores, torch.full_like(nms_scores, -float("inf")))
+    pick_scores, pick = _top_k(surv, top_k)
+    src = torch.gather(sort_idx, 1, pick)
+    return Proposals(_take(boxes, src), _take(obj, src), _take(cls_conf, src),
+                     _take(cls_id, src), _take(cls_scores, src), src,
+                     pick_scores > -float("inf"))
+
+
+def select_proposals(decoded: torch.Tensor, num_classes: int, nms_thre: float = 0.75,
+                     top_k: int = 30, pre_topk: int = 750) -> Proposals:
+    """`select_proposals_batch` on one image's (A, 5 + C) predictions;
+    each field without the batch axis."""
+    out = select_proposals_batch(decoded[None], num_classes, nms_thre, top_k, pre_topk)
+    return Proposals(*(t[0] for t in out))

@@ -23,7 +23,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from ..models.blocks import BaseConv, Int8Weights
+from ..models.blocks import BaseConv, Int8Weights, in_int8_scope, stamp_int8_paths
 
 BN_EPS = 1e-5
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
@@ -88,9 +88,12 @@ _INT8_TOKENS = itertools.count(1)
 
 
 def prepare_int8(model: nn.Module,
-                 state_dict: Optional[Mapping[str, torch.Tensor]] = None) -> nn.Module:
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 scope=None) -> nn.Module:
     """Prepares every groups-1 BaseConv of `model` for the int8 serving
-    mode (`models.blocks.int8_eval`), in place, and returns the model: the
+    mode (`models.blocks.int8_eval`), or with `scope` (module-path
+    prefixes, as `int8_eval(scope=...)` takes them) only those under it,
+    the others left unprepared; in place, and returns the model: the
     BN-folded fp32 weight and bias, as JAX folds them at each int8 forward
     (blocks.py:266-272: s = gamma / sqrt(var + 1e-5), w s, beta - mean s;
     a BaseConv whose BN is folded already takes its fp32 weight and bias,
@@ -102,9 +105,17 @@ def prepare_int8(model: nn.Module,
     (unfolded, or folded by `fuse_conv_bn_state_dict`), since JAX quantizes
     fp32 parameters and a bf16 model's conv weights were rounded on load.
     Without it they come from the model, whose conv weights must then be
-    fp32. Static scales come after it, by `set_int8_scales`."""
-    convs = [(n, m) for n, m in model.named_modules()
-             if isinstance(m, BaseConv) and m.conv.groups == 1]
+    fp32. Static scales come after it, by `set_int8_scales`. It also stamps
+    each BaseConv's path (`stamp_int8_paths`)."""
+    stamp_int8_paths(model)
+    scope = tuple(tuple(p) for p in scope) if scope is not None else None
+    convs = []
+    for n, m in model.named_modules():
+        if isinstance(m, BaseConv) and m.conv.groups == 1:
+            if in_int8_scope(m._int8_path, scope):
+                convs.append((n, m))
+            else:
+                m._int8 = None
     if state_dict is not None:
         sd = fuse_conv_bn_state_dict(state_dict) if any(
             m.bn is None and (n + "." if n else "") + "bn.running_mean" in state_dict
